@@ -1,0 +1,1 @@
+"""models of the torch port (see the package docstring)."""

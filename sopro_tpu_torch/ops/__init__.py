@@ -1,0 +1,1 @@
+"""ops of the torch port (see the package docstring)."""
