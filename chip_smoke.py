@@ -5,26 +5,38 @@
 
 Phases (each raises, so the script exits non-zero, on failure):
 1. require a CUDA device; print the card's name and power limit;
-2. build the three kernels from csrc/ with nvcc (sm_90a) and print the
-   build seconds and ptxas' register / shared-memory report;
-3. hold each kernel against its plain PyTorch version at the main path's
-   shapes (full Sopro v1.5 and Mimi widths, random weights from a seed with
-   the zero-initialised leaves filled, TF32 off) and time both with CUDA
-   events;
-4. drive the main path: `SoproTTS.from_random(device="cuda")`,
+2. build the kernels' sources from csrc/ with nvcc (sm_90a), one nvcc each,
+   all started together, and print the build seconds and ptxas' register /
+   shared-memory report;
+3. hold each of the four kernels against its plain PyTorch version at the
+   main paths' shapes (full Sopro v1.5 and Mimi widths, random weights from
+   a seed with the zero-initialised leaves filled, TF32 off) and time both
+   with CUDA events; K4 at 12, 32 and 802 25 Hz frames (B = 1) and 12 (B = 2);
+4. drive the synthesize path: `SoproTTS.from_random(device="cuda")`,
    `prepare_reference(ref_tokens_tq=...)`, three `synthesize` requests at
    max_frames=400 (launch counters zeroed just before, read just after),
-   plus a repeat that must be identical; print seconds and real-time factor.
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.
+   plus a repeat that must be identical; print seconds and real-time factor;
+5. drive the stream path: three `SoproTTSStreamer.stream` requests at
+   max_frames=400, chunk 6 (counters zeroed just before, read just after);
+   every chunk but the last is 6 frames, the frames add up to
+   `generate_tokens` at the same seed, samples are finite; print TTFA and
+   the mean ms per steady chunk; a single-chunk stream (chunk 401) equals
+   `synthesize` within 1e-4 of its peak;
+6. reference from audio: a 10 s WAV written from a `synthesize` output,
+   `encode_reference` / `prepare_reference(ref_audio_path=...)` on the card
+   (codes [T, 32] in range), and a stream from that reference.
+The last three lines are the card's name and power limit, the kernels' JSON
+record and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,7 +53,14 @@ KERNELS = {
     "ar_loop": ("sopro_tpu_torch/csrc/ar_loop.cu", "sopro_tpu/ops/pallas_ar_loop.py:363"),
     "nar_heads": ("sopro_tpu_torch/csrc/nar_heads.cu", "sopro_tpu/ops/pallas_nar.py:53"),
     "seanet": ("sopro_tpu_torch/csrc/seanet.cu", "sopro_tpu/codec/pallas_vocoder.py:353"),
+    "seanet_chunk": ("sopro_tpu_torch/csrc/seanet.cu", "sopro_tpu/codec/pallas_vocoder.py:383"),
 }
+CHUNK = 6  # stream() default chunk, AR frames
+STREAM_REQUESTS = (
+    ("Streaming from a graphics card, one small chunk at a time.", 4),
+    ("A second streamed request.", 5),
+    ("A third streamed request, with a longer text than the second one had.", 6),
+)
 
 
 def log(*a):
@@ -136,6 +155,45 @@ def check_seanet(mimi, dev, rng):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def check_seanet_chunk(mimi, dev, rng):
+    """K4 against its plain version on [halo frames ++ chunk] taken from the
+    Mimi decoder's own embeddings, with a full history, and at B = 2 with
+    rows 0 and 5 frames into their streams; timed at each shape."""
+    from sopro_tpu_torch.codec.mimi import decode_embeddings
+    from sopro_tpu_torch.codec.mimi_config import required_halo
+    from sopro_tpu_torch.codec.vocoder import seanet_decode_chunk, seanet_decode_chunk_plain
+
+    cfg = mimi.cfg
+    halo, hop25 = required_halo(cfg), int(np.prod(cfg.upsampling_ratios))
+    packed, params = mimi.packed_decoder(), mimi.p["decoder"]
+    out = {}
+    with torch.inference_mode():
+        for b, m25, hist in ((1, 2 * CHUNK, None), (2, 2 * CHUNK, None), (1, 32, None),
+                             (1, 2 * (MAX_FRAMES + 1), None), (2, 2 * CHUNK, (0, 5))):
+            frames = -(-(halo + m25) // 2)  # 12.5 Hz frames -> 2 embedding rows each
+            codes = torch.from_numpy(
+                rng.integers(0, cfg.codebook_size, (b, frames, cfg.num_quantizers))
+            ).to(dev)
+            ext = decode_embeddings(mimi.p, cfg, codes)[:, -(halo + m25):].contiguous()
+            n_hist = None if hist is None else torch.tensor(hist, dtype=torch.int32, device=dev)
+            got = seanet_decode_chunk(packed, cfg, ext, n_hist)
+            want = seanet_decode_chunk_plain(params, cfg, ext, n_hist)
+            torch.cuda.synchronize()
+            if tuple(got.shape) != (b, m25 * hop25):
+                raise AssertionError(f"seanet_chunk: shape {tuple(got.shape)}")
+            err, peak = float((got - want).abs().max()), float(want.abs().max())
+            what = f"seanet_chunk B={b} ext {tuple(ext.shape)} n_hist={hist or halo}"
+            if not err <= 1e-4 * peak:
+                raise AssertionError(f"{what}: max|err| {err} > 1e-4 * max|wav| {peak}")
+            ms = cuda_ms(lambda: seanet_decode_chunk(packed, cfg, ext, n_hist), 20)
+            plain_ms = cuda_ms(lambda: seanet_decode_chunk_plain(params, cfg, ext, n_hist), 20)
+            log(f"  {what} -> wav {tuple(got.shape)}: max|err| {err:.3e}, max|wav| {peak:.3e}; "
+                f"{ms:.3f} ms (kernel) vs {plain_ms:.3f} ms (plain)")
+            out[(b, m25, hist)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    worst = max(v["max_abs_err"] for v in out.values())
+    return dict(out[(1, 2 * CHUNK, None)], max_abs_err=worst)
+
+
 def check_ar_loop(model, mimi, dev, rng):
     from sopro_tpu_torch.engine import Engine
     from sopro_tpu_torch.models import sopro as M
@@ -197,6 +255,19 @@ def check_ar_loop(model, mimi, dev, rng):
     return out
 
 
+def launched(path: str, needed):
+    """The launch counts since the last reset; raises unless every kernel in
+    `needed` launched."""
+    from sopro_tpu_torch import kernels
+
+    launches = dict(kernels.LAUNCHES)
+    log(f"  launches during the {path} run: {launches}")
+    missing = [k for k in needed if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the {path} path did not launch: {missing}")
+    return launches
+
+
 def drive_main_path(dev, rng, cfg, mcfg):
     from sopro_tpu_torch import kernels
     from sopro_tpu_torch.tts import SoproTTS
@@ -225,17 +296,99 @@ def drive_main_path(dev, rng, cfg, mcfg):
         results.append((text, seed, frames, sec, sec / audio_s))
         log(f"  request seed={seed}: {frames} frames, {audio_s:.2f} s audio in {sec:.3f} s, "
             f"RTF {sec / audio_s:.4f}")
-    launches = dict(kernels.LAUNCHES)
-    log(f"  launches during the run: {launches}")
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"main path did not launch: {missing}")
+    launches = launched("synthesize", ("ar_loop", "nar_heads", "seanet"))
     text, seed = REQUESTS[0]
     again = tts.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=seed)
     first = tts.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=seed)
     if not np.array_equal(again, first):
         raise AssertionError("synthesize: a repeated request gave a different waveform")
-    return launches, results
+    return launches, tts, ref
+
+
+def run_stream(tts, text, ref, seed, chunk=CHUNK):
+    """One streamed request -> (chunks, ttfa s, host seconds between chunks)."""
+    from sopro_tpu_torch.streaming import SoproTTSStreamer, StreamConfig
+
+    streamer = SoproTTSStreamer(tts, StreamConfig(chunk_frames=chunk))
+    chunks, gaps = [], []
+    t = time.perf_counter()
+    for c in streamer.stream(text, ref=ref, max_frames=MAX_FRAMES, chunk_frames=chunk, seed=seed):
+        now = time.perf_counter()
+        chunks.append(c)
+        gaps.append(now - t)
+        t = now
+    return chunks, streamer.last_ttfa_s, gaps[1:]
+
+
+def check_stream(chunks, tts, text, ref, seed, what):
+    """Every chunk but the last is CHUNK frames, all finite, and the frames
+    add up to generate_tokens' at the same seed. Returns the frame count."""
+    hop = tts.engine.mimi_cfg.hop_length
+    for c in chunks[:-1]:
+        if c.shape != (1, CHUNK * hop) or c.dtype != np.float32:
+            raise AssertionError(f"{what}: chunk {c.shape} {c.dtype}, want (1, {CHUNK * hop})")
+    for c in chunks[-1:]:
+        if c.shape[0] != 1 or not 0 < c.shape[1] <= CHUNK * hop or c.shape[1] % hop:
+            raise AssertionError(f"{what}: last chunk {c.shape}")
+    if not all(np.isfinite(c).all() for c in chunks):
+        raise AssertionError(f"{what}: non-finite samples")
+    frames = sum(c.shape[1] for c in chunks) // hop
+    want = tts.generate_tokens(text, ref, max_frames=MAX_FRAMES, seed=seed).shape[0]
+    if frames != want:
+        raise AssertionError(f"{what}: {frames} frames streamed, generate_tokens gives {want}")
+    return frames
+
+
+def drive_stream_path(tts, ref):
+    from sopro_tpu_torch import kernels
+
+    run_stream(tts, "warm up", ref, 0)  # first-call costs outside the run
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    runs = [(text, seed, *run_stream(tts, text, ref, seed)) for text, seed in STREAM_REQUESTS]
+    launches = launched("stream", ("ar_loop", "nar_heads", "seanet_chunk"))
+    for text, seed, chunks, ttfa, gaps in runs:
+        frames = check_stream(chunks, tts, text, ref, seed, f"stream seed={seed}")
+        if len(chunks) < 2:
+            raise AssertionError(f"stream seed={seed}: {len(chunks)} chunk(s), no steady state")
+        log(f"  stream seed={seed}: {frames} frames in {len(chunks)} chunks; TTFA "
+            f"{ttfa * 1e3:.2f} ms; steady chunk mean {statistics.mean(gaps) * 1e3:.2f} ms, "
+            f"median {statistics.median(gaps) * 1e3:.2f} ms (6 frames = 0.48 s of audio)")
+
+    text, seed = STREAM_REQUESTS[0]
+    one, _, _ = run_stream(tts, text, ref, seed, chunk=MAX_FRAMES + 1)
+    whole = tts.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=seed)
+    if len(one) != 1 or one[0].shape != whole.shape:
+        raise AssertionError(f"single-chunk stream: {[c.shape for c in one]} vs {whole.shape}")
+    err, peak = float(np.abs(one[0] - whole).max()), float(np.abs(whole).max())
+    log(f"  single-chunk stream vs synthesize: {whole.shape[1]} samples, max|err| {err:.3e}, "
+        f"max|wav| {peak:.3e}")
+    if not err <= 1e-4 * peak:
+        raise AssertionError(f"single-chunk stream: max|err| {err} > 1e-4 * max|wav| {peak}")
+    return launches
+
+
+def drive_reference_audio(tts, ref):
+    """A 10 s WAV from a synthesize output -> Mimi encode on the card ->
+    prepare_reference -> a stream from that reference."""
+    mcfg, cfg = tts.engine.mimi_cfg, tts.cfg
+    wav = tts.synthesize(REQUESTS[1][0], ref=ref, max_frames=MAX_FRAMES, seed=REQUESTS[1][1])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reference.wav")
+        clip = wav[:, : 10 * mcfg.sampling_rate]
+        tts.save_wav(path, clip * (0.5 / max(float(np.abs(clip).max()), 1e-12)))  # PCM16-audible
+        t0 = time.perf_counter()
+        codes = tts.encode_reference(ref_audio_path=path)
+        log(f"  encode_reference: {codes.shape} codes in {time.perf_counter() - t0:.3f} s")
+        if codes.ndim != 2 or codes.shape[1] != cfg.num_codebooks or codes.shape[0] <= 0:
+            raise AssertionError(f"encode_reference: codes {codes.shape}")
+        if codes.min() < 0 or codes.max() >= cfg.codebook_size:
+            raise AssertionError(f"encode_reference: codes out of [0, {cfg.codebook_size})")
+        audio_ref = tts.prepare_reference(ref_audio_path=path)
+    text, seed = STREAM_REQUESTS[1]
+    chunks, ttfa, _ = run_stream(tts, text, audio_ref, seed)
+    frames = check_stream(chunks, tts, text, audio_ref, seed, "stream from reference audio")
+    log(f"  stream from the audio reference: {frames} frames, TTFA {ttfa * 1e3:.2f} ms")
 
 
 def main() -> int:
@@ -256,7 +409,7 @@ def main() -> int:
     log("[2] building kernels")
     build_s = kernels.build()
     log(f"  build: {build_s:.2f} s")
-    for name in kernels.KERNELS:
+    for name in kernels.SOURCES:
         for line in kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
@@ -268,14 +421,21 @@ def main() -> int:
     stats = {
         "nar_heads": check_nar_heads(model, dev, rng),
         "seanet": check_seanet(mimi, dev, rng),
+        "seanet_chunk": check_seanet_chunk(mimi, dev, rng),
         "ar_loop": check_ar_loop(model, mimi, dev, rng),
     }
     del model, mimi
     torch.cuda.empty_cache()
 
-    log("[4] main path: SoproTTS.from_random -> prepare_reference -> synthesize x3")
-    launches, _ = drive_main_path(dev, rng, cfg, mcfg)
+    log("[4] synthesize path: SoproTTS.from_random -> prepare_reference -> synthesize x3")
+    synth_launches, tts, ref = drive_main_path(dev, rng, cfg, mcfg)
+    log(f"[5] stream path: SoproTTSStreamer.stream x3, max_frames={MAX_FRAMES}, chunk {CHUNK}")
+    stream_launches = drive_stream_path(tts, ref)
+    log("[6] reference from audio: WAV -> encode_reference -> prepare_reference -> stream")
+    drive_reference_audio(tts, ref)
 
+    # each kernel's count from the path it belongs to (K4: the stream)
+    launches = dict(synth_launches, seanet_chunk=stream_launches["seanet_chunk"])
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": stats[name]["max_abs_err"],

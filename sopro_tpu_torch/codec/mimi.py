@@ -1,11 +1,14 @@
-"""Mimi decode as plain PyTorch functions (counterpart: the decode half of
+"""Mimi encode and decode as plain PyTorch functions (counterpart:
 sopro_tpu/codec/mimi_jax.py), NHC layout [B, T, C].
 
-RVQ dequant through the load-time-folded tables, the 12.5 -> 25 Hz grouped
-transpose-conv upsample (polyphase depthwise), the sliding-window causal
-decoder transformer with RoPE and LayerScale, and the SEANet decoder
-(`seanet_apply`, the plain version of kernel K3; see codec/vocoder.py).
-Attention is plain matmul + softmax in float32, as in the JAX package.
+Decode: RVQ dequant through the load-time-folded tables, the 12.5 -> 25 Hz
+grouped transpose-conv upsample (polyphase depthwise), the sliding-window
+causal decoder transformer with RoPE and LayerScale, and the SEANet decoder
+(`seanet_apply`, the plain version of kernels K3 and K4; see
+codec/vocoder.py). Encode: the SEANet encoder, the encoder transformer, the
+stride-2 replicate-padded downsample and the split RVQ (nearest code by
+argmax of 2 x.e - |e|^2, ties to the lowest index). Attention is plain
+matmul + softmax in float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from sopro_tpu_torch.codec.mimi_config import (
     MimiConfig,
     Plan,
     decoder_plan,
+    downsample_spec,
+    encoder_plan,
     upsample_spec,
 )
 from sopro_tpu_torch.models.base import ParamModule
@@ -208,6 +213,48 @@ def rvq_decode(q: Params, codes_btq: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _nearest_code(embed_vd: torch.Tensor, x_btd: torch.Tensor) -> torch.Tensor:
+    """argmin_v |x - e_v|^2 == argmax_v (2 x.e_v - |e_v|^2) -> [B, T] int32."""
+    e32 = embed_vd.float()
+    score = 2.0 * torch.einsum("btd,vd->btv", x_btd.float(), e32) - torch.sum(e32 * e32, dim=-1)
+    return torch.argmax(score, dim=-1).to(torch.int32)
+
+
+def rvq_encode(
+    q: Params, cfg: MimiConfig, emb_btd: torch.Tensor, num_quantizers: Optional[int] = None
+) -> torch.Tensor:
+    """embeddings [B, T, hidden] -> codes [B, T, Q] int32: the semantic and
+    the acoustic RVQ both start from the raw embedding (the splits share no
+    residual)."""
+    nq = int(num_quantizers or cfg.num_quantizers)
+    ns = int(cfg.num_semantic_quantizers)
+
+    def run_rvq(in_proj, embeds, n):
+        res = emb_btd @ in_proj
+        out = []
+        for i in range(n):
+            idx = _nearest_code(embeds[i], res)
+            res = res - embeds[i][idx.long()]
+            out.append(idx)
+        return out
+
+    codes = run_rvq(q["in_proj_sem"], q["embed"][:ns], ns)
+    if nq > ns:
+        codes += run_rvq(q["in_proj_ac"], q["embed"][ns:], nq - ns)
+    return torch.stack(codes, dim=-1)
+
+
+def mimi_encode(
+    p: Params, cfg: MimiConfig, wav_bs: torch.Tensor, num_quantizers: Optional[int] = None
+) -> torch.Tensor:
+    """waveform [B, S] -> codes [B, T, Q]: SEANet encoder -> encoder
+    transformer -> stride-2 downsample -> RVQ."""
+    x = seanet_apply(p["encoder"], encoder_plan(cfg), wav_bs[..., None])  # [B, T25, H]
+    x = mimi_transformer(p["enc_tf"], cfg, x, torch.arange(x.shape[1], device=x.device))
+    x = mimi_conv(p["downsample"], x, downsample_spec(cfg))  # [B, T12.5, H]
+    return rvq_encode(p["quantizer"], cfg, x, num_quantizers)
+
+
 def decode_embeddings(
     p: Params, cfg: MimiConfig, codes_btq: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
@@ -229,9 +276,10 @@ def mimi_decode(
     return seanet_apply(p["decoder"], decoder_plan(cfg), emb)[..., 0]
 
 
-class MimiDecoder(ParamModule):
-    """Mimi decode parameters: {"quantizer": {"dec_embed"}, "upsample",
-    "dec_tf", "decoder"} in the JAX package's layout."""
+class MimiCodec(ParamModule):
+    """Mimi parameters in the JAX package's layout: {"encoder", "enc_tf",
+    "downsample", "quantizer": {"embed", "dec_embed", "in_proj_sem",
+    "in_proj_ac"}, "upsample", "dec_tf", "decoder"}. Calling it decodes."""
 
     def __init__(self, tree: Params, cfg: MimiConfig):
         super().__init__(tree)
@@ -243,7 +291,8 @@ class MimiDecoder(ParamModule):
         return super()._apply(fn, *args, **kwargs)
 
     def packed_decoder(self):
-        """The SEANet weights in kernel K3's layout (built once per device)."""
+        """The SEANet weights in kernels K3's and K4's layout (built once per
+        device)."""
         if self._packed is None:
             from sopro_tpu_torch.codec.vocoder import pack_seanet_decoder
 

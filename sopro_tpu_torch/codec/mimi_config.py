@@ -1,8 +1,7 @@
-"""Mimi codec configuration and the static SEANet decoder plan
-(counterpart: sopro_tpu/codec/mimi_config.py; numpy/stdlib only).
-
-Only the decoder half is ported: the encoder plan and the downsample spec
-arrive with Mimi encode (reference from audio).
+"""Mimi codec configuration and the static SEANet encoder and decoder plans
+(counterpart: sopro_tpu/codec/mimi_config.py; stdlib only), plus
+`required_halo`, the decoder's left context in 25 Hz frames (counterpart:
+sopro_tpu/codec/pallas_vocoder.py::required_halo).
 """
 
 from __future__ import annotations
@@ -83,6 +82,32 @@ def _resnet_plan(cfg: MimiConfig, dim: int, dilations: Tuple[int, int]) -> Tuple
     )
 
 
+def encoder_plan(cfg: MimiConfig) -> Plan:
+    """SEANet encoder layer plan."""
+    plan = [
+        (CONV, {"in": cfg.audio_channels, "out": cfg.num_filters, "k": cfg.kernel_size,
+                "stride": 1, "dilation": 1, "pad_mode": "constant"})
+    ]
+    scaling = 1
+    for ratio in reversed(cfg.upsampling_ratios):
+        current = scaling * cfg.num_filters
+        for j in range(cfg.num_residual_layers):
+            plan.append(_resnet_plan(cfg, current, (cfg.dilation_growth_rate ** j, 1)))
+        plan.append((ELU, {}))
+        plan.append(
+            (CONV, {"in": current, "out": current * 2, "k": ratio * 2,
+                    "stride": ratio, "dilation": 1, "pad_mode": "constant"})
+        )
+        scaling *= 2
+    plan.append((ELU, {}))
+    plan.append(
+        (CONV, {"in": scaling * cfg.num_filters, "out": cfg.hidden_size,
+                "k": cfg.last_kernel_size, "stride": 1, "dilation": 1,
+                "pad_mode": "constant"})
+    )
+    return tuple(plan)
+
+
 def decoder_plan(cfg: MimiConfig) -> Plan:
     """SEANet decoder layer plan."""
     scaling = int(2 ** len(cfg.upsampling_ratios))
@@ -112,8 +137,27 @@ def decoder_plan(cfg: MimiConfig) -> Plan:
     return tuple(plan)
 
 
+def downsample_spec(cfg: MimiConfig) -> Dict[str, Any]:
+    """25 Hz -> 12.5 Hz stride-2 conv with replicate padding."""
+    k = 2 * int(cfg.encodec_frame_rate / cfg.frame_rate)
+    return {"in": cfg.hidden_size, "out": cfg.hidden_size, "k": k, "stride": 2,
+            "dilation": 1, "pad_mode": "replicate"}
+
+
 def upsample_spec(cfg: MimiConfig) -> Dict[str, Any]:
     """12.5 Hz -> 25 Hz grouped stride-2 transpose conv."""
     k = 2 * int(cfg.encodec_frame_rate / cfg.frame_rate)
     return {"in": cfg.hidden_size, "out": cfg.hidden_size, "k": k, "stride": 2,
             "groups": cfg.upsample_groups}
+
+
+def required_halo(cfg: MimiConfig) -> int:
+    """Left-context frames (at the decoder-input rate, 25 Hz) that cover the
+    whole causal decoder stack's receptive field: walk the plan backwards
+    (a conv of kernel k consumes k-1 rows; a transpose conv of stride s turns
+    `need` output rows into ceil(need/s)+1 input rows). 8 at production."""
+    need = int(cfg.last_kernel_size) - 1
+    for ratio in reversed(cfg.upsampling_ratios):
+        need += int(cfg.residual_kernel_size) - 1
+        need = math.ceil(need / int(ratio)) + 1
+    return need + int(cfg.kernel_size) - 1

@@ -1,11 +1,23 @@
-"""SEANet decoder: kernel K3 and its plain version.
+"""SEANet decoder: kernels K3 and K4 and their plain versions.
 
-Replaces sopro_tpu/codec/pallas_vocoder.py::seanet_decode_pallas (and its
-`mimi_decode_with_slabs`). `seanet_decode` maps post-transformer embeddings
-[B, T25, H] to a waveform [B, T25 * 960]: on CUDA tensors through the
-hand-written convolution kernels of `csrc/seanet.cu`, one launch per conv of
-the decoder plan with activations crossing device memory between them; on
-CPU tensors through `mimi.seanet_apply`.
+K3 replaces sopro_tpu/codec/pallas_vocoder.py::seanet_decode_pallas (and its
+`mimi_decode_with_slabs`): `seanet_decode` maps post-transformer embeddings
+[B, T25, H] to a waveform [B, T25 * 960] from zero history. K4 replaces
+`seanet_decode_pallas_chunk`: `seanet_decode_chunk` maps one streaming chunk
+with its real left context, ext [B, halo + m25, H], to the chunk's waveform
+[B, m25 * 960]. On CUDA tensors both run the hand-written convolution kernels
+of `csrc/seanet.cu` (causal and valid mode), one launch per conv of the
+decoder plan with activations crossing device memory between them; on CPU
+tensors both run `mimi.seanet_apply` (K4 keeping the last m25 * 960 samples,
+which equal the valid-mode result because the stack's receptive field is
+`halo` frames).
+
+Early in a stream the history holds only `n_hist` < halo real frames; the
+rows before them are no signal but the causal zero padding of every conv.
+`seanet_decode_chunk` takes `n_hist` per batch row: the plain version then
+decodes ext[b, halo - n_hist[b]:] causally, and the kernel reads each conv's
+input rows before the stream's start as zero (`start_table`). Without it a
+zero history would carry the conv biases into the first chunk.
 
 Kernel layout (`pack_seanet_decoder`): a list of conv ops, each
 {"w": [taps, Cin, Cout] contiguous (a [taps*Cin, Cout] GEMM operand), "b",
@@ -13,19 +25,24 @@ Kernel layout (`pack_seanet_decoder`): a list of conv ops, each
 next conv's `elu_in`; a transpose conv with k = 2s becomes `phases` = s
 two-tap convs, phase r using [w[s-1-r], w[2s-1-r]] and writing rows m*s + r;
 a residual block is a k3 conv into a hidden buffer and a k1 conv that adds
-the block input.
+the block input. "start_table" [halo + 1, n_ops] int32: for a chunk whose
+history starts at ext row s0, row s0 holds the first input row of each op
+that lies at or after the stream's start.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List
+import math
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from sopro_tpu_torch import kernels
 from sopro_tpu_torch.codec.mimi import decode_embeddings, seanet_apply
-from sopro_tpu_torch.codec.mimi_config import CONV, CONVT, ELU, RESNET, MimiConfig, decoder_plan
+from sopro_tpu_torch.codec.mimi_config import (
+    CONV, CONVT, ELU, RESNET, MimiConfig, decoder_plan, required_halo,
+)
 
 
 def pack_seanet_decoder(dec_params: List[Dict], cfg: MimiConfig) -> Dict[str, Any]:
@@ -59,28 +76,97 @@ def pack_seanet_decoder(dec_params: List[Dict], cfg: MimiConfig) -> Dict[str, An
                         "dil": int(s1["dilation"]), "phases": 1, "elu_in": True,
                         "residual": True})
         elu_next = False
-    return {"params": dec_params, "ops": ops}
+    return {"params": dec_params, "ops": ops, "start_table": _start_table(ops, cfg)}
+
+
+def _start_table(ops: List[Dict[str, Any]], cfg: MimiConfig) -> torch.Tensor:
+    """Row s0 -> each op's first input row at or after the stream's start,
+    valid mode: a conv's output row c ends at input row c + (taps-1)*dil,
+    a transpose conv's block m at input row m + 1."""
+    rows = []
+    for s0 in range(required_halo(cfg) + 1):
+        s, row = s0, []
+        for op in ops:
+            row.append(s)
+            taps = op["w"].shape[-3]
+            if op["phases"] > 1:
+                s = max(0, s - 1) * op["phases"]
+            else:
+                s = max(0, s - (taps - 1) * op["dil"])
+        rows.append(row)
+    return torch.tensor(rows, dtype=torch.int32, device=ops[0]["w"].device)
+
+
+def _op_shape(op: Dict[str, Any], cin: int):
+    """(taps, Cout) of a packed conv; raises if its input width differs."""
+    w = op["w"]
+    taps, wcin, cout = w.shape[-3:]
+    if wcin != cin:
+        raise ValueError(f"seanet kernel: input has {cin} channels, weight {wcin}")
+    return int(taps), int(cout)
 
 
 def _conv_cuda(op: Dict[str, Any], x: torch.Tensor, residual) -> torch.Tensor:
+    """K3's causal conv: y has x's length (times the phase count)."""
     b, t_in, cin = x.shape
-    w = op["w"]
+    taps, cout = _op_shape(op, cin)
     phases = int(op["phases"])
-    taps, wcin, cout = (w.shape[1], w.shape[2], w.shape[3]) if phases > 1 else w.shape
-    if wcin != cin:
-        raise ValueError(f"seanet kernel: input has {cin} channels, weight {wcin}")
     y = torch.empty((b, t_in * phases, cout), dtype=torch.float32, device=x.device)
     fn = kernels.lib("seanet").sopro_seanet_conv
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
-        kernels.ptr(x), kernels.ptr(w), kernels.ptr(op["b"]),
+        kernels.ptr(x), kernels.ptr(op["w"]), kernels.ptr(op["b"]),
         None if residual is None else kernels.ptr(residual), kernels.ptr(y),
-        b, t_in, cin, cout, int(taps), int(op["dil"]), int(op["elu_in"]), phases,
+        b, t_in, cin, cout, taps, int(op["dil"]), int(op["elu_in"]), phases,
         kernels.stream_ptr(x.device),
     )
     kernels.check(rc, "seanet")
     return y
+
+
+def _conv_valid_cuda(
+    op: Dict[str, Any], x: torch.Tensor, residual, start: Optional[torch.Tensor],
+    keep: Optional[int] = None,
+) -> torch.Tensor:
+    """K4's valid-mode conv: output row t reads input rows t + j*dil, so
+    T_in - (taps-1)*dil rows come out (times the phase count); `keep` writes
+    only the last `keep` of them. A residual adds the block input's last
+    rows (those its convs consumed the rows before of). `start` [B] (a
+    column of the start table, or None): input rows before it read as 0."""
+    b, t_in, cin = x.shape
+    taps, cout = _op_shape(op, cin)
+    phases, dil = int(op["phases"]), int(op["dil"])
+    t_valid = t_in - (taps - 1) * dil
+    t_out = t_valid if keep is None else int(keep)
+    if t_out <= 0 or t_out > t_valid:
+        raise ValueError(f"seanet_decode_chunk: {t_in} input rows give {t_valid} valid rows, "
+                         f"{t_out} asked for")
+    res_t = 0 if residual is None else int(residual.shape[1])
+    y = torch.empty((b, t_out * phases, cout), dtype=torch.float32, device=x.device)
+    fn = kernels.lib("seanet").sopro_seanet_conv_valid
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    rc = fn(
+        kernels.ptr(x), kernels.ptr(op["w"]), kernels.ptr(op["b"]),
+        None if residual is None else kernels.ptr(residual), kernels.ptr(y),
+        b, t_in, t_out, t_valid - t_out, cin, cout, taps, dil, int(op["elu_in"]), phases,
+        res_t, res_t - t_out, None if start is None else kernels.ptr(start),
+        0 if start is None else int(start.stride(0)), kernels.stream_ptr(x.device),
+    )
+    kernels.check(rc, "seanet_chunk")
+    return y
+
+
+def _check_cuda_inputs(name: str, packed: Dict[str, Any], x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise ValueError(f"{name}: input must be float32 [B, T, H]")
+    for op in packed["ops"]:
+        if op["w"].device != x.device or op["w"].dtype != torch.float32:
+            raise ValueError(f"{name}: weights must be float32 on the input's device")
 
 
 def seanet_decode(packed: Dict[str, Any], cfg: MimiConfig, emb: torch.Tensor) -> torch.Tensor:
@@ -88,13 +174,7 @@ def seanet_decode(packed: Dict[str, Any], cfg: MimiConfig, emb: torch.Tensor) ->
     on CUDA tensors, `seanet_apply` on CPU tensors."""
     if emb.device.type == "cpu":
         return seanet_apply(packed["params"], decoder_plan(cfg), emb)[..., 0]
-    if emb.device.type != "cuda":
-        raise ValueError(f"seanet_decode: unsupported device {emb.device}")
-    if emb.dtype != torch.float32 or emb.dim() != 3:
-        raise ValueError("seanet_decode: emb must be float32 [B, T, H]")
-    for op in packed["ops"]:
-        if op["w"].device != emb.device or op["w"].dtype != torch.float32:
-            raise ValueError("seanet_decode: weights must be float32 on the input's device")
+    _check_cuda_inputs("seanet_decode", packed, emb)
     x = emb.contiguous()
     block_in = None
     for op in packed["ops"]:
@@ -104,6 +184,55 @@ def seanet_decode(packed: Dict[str, Any], cfg: MimiConfig, emb: torch.Tensor) ->
             block_in = x
             x = _conv_cuda(op, x, None)
     kernels.LAUNCHES["seanet"] += 1
+    return x[..., 0]
+
+
+def seanet_decode_chunk_plain(
+    params: List[Dict], cfg: MimiConfig, ext: torch.Tensor, n_hist: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """K4's plain version: the last m25 * hop25 samples of `seanet_apply`
+    over ext, per batch row over ext[b, halo - n_hist[b]:] when given."""
+    n_out = (ext.shape[1] - required_halo(cfg)) * math.prod(int(r) for r in cfg.upsampling_ratios)
+    plan = decoder_plan(cfg)
+    if n_hist is None:
+        return seanet_apply(params, plan, ext)[:, -n_out:, 0]
+    first = required_halo(cfg) - torch.clamp(n_hist, 0, required_halo(cfg))
+    return torch.cat([seanet_apply(params, plan, ext[i:i + 1, s0:])[:, -n_out:, 0]
+                      for i, s0 in enumerate(first.tolist())])
+
+
+def seanet_decode_chunk(
+    packed: Dict[str, Any], cfg: MimiConfig, ext: torch.Tensor,
+    n_hist: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """ext [B, halo + m25, H] (`halo` = required_halo(cfg) frames of left
+    context, then the chunk) -> the chunk's wav [B, m25 * hop25]: the
+    valid-mode kernel on CUDA tensors, `seanet_decode_chunk_plain` on CPU
+    tensors. `n_hist` [B] int: how many of the halo rows are real (the rest
+    precede the stream's start); None: all of them."""
+    halo = required_halo(cfg)
+    n_out = (ext.shape[1] - halo) * math.prod(int(r) for r in cfg.upsampling_ratios)
+    if n_out <= 0:
+        raise ValueError(f"seanet_decode_chunk: ext has {ext.shape[1]} frames, "
+                         f"needs more than the halo {halo}")
+    if ext.device.type == "cpu":
+        return seanet_decode_chunk_plain(packed["params"], cfg, ext, n_hist)
+    _check_cuda_inputs("seanet_decode_chunk", packed, ext)
+    starts = None
+    if n_hist is not None:
+        first = halo - torch.clamp(n_hist.to(ext.device).long(), 0, halo)
+        starts = packed["start_table"][first]  # [B, n_ops]
+    x = ext.contiguous()
+    block_in = None
+    ops = packed["ops"]
+    for i, op in enumerate(ops):
+        start = None if starts is None else starts[:, i]
+        if op["residual"]:
+            x = _conv_valid_cuda(op, x, block_in, start)
+        else:
+            block_in = x
+            x = _conv_valid_cuda(op, x, None, start, keep=n_out if i == len(ops) - 1 else None)
+    kernels.LAUNCHES["seanet_chunk"] += 1
     return x[..., 0]
 
 

@@ -1,13 +1,15 @@
 """Build, load and count the hand-written CUDA kernels under `csrc/`.
 
-Each `csrc/<name>.cu` exposes a plain C function and is compiled by nvcc for
-`sm_90a` into its own shared library under `<repo>/build/kernels/`, named by
-a hash of its sources and flags, at first use; a changed source rebuilds.
-The libraries are loaded with ctypes: pointers travel as `c_void_p`
-(tensor.data_ptr()), the stream as `c_void_p`, and every C entry point
-returns `cudaGetLastError()` after its launches, which the caller turns into
-an exception.
+Each `csrc/<source>.cu` exposes plain C functions and is compiled by nvcc
+for `sm_90a` into its own shared library under `<repo>/build/kernels/`,
+named by a hash of its sources and flags, at first use; a changed source
+rebuilds. The libraries are loaded with ctypes: pointers travel as
+`c_void_p` (tensor.data_ptr()), the stream as `c_void_p`, and every C entry
+point returns `cudaGetLastError()` after its launches, which the caller
+turns into an exception.
 
+`KERNELS` names the kernels, each counted on its own; `SOURCES` the files
+they are built from (K3 `seanet` and K4 `seanet_chunk` share `seanet.cu`).
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it on the
 device; `reset_launches()` zeroes the counts. `LAUNCH_INFO` keeps what a
 kernel chose at launch time (the AR loop's cluster size).
@@ -26,7 +28,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("ar_loop", "nar_heads", "seanet")
+KERNELS = ("ar_loop", "nar_heads", "seanet", "seanet_chunk")
+SOURCES = ("ar_loop", "nar_heads", "seanet")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -86,9 +89,9 @@ def _finish_build(name: str, job) -> None:
     os.replace(tmp, out)
 
 
-def build(names: Iterable[str] = KERNELS) -> float:
-    """Compile every named kernel that is not built yet (in parallel);
-    returns the wall seconds spent."""
+def build(names: Iterable[str] = SOURCES) -> float:
+    """Compile every named source that is not built yet (one nvcc each, all
+    started together); returns the wall seconds spent."""
     t0 = time.perf_counter()
     jobs = {name: _start_build(name) for name in names}
     for name, job in jobs.items():
@@ -98,13 +101,13 @@ def build(names: Iterable[str] = KERNELS) -> float:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output (ptxas register / shared-memory report) for a kernel."""
+    """nvcc's output (ptxas register / shared-memory report) for a source."""
     path = _lib_path(name).with_suffix(".log")
     return path.read_text() if path.exists() else ""
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
+    """The loaded library of source `name`, built first if needed."""
     if name not in _LIBS:
         build([name])
         _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))

@@ -34,8 +34,11 @@ def _stage_hidden(
     cond: torch.Tensor,
     prev_emb: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    head_tail: Optional[int] = None,
 ) -> torch.Tensor:
-    """One stage's trunk -> pre-head hidden z [B, T, head_dim]."""
+    """One stage's trunk -> pre-head hidden z [B, T', head_dim]; with
+    `head_tail` only the last `head_tail` frames (the trunk still runs the
+    whole window: its convs are non-causal)."""
     sid = cfg.stage_order().index(stage)
     w = torch.softmax(p["mix"][stage].float(), dim=0).to(cond.dtype)
     x = w[0] * cond + w[1] * prev_emb
@@ -44,6 +47,8 @@ def _stage_hidden(
     for i, bp in enumerate(p["blocks"]):
         x = ssmlite(bp, x, kernel_size=cfg.nar_kernel_size, dilation=dils[i],
                     causal=False, mask=mask)
+    if head_tail is not None:
+        x = x[:, -int(head_tail):]
     return linear(p["pre"], rmsnorm(p["norm"], x))
 
 
@@ -62,9 +67,10 @@ def nar_stage_preds(
     prev_emb: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     stacks=None,
+    head_tail: Optional[int] = None,
 ) -> torch.Tensor:
-    """One stage's greedy tokens [B, T, H] int32 (kernel K2 on CUDA)."""
-    z = _stage_hidden(p, cfg, stage, cond, prev_emb, mask).contiguous()
+    """One stage's greedy tokens [B, T', H] int32 (kernel K2 on CUDA)."""
+    z = _stage_hidden(p, cfg, stage, cond, prev_emb, mask, head_tail).contiguous()
     hid, w_stack, b_stack = stacks if stacks is not None else _stage_head_stacks(p, stage)
     return nar_heads_argmax(z, hid, w_stack, b_stack)
 
@@ -79,27 +85,36 @@ def nar_refine(
     rvq1_bt: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     stacks: Optional[Dict[str, tuple]] = None,
+    head_tail: Optional[int] = None,
 ) -> torch.Tensor:
     """Fill codebooks 2..Q given codebook-1 tokens: one pass per stage.
-    cond_seq [B, T, D]; rvq1_bt [B, T] -> tokens [B, T, Q] int32."""
+    cond_seq [B, T, D]; rvq1_bt [B, T] -> tokens [B, T, Q] int32.
+
+    `head_tail`: only the last stage's heads run, and only on the last
+    `head_tail` frames; the earlier stages still refine the whole window
+    (their ids feed the next stage's trunk). Outside the tail the last
+    stage's codebooks stay 0: callers use only tokens[:, -head_tail:]."""
     b, t, _ = cond_seq.shape
     stage_idx = cfg.stage_indices()
+    stages = cfg.stage_order()
     out = torch.zeros((b, t, int(cfg.num_codebooks)), dtype=torch.int32, device=cond_seq.device)
     out[:, :, 0] = rvq1_bt.to(torch.int32)
     prev_tokens = rvq1_bt[..., None].to(torch.int32)
     prev_cbs: List[int] = [0]
-    for stage in cfg.stage_order():
+    for stage in stages:
         idxs = stage_idx[stage]
+        tail = head_tail if stage == stages[-1] else None
         prev_emb = cb_sum_embed_subset(
             cb_embed_params, cb_spec, prev_tokens, prev_cbs, cb_weights=nar_prev_cb_weights
         )
         preds = nar_stage_preds(
             p, cfg, stage, cond_seq, prev_emb, mask=mask,
-            stacks=None if stacks is None else stacks[stage],
+            stacks=None if stacks is None else stacks[stage], head_tail=tail,
         )
-        out[:, :, idxs] = preds
-        prev_tokens = torch.cat([prev_tokens, preds], dim=-1)
-        prev_cbs = prev_cbs + list(idxs)
+        out[:, t - preds.shape[1]:, idxs] = preds
+        if stage != stages[-1]:
+            prev_tokens = torch.cat([prev_tokens, preds], dim=-1)
+            prev_cbs = prev_cbs + list(idxs)
     return out
 
 

@@ -243,9 +243,10 @@ def nar_refine(
     cond_seq: torch.Tensor,
     rvq1_bt: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    head_tail: Optional[int] = None,
 ) -> torch.Tensor:
     p = m.shared.p
     return N.nar_refine(
         m.nar.p, p["cb_embed"], cb_spec(m.cfg), p["nar_prev_cb_weights"], m.cfg,
-        cond_seq, rvq1_bt, mask=mask, stacks=m.nar.head_stacks(),
+        cond_seq, rvq1_bt, mask=mask, stacks=m.nar.head_stacks(), head_tail=head_tail,
     )

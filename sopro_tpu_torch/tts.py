@@ -1,20 +1,24 @@
 """User-facing facade (counterpart: sopro_tpu/tts.py): `SoproTTS` with the
-JAX package's argument names and defaults for the synthesize path.
+JAX package's argument names and defaults for the synthesize and stream
+paths.
 
 Waveforms are numpy float32 [1, S] at 24 kHz on the host. `synthesize` runs
-the fused plan for every `max_frames`. References come as Mimi tokens
-(`ref_tokens_tq`); reference audio needs the Mimi encoder, not ported yet.
+the fused plan for every `max_frames`; `stream` yields chunks from the
+stream plan (streaming.py). A reference voice comes as Mimi tokens
+(`ref_tokens_tq`) or as a WAV file (`ref_audio_path`: VAD trim, resample to
+24 kHz, centre crop, Mimi encode).
 """
 
 from __future__ import annotations
 
 import os
 import wave
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
+from sopro_tpu_torch import audio as A
 from sopro_tpu_torch.codec.mimi_config import MimiConfig
 from sopro_tpu_torch.config import RuntimeConfig, SoproTTSConfig
 from sopro_tpu_torch.constants import TARGET_SR
@@ -82,33 +86,53 @@ class SoproTTS:
     def encode_reference(
         self,
         *,
-        ref_tokens_tq: np.ndarray,
+        ref_audio_path: Optional[str] = None,
+        ref_tokens_tq: Optional[np.ndarray] = None,
         ref_seconds: Optional[float] = None,
     ) -> np.ndarray:
-        """Mimi tokens [T, Q], centre-cropped to `ref_seconds` (default 12)."""
+        """-> Mimi tokens [T, Q], centre-cropped to `ref_seconds` (default
+        12): given tokens directly, or encoded from a WAV file."""
+        if (ref_tokens_tq is None) == (ref_audio_path is None):
+            raise RuntimeError("Provide exactly one of ref_audio_path or ref_tokens_tq.")
         if ref_seconds is None:
             ref_seconds = 12.0
-        ref = np.asarray(ref_tokens_tq, np.int32)
+        if ref_tokens_tq is not None:
+            ref = np.asarray(ref_tokens_tq, np.int32)
+            if ref_seconds and ref_seconds > 0:
+                win = max(1, int(round(ref_seconds * float(self.cfg.mimi_fps))))
+                ref = center_crop_tokens(ref, win)
+            return ref
+        # load -> VAD trim -> resample -> crop -> whole frames -> Mimi encode
+        mcfg = self.engine.mimi_cfg
+        wav, sr = A.load_audio_file(ref_audio_path)
+        wav = A.trim_silence_energy(wav, sr)
+        sr_t = int(mcfg.sampling_rate)
+        wav = A.resample(wav, sr, sr_t)
         if ref_seconds and ref_seconds > 0:
-            win = max(1, int(round(ref_seconds * float(self.cfg.mimi_fps))))
-            ref = center_crop_tokens(ref, win)
-        return ref
+            fps = float(mcfg.frame_rate)
+            win = max(1, int(round(ref_seconds * fps))) * int(round(sr_t / fps))
+            wav = A.center_crop_audio(wav, win)
+        hop = int(mcfg.hop_length)
+        return self.engine.encode_audio(wav[: (wav.shape[-1] // hop) * hop])
 
     def prepare_reference(
         self,
         *,
-        ref_tokens_tq: np.ndarray,
+        ref_audio_path: Optional[str] = None,
+        ref_tokens_tq: Optional[np.ndarray] = None,
         ref_seconds: Optional[float] = None,
     ) -> PreparedReference:
-        toks = self.encode_reference(ref_tokens_tq=ref_tokens_tq, ref_seconds=ref_seconds)
+        toks = self.encode_reference(
+            ref_audio_path=ref_audio_path, ref_tokens_tq=ref_tokens_tq, ref_seconds=ref_seconds
+        )
         return self.engine.prepare_reference(toks)
 
-    def _run(self, text, ref, ref_tokens_tq, ref_seconds, style_strength,
+    def _run(self, text, ref, ref_audio_path, ref_tokens_tq, ref_seconds, style_strength,
              min_gen_frames, return_tokens, **kw):
         if ref is None:
-            if ref_tokens_tq is None:
-                raise RuntimeError("Provide ref or ref_tokens_tq.")
-            ref = self.prepare_reference(ref_tokens_tq=ref_tokens_tq, ref_seconds=ref_seconds)
+            ref = self.prepare_reference(
+                ref_audio_path=ref_audio_path, ref_tokens_tq=ref_tokens_tq, ref_seconds=ref_seconds
+            )
         style = float(style_strength if style_strength is not None else self.cfg.style_strength)
         return self.engine.synthesize_fused(
             self.encode_text(text), ref, style_strength=style,
@@ -121,6 +145,7 @@ class SoproTTS:
         text: str,
         *,
         ref: Optional[PreparedReference] = None,
+        ref_audio_path: Optional[str] = None,
         ref_tokens_tq: Optional[np.ndarray] = None,
         max_frames: int = 400,
         top_p: float = 0.9,
@@ -134,7 +159,8 @@ class SoproTTS:
     ) -> np.ndarray:
         """-> wav [1, S] @ 24 kHz, float32 (int16 with `pcm16=True`)."""
         wav, t = self._run(
-            text, ref, ref_tokens_tq, ref_seconds, style_strength, min_gen_frames, False,
+            text, ref, ref_audio_path, ref_tokens_tq, ref_seconds, style_strength,
+            min_gen_frames, False,
             max_frames=max_frames, seed=seed, top_p=top_p, temperature=temperature,
             anti_loop=anti_loop,
         )
@@ -158,11 +184,18 @@ class SoproTTS:
         """text + prepared ref -> [T, num_codebooks] token matrix (the tokens
         the fused plan decodes)."""
         _, _, toks = self._run(
-            text, ref, None, None, style_strength, min_gen_frames, True,
+            text, ref, None, None, None, style_strength, min_gen_frames, True,
             max_frames=max_frames, seed=seed, top_p=top_p, temperature=temperature,
             anti_loop=anti_loop,
         )
         return toks
+
+    def stream(self, text: str, **kwargs) -> Iterator[np.ndarray]:
+        """Chunked synthesis: `streaming.stream` (chunk_frames 6 by default);
+        yields wav chunks [1, n*hop] float32."""
+        from sopro_tpu_torch.streaming import stream
+
+        return stream(self, text, **kwargs)
 
     def save_wav(self, path: str, wav: np.ndarray) -> None:
         """Write mono PCM16 WAV at 24 kHz."""

@@ -16,15 +16,18 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from sopro_tpu_torch.codec.mimi import MimiDecoder
-from sopro_tpu_torch.codec.mimi_config import CONV, CONVT, RESNET, MimiConfig, decoder_plan, upsample_spec
+from sopro_tpu_torch.codec.mimi import MimiCodec
+from sopro_tpu_torch.codec.mimi_config import (
+    CONV, CONVT, RESNET, MimiConfig, decoder_plan, downsample_spec, encoder_plan, upsample_spec,
+)
 from sopro_tpu_torch.config import SoproTTSConfig
 from sopro_tpu_torch.models.base import tree_map
 from sopro_tpu_torch.models.generator import has_xattn
 from sopro_tpu_torch.models.sopro import SoproModel
 
 Tree = Dict[str, Any]
-MIMI_DECODE_KEYS = ("quantizer", "upsample", "dec_tf", "decoder")
+MIMI_KEYS = ("encoder", "enc_tf", "downsample", "quantizer", "upsample", "dec_tf", "decoder")
+MIMI_QUANTIZER_KEYS = ("embed", "dec_embed", "in_proj_sem", "in_proj_ac")
 
 
 def to_torch(tree: Any, device) -> Any:
@@ -43,12 +46,13 @@ def sopro_params_from_jax(tree: Tree, cfg: SoproTTSConfig, device) -> SoproModel
     return SoproModel(to_torch(tree, device), cfg)
 
 
-def mimi_params_from_jax(tree: Tree, cfg: MimiConfig, device) -> MimiDecoder:
-    """Keeps the decode half: quantizer `dec_embed`, upsample, decoder
-    transformer and SEANet decoder."""
-    dec = {k: tree[k] for k in MIMI_DECODE_KEYS}
-    dec["quantizer"] = {"dec_embed": tree["quantizer"]["dec_embed"]}
-    return MimiDecoder(to_torch(dec, device), cfg)
+def mimi_params_from_jax(tree: Tree, cfg: MimiConfig, device) -> MimiCodec:
+    """The encoder half (SEANet encoder, encoder transformer, downsample,
+    quantizer `embed` and input projections) and the decoder half (quantizer
+    `dec_embed`, upsample, decoder transformer, SEANet decoder)."""
+    codec = {k: tree[k] for k in MIMI_KEYS}
+    codec["quantizer"] = {k: tree["quantizer"][k] for k in MIMI_QUANTIZER_KEYS}
+    return MimiCodec(to_torch(codec, device), cfg)
 
 
 # --------------------------------------------------------------------------
@@ -156,9 +160,10 @@ def init_sopro_params(seed: int, cfg: SoproTTSConfig, text_vocab_size: int) -> T
 
 
 def init_mimi_params(seed: int, cfg: MimiConfig) -> Tree:
-    """Random Mimi decode tree with the shapes and scales of
-    `sopro_tpu.codec.convert.init_mimi_params` (N(0, 0.02) weights, zero
-    conv biases, unit codebooks folded through the output projections)."""
+    """Random Mimi tree (encoder and decoder halves) with the shapes and
+    scales of `sopro_tpu.codec.convert.init_mimi_params` (N(0, 0.02)
+    weights, zero conv biases, unit codebooks folded through the output
+    projections for decode)."""
     ini = _Init(seed)
     g = lambda *shape, scale=0.02: ini.normal(shape, scale)
 
@@ -167,34 +172,49 @@ def init_mimi_params(seed: int, cfg: MimiConfig) -> Tree:
         return {"w": g(spec["k"], spec["in"] // groups, spec["out"]),
                 "b": np.zeros((spec["out"],), np.float32)}
 
-    decoder = []
-    for kind, spec in decoder_plan(cfg):
-        if kind in (CONV, CONVT):
-            decoder.append(conv_p(spec))
-        elif kind == RESNET:
-            decoder.append({"convs": [conv_p(cs) for cs in spec["convs"]]})
-        else:
-            decoder.append({})
+    def seanet_p(plan):
+        out = []
+        for kind, spec in plan:
+            if kind in (CONV, CONVT):
+                out.append(conv_p(spec))
+            elif kind == RESNET:
+                out.append({"convs": [conv_p(cs) for cs in spec["convs"]]})
+            else:
+                out.append({})
+        return out
 
     d, i = cfg.hidden_size, cfg.intermediate_size
     kvd = cfg.num_key_value_heads * cfg.head_dim
     qd = cfg.num_attention_heads * cfg.head_dim
     ln = lambda: {"scale": np.ones((d,), np.float32), "bias": np.zeros((d,), np.float32)}
     ls = lambda: np.full((d,), cfg.layer_scale_initial_scale, np.float32)
-    dec_tf = {"layers": [
-        {"ln1": ln(), "q": {"w": g(d, qd)}, "k": {"w": g(d, kvd)}, "v": {"w": g(d, kvd)},
-         "o": {"w": g(qd, d)}, "ln2": ln(), "fc1": {"w": g(d, i)}, "fc2": {"w": g(i, d)},
-         "scale_attn": ls(), "scale_mlp": ls()}
-        for _ in range(cfg.num_hidden_layers)
-    ]}
+
+    def tf_p():
+        return {"layers": [
+            {"ln1": ln(), "q": {"w": g(d, qd)}, "k": {"w": g(d, kvd)}, "v": {"w": g(d, kvd)},
+             "o": {"w": g(qd, d)}, "ln2": ln(), "fc1": {"w": g(d, i)}, "fc2": {"w": g(i, d)},
+             "scale_attn": ls(), "scale_mlp": ls()}
+            for _ in range(cfg.num_hidden_layers)
+        ]}
+
+    decoder, dec_tf = seanet_p(decoder_plan(cfg)), tf_p()
     embed = g(cfg.num_quantizers, cfg.codebook_size, cfg.codebook_dim, scale=1.0)
     ns = cfg.num_semantic_quantizers
     out_sem, out_ac = g(cfg.codebook_dim, d), g(cfg.codebook_dim, d)
     dec_embed = np.concatenate([embed[:ns] @ out_sem, embed[ns:] @ out_ac], axis=0)
-    us = upsample_spec(cfg)
+    us, ds = upsample_spec(cfg), downsample_spec(cfg)
+    upsample = {"w": g(us["k"], us["in"] // us["groups"], us["out"])}
     return {
-        "quantizer": {"dec_embed": dec_embed.astype(np.float32)},
-        "upsample": {"w": g(us["k"], us["in"] // us["groups"], us["out"])},
+        "encoder": seanet_p(encoder_plan(cfg)),
+        "enc_tf": tf_p(),
+        "downsample": {"w": g(ds["k"], ds["in"], ds["out"])},
+        "quantizer": {
+            "embed": embed,
+            "dec_embed": dec_embed.astype(np.float32),
+            "in_proj_sem": g(d, cfg.codebook_dim),
+            "in_proj_ac": g(d, cfg.codebook_dim),
+        },
+        "upsample": upsample,
         "dec_tf": dec_tf,
         "decoder": decoder,
     }
@@ -205,13 +225,15 @@ def fill_zero_inits(sopro, mimi, seed: int, scale: float = 0.3) -> None:
     place, so a comparison really exercises them: cross-attention gates,
     the FiLM output layer, the NAR adapter output, head-id offsets and
     mixes, the NAR previous-codebook weights (Sopro tree), and the Mimi
-    decoder's conv biases (Mimi tree). Either tree may be None."""
+    decoder's and encoder's conv biases (Mimi tree). Either tree may be
+    None."""
     rng = np.random.default_rng(seed)
     rnd = lambda a: (rng.standard_normal(np.shape(a)) * scale).astype(np.float32)
     if sopro is not None:
         _fill_sopro(sopro, rnd)
     if mimi is not None:
         _fill_biases(mimi["decoder"], rnd)
+        _fill_biases(mimi["encoder"], rnd)
 
 
 def _fill_sopro(sopro: Tree, rnd) -> None:

@@ -1,5 +1,6 @@
-"""The three CUDA kernels against their plain PyTorch versions on the card,
-at small shapes; each test skips without a CUDA device.
+"""The four CUDA kernels against their plain PyTorch versions on the card,
+at small shapes, and the synthesize and stream paths on the card against
+the CPU; each test skips without a CUDA device.
 
 This file imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -68,7 +69,10 @@ def _tts_pair(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,h,hd,v", [(2, 37, 3, 64, 256), (1, 401, 16, 256, 2048), (1, 9, 2, 8, 130)])
+@pytest.mark.parametrize("b,t,h,hd,v", [
+    (2, 37, 3, 64, 256), (1, 401, 16, 256, 2048), (1, 9, 2, 8, 130),
+    (1, 6, 16, 256, 2048),  # the stream's last stage: head_tail = 6 frames
+])
 def test_nar_heads_kernel_matches_plain(cuda, b, t, h, hd, v):
     from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax, nar_heads_argmax_plain
 
@@ -102,6 +106,34 @@ def test_seanet_kernel_matches_plain(cuda):
     assert kernels.LAUNCHES["seanet"] == before + 1
     tol = 1e-4 * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m25,hist", [(1, 12, None), (2, 12, None), (1, 3, None),
+                                        (2, 4, (0, 6)), (3, 2, (9, 1, 3))])
+def test_seanet_chunk_kernel_matches_plain(cuda, b, m25, hist):
+    """K4 (valid mode over [halo ++ chunk]) against its plain version, with
+    nonzero biases, a full history or `hist` real history rows per batch
+    row."""
+    from sopro_tpu_torch.codec.mimi_config import required_halo
+    from sopro_tpu_torch.codec.vocoder import pack_seanet_decoder, seanet_decode_chunk
+
+    mcfg = MimiConfig(**SMALL_MIMI)
+    mtree = W.init_mimi_params(3, mcfg)
+    W.fill_zero_inits(None, mtree, 4)
+    packed_gpu = pack_seanet_decoder(W.to_torch(mtree["decoder"], cuda), mcfg)
+    packed_cpu = pack_seanet_decoder(W.to_torch(mtree["decoder"], "cpu"), mcfg)
+    g = torch.Generator().manual_seed(b * 100 + m25)
+    ext = torch.randn(b, required_halo(mcfg) + m25, mcfg.hidden_size, generator=g)
+    n_hist = None if hist is None else torch.tensor(hist, dtype=torch.int32)
+    before = kernels.LAUNCHES["seanet_chunk"]
+    got = seanet_decode_chunk(packed_gpu, mcfg, ext.to(cuda),
+                              None if n_hist is None else n_hist.to(cuda))
+    assert kernels.LAUNCHES["seanet_chunk"] == before + 1
+    want = seanet_decode_chunk(packed_cpu, mcfg, ext, n_hist)
+    assert tuple(got.shape) == (b, m25 * 12)
+    tol = 1e-4 * float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= tol
 
 
 @pytest.mark.cuda
@@ -172,9 +204,44 @@ def test_slice_on_cuda_matches_cpu(cuda):
     text = "a second, longer request"
     kernels.reset_launches()
     got = gpu.generate_tokens(text, gpu.prepare_reference(ref_tokens_tq=ref), **kw)
-    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("ar_loop", "nar_heads", "seanet")), kernels.LAUNCHES
     want = cpu.generate_tokens(text, cpu.prepare_reference(ref_tokens_tq=ref), **kw)
     np.testing.assert_array_equal(got, want)
     wg = gpu.synthesize(text, ref_tokens_tq=ref, **kw)
     wc = cpu.synthesize(text, ref_tokens_tq=ref, **kw)
     np.testing.assert_allclose(wg, wc, atol=1e-4 * float(np.abs(wc).max()), rtol=0)
+
+
+@pytest.mark.cuda
+def test_stream_on_cuda_matches_cpu(cuda):
+    """The stream runs through K1, K2 and K4 and gives the CPU plain path's
+    chunks at near-greedy settings: same count and shapes, waveform within
+    1e-4 of peak (the decoder biases are filled, so K4 also meets real
+    history from the second chunk on)."""
+    cpu, gpu = _tts_pair(cuda)
+    ref = np.random.default_rng(12).integers(0, 32, (40, 8)).astype(np.int32)
+    kw = dict(ref_tokens_tq=ref, max_frames=22, seed=3, temperature=1e-4, anti_loop=False,
+              chunk_frames=4)
+    kernels.reset_launches()
+    got = list(gpu.stream("a streamed request", **kw))
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("ar_loop", "nar_heads", "seanet_chunk")), \
+        kernels.LAUNCHES
+    want = list(cpu.stream("a streamed request", **kw))
+    assert [g.shape for g in got] == [w.shape for w in want] and len(got) > 1
+    peak = max(float(np.abs(w).max()) for w in want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-4 * peak, rtol=0)
+    assert np.array_equal(_stream_tokens(gpu, ref), _stream_tokens(cpu, ref))
+
+
+def _stream_tokens(tts, ref):
+    """The AR tokens of a chunk-4 stream, driven through the engine."""
+    eng = tts.engine
+    sampling = dict(top_p=0.9, temperature=1e-4, anti_loop=False, min_gen=3)
+    wav, valid, done, carry, ctx, cond, mstate = eng.stream_start_fused(
+        tts.encode_text("a streamed request"), tts.prepare_reference(ref_tokens_tq=ref),
+        max_frames=22, chunk=4, style_strength=1.0, seed=3, **sampling)
+    while not done:
+        wav, valid, done, carry, mstate = eng.stream_step_fused(
+            carry, ctx, cond, mstate, valid, chunk=4, nar_ctx=tts.cfg.rf_nar(), **sampling)
+    return carry.tokens.cpu().numpy()

@@ -183,7 +183,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, sopro_tpu_torch.tts, sopro_tpu_torch.engine, "
         "sopro_tpu_torch.codec.vocoder, sopro_tpu_torch.ops.ar_loop, "
-        "sopro_tpu_torch.ops.nar_heads\n"
+        "sopro_tpu_torch.ops.nar_heads, sopro_tpu_torch.streaming, "
+        "sopro_tpu_torch.codec.streaming, sopro_tpu_torch.audio\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'sopro_tpu' or m.startswith('sopro_tpu.')]\n"
         "assert not bad, bad\n"
@@ -195,8 +196,10 @@ def test_cpu_wrappers_run_plain_and_count_nothing(trees):
     """Each kernel wrapper on CPU tensors runs its plain version and leaves
     its launch counter at 0."""
     from sopro_tpu_torch.codec.mimi import seanet_apply
-    from sopro_tpu_torch.codec.mimi_config import decoder_plan
-    from sopro_tpu_torch.codec.vocoder import pack_seanet_decoder, seanet_decode
+    from sopro_tpu_torch.codec.mimi_config import decoder_plan, required_halo
+    from sopro_tpu_torch.codec.vocoder import (
+        pack_seanet_decoder, seanet_decode, seanet_decode_chunk,
+    )
     from sopro_tpu_torch.models import sopro as M
     from sopro_tpu_torch.ops.ar_loop import ar_loop, ar_loop_plain
     from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax, nar_heads_argmax_plain
@@ -214,6 +217,9 @@ def test_cpu_wrappers_run_plain_and_count_nothing(trees):
     emb = torch.from_numpy(rng.standard_normal((1, 6, 32)).astype(np.float32))
     assert torch.equal(seanet_decode(pack_seanet_decoder(dec, tm), tm, emb),
                        seanet_apply(dec, decoder_plan(tm), emb)[..., 0])
+    ext = torch.from_numpy(rng.standard_normal((2, required_halo(tm) + 4, 32)).astype(np.float32))
+    assert torch.equal(seanet_decode_chunk(pack_seanet_decoder(dec, tm), tm, ext),
+                       seanet_apply(dec, decoder_plan(tm), ext)[:, -4 * 12:, 0])
 
     model = W.sopro_params_from_jax(tree, tcfg, "cpu")
     txt = torch.from_numpy(rng.standard_normal((1, 6, 64)).astype(np.float32))
@@ -227,4 +233,4 @@ def test_cpu_wrappers_run_plain_and_count_nothing(trees):
     got, _ = ar_loop(ctx, cond, state, sett, 8, True)
     want, _ = ar_loop_plain(ctx, cond, state, sett, 8, True)
     assert torch.equal(got, want)
-    assert kernels.LAUNCHES == {"ar_loop": 0, "nar_heads": 0, "seanet": 0}
+    assert kernels.LAUNCHES == {"ar_loop": 0, "nar_heads": 0, "seanet": 0, "seanet_chunk": 0}
