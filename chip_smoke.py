@@ -8,10 +8,13 @@ Phases (each raises, so the script exits non-zero, on failure):
 2. build the kernels' sources from csrc/ with nvcc (sm_90a), one nvcc each,
    all started together, and print the build seconds and ptxas' register /
    shared-memory report;
-3. hold each of the four kernels against its plain PyTorch version at the
+3. hold each of the five kernels against its plain PyTorch version at the
    main paths' shapes (full Sopro v1.5 and Mimi widths, random weights from
    a seed with the zero-initialised leaves filled, TF32 off) and time both
    with CUDA events; K4 at 12, 32 and 802 25 Hz frames (B = 1) and 12 (B = 2);
+   K5 at B = 1 and 2, text buckets 64 and 2048, and 401 chained near-greedy
+   steps of the K5 route token-identical to K1; µs per step of K5, of the
+   plain step and of K1;
 4. drive the synthesize path: `SoproTTS.from_random(device="cuda")`,
    `prepare_reference(ref_tokens_tq=...)`, three `synthesize` requests at
    max_frames=400 (launch counters zeroed just before, read just after),
@@ -24,7 +27,18 @@ Phases (each raises, so the script exits non-zero, on failure):
    `synthesize` within 1e-4 of its peak;
 6. reference from audio: a 10 s WAV written from a `synthesize` output,
    `encode_reference` / `prepare_reference(ref_audio_path=...)` on the card
-   (codes [T, 32] in range), and a stream from that reference.
+   (codes [T, 32] in range), and a stream from that reference;
+7. the batch path: `synthesize_batch` of 4 texts (one duplicated) at
+   max_frames=400 (counters zeroed before, read after: K1, K2, K3 launched);
+   each row equals its own `synthesize` within 1e-4 of its peak, the
+   duplicated rows are identical; K3 at B = 4 against its plain version;
+   `synthesize_long` of a paragraph of 4 chunks is as long as the chunks and
+   the gaps; print seconds, RTF and seconds of audio per second;
+8. the per-step route, `RuntimeConfig(use_pallas_resident=False)`: two
+   400-frame `synthesize` requests, a B = 2 `synthesize_batch` and a chunk-6
+   stream launch K5 and never K1; a B = 3 batch raises ValueError; a
+   near-greedy request equals the K1 route within 1e-4 of its peak; print
+   request seconds against the K1 route's.
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}.
 """
@@ -51,6 +65,7 @@ REQUESTS = (
 )
 KERNELS = {
     "ar_loop": ("sopro_tpu_torch/csrc/ar_loop.cu", "sopro_tpu/ops/pallas_ar_loop.py:363"),
+    "ar_step": ("sopro_tpu_torch/csrc/ar_loop.cu", "sopro_tpu/ops/pallas_ar.py:305"),
     "nar_heads": ("sopro_tpu_torch/csrc/nar_heads.cu", "sopro_tpu/ops/pallas_nar.py:53"),
     "seanet": ("sopro_tpu_torch/csrc/seanet.cu", "sopro_tpu/codec/pallas_vocoder.py:353"),
     "seanet_chunk": ("sopro_tpu_torch/csrc/seanet.cu", "sopro_tpu/codec/pallas_vocoder.py:383"),
@@ -60,6 +75,14 @@ STREAM_REQUESTS = (
     ("Streaming from a graphics card, one small chunk at a time.", 4),
     ("A second streamed request.", 5),
     ("A third streamed request, with a longer text than the second one had.", 6),
+)
+# four texts of 33-64 characters (one text bucket), the first one twice
+BATCH = ((REQUESTS[0][0], REQUESTS[1][0], STREAM_REQUESTS[0][0], REQUESTS[0][0]), (1, 2, 4, 1))
+LONG_MAX_CHARS = 80  # PARAGRAPH splits into 4 chunks
+PARAGRAPH = (
+    "Long-form speech is split into sentences. Each sentence is its own row of one batch. "
+    "The rows decode side by side on the card, each with its own seed. "
+    "Then the pieces are joined with a short silence between them."
 )
 
 
@@ -126,14 +149,14 @@ def check_nar_heads(model, dev, rng):
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "mismatches": mism}
 
 
-def check_seanet(mimi, dev, rng):
+def check_seanet(mimi, dev, rng, b=1):
     from sopro_tpu_torch.codec.mimi import decode_embeddings, seanet_apply
     from sopro_tpu_torch.codec.mimi_config import decoder_plan
     from sopro_tpu_torch.codec.vocoder import seanet_decode
 
     cfg = mimi.cfg
     codes = torch.from_numpy(
-        rng.integers(0, cfg.codebook_size, (1, MAX_FRAMES + 1, cfg.num_quantizers))
+        rng.integers(0, cfg.codebook_size, (b, MAX_FRAMES + 1, cfg.num_quantizers))
     ).to(dev)
     with torch.inference_mode():
         emb = decode_embeddings(mimi.p, cfg, codes).contiguous()
@@ -141,7 +164,7 @@ def check_seanet(mimi, dev, rng):
         got = seanet_decode(packed, cfg, emb)
         want = seanet_apply(mimi.p["decoder"], decoder_plan(cfg), emb)[..., 0]
         torch.cuda.synchronize()
-        if tuple(got.shape) != (1, emb.shape[1] * int(np.prod(cfg.upsampling_ratios))):
+        if tuple(got.shape) != (b, emb.shape[1] * int(np.prod(cfg.upsampling_ratios))):
             raise AssertionError(f"seanet: shape {tuple(got.shape)}")
         err = float((got - want).abs().max())
         peak = float(want.abs().max())
@@ -151,7 +174,7 @@ def check_seanet(mimi, dev, rng):
             raise AssertionError(f"seanet: max|err| {err} > 1e-4 * max|wav| {peak}")
         ms = cuda_ms(lambda: seanet_decode(packed, cfg, emb), 5)
         plain_ms = cuda_ms(lambda: seanet_apply(mimi.p["decoder"], decoder_plan(cfg), emb), 5)
-    log(f"  seanet: {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms (plain)")
+    log(f"  seanet B={b}: {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms (plain)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -255,6 +278,71 @@ def check_ar_loop(model, mimi, dev, rng):
     return out
 
 
+LONG_TEXT = " ".join(f"Sentence number {i} of a long prompt that fills the largest text bucket."
+                     for i in range(20))  # 1,450 characters: text bucket 2048
+
+
+def check_ar_step(model, mimi, dev, rng, k1):
+    """K5 against its plain version at full width (B = 1 and 2, text bucket
+    64 and 2048, real conditioning, row 0 partly masked and row 1 holding
+    only 9 text tokens); 401 chained near-greedy steps of the K5 route
+    against the K1 route; µs per step of K5, the plain step and K1."""
+    from sopro_tpu_torch.engine import Engine
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.models.generator import conv_ctx
+    from sopro_tpu_torch.ops.ar_step import ar_step, ar_step_plain
+    from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
+
+    eng, cfg, tok = Engine(model, mimi), model.cfg, SimpleCharTokenizer()
+    ref = eng.prepare_reference(
+        rng.integers(0, cfg.codebook_size, (150, cfg.num_codebooks)).astype(np.int32)
+    )
+    s = MAX_FRAMES + 1
+    worst, out = 0.0, {}
+    with torch.inference_mode():
+        for text in (REQUESTS[0][0], LONG_TEXT):
+            for b in (1, 2):
+                rows = [np.asarray(tok.encode(t), np.int32) for t in (text, "Short one")[:b]]
+                ids, mask = eng._padded(rows, eng.rt.text_buckets)
+                prep = M.prepare_conditioning(model, ids, mask, M.tile_reference(ref, b),
+                                              max_frames=MAX_FRAMES, style_strength=1.0)
+                ctx = M.ar_step_context(model, prep["txt_seq"], mask)
+                x = (prep["cond_ar"][:, 0] + ctx.emb[-1]).contiguous()
+                bufs = torch.from_numpy(rng.standard_normal(
+                    (cfg.n_layers_ar, b, conv_ctx(cfg), cfg.d_model)
+                ).astype(np.float32) * 0.3).to(dev)
+                got, want = ar_step(ctx, x, bufs), ar_step_plain(ctx, x, bufs)
+                torch.cuda.synchronize()
+                what = f"ar_step B={b} L={mask.shape[1]}"
+                for name, g, w in (("logits", got[0], want[0]), ("bufs", got[1], want[1])):
+                    err, peak = float((g - w).abs().max()), float(w.abs().max())
+                    log(f"  {what} {name} {tuple(g.shape)}: max|err| {err:.3e}, peak {peak:.3e}")
+                    if tuple(g.shape) != tuple(w.shape) or not err <= 1e-5 * peak:
+                        raise AssertionError(f"{what}: {name} max|err| {err} > 1e-5 * peak {peak}")
+                    worst = max(worst, err) if name == "logits" else worst
+                if (text, b) == (REQUESTS[0][0], 1):
+                    out["ms"] = cuda_ms(lambda: ar_step(ctx, x, bufs), 50)
+                    out["plain_ms"] = cuda_ms(lambda: ar_step_plain(ctx, x, bufs), 20)
+                    cond, step_ctx = prep["cond_ar"], ctx
+                    loop_ctx = M.ar_context(model, prep["txt_seq"], mask)
+        sett = M.ARSettings(temperature=1e-4, anti_loop=False)
+        carry = M.init_ar_carry(cfg, 1, s, 7, dev)
+        k5 = M.ar_chunk(carry, cond, step_ctx, sett, s)
+        k1_run = M.ar_chunk(carry, cond, loop_ctx, sett, s)
+        torch.cuda.synchronize()
+        same = torch.equal(k5.tokens, k1_run.tokens) and torch.equal(k5.t, k1_run.t) \
+            and torch.equal(k5.first_eos, k1_run.first_eos)
+        log(f"  ar_step route, {int(k5.t[0])} near-greedy steps: tokens "
+            f"{'identical to' if same else 'DIFFER from'} the K1 route ({int(k1_run.t[0])} steps)")
+        if not same:
+            raise AssertionError("ar_step near-greedy: tokens differ from K1")
+    out["max_abs_err"] = worst
+    log(f"  per step (B = 1, L = 64): K5 {out['ms'] * 1e3:.1f} µs, plain step "
+        f"{out['plain_ms'] * 1e3:.1f} µs, K1 {k1['ms'] / k1['steps'] * 1e3:.1f} µs "
+        f"({k1['ms']:.3f} ms / {k1['steps']} steps)")
+    return out
+
+
 def launched(path: str, needed):
     """The launch counts since the last reset; raises unless every kernel in
     `needed` launched."""
@@ -302,7 +390,128 @@ def drive_main_path(dev, rng, cfg, mcfg):
     first = tts.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=seed)
     if not np.array_equal(again, first):
         raise AssertionError("synthesize: a repeated request gave a different waveform")
-    return launches, tts, ref
+    return launches, tts, ref, ref_tokens
+
+
+def close_to(got, want, what, tol=1e-4):
+    """Raise unless `got` has `want`'s shape and lies within tol * peak."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} vs {want.shape}")
+    err, peak = float(np.abs(got - want).max(initial=0.0)), float(np.abs(want).max(initial=0.0))
+    if not err <= tol * peak:
+        raise AssertionError(f"{what}: max|err| {err} > {tol} * peak {peak}")
+    return err, peak
+
+
+def drive_batch_path(tts, ref, dev, rng):
+    """synthesize_batch of BATCH (counted), each row against its own
+    synthesize, K3 at B = 4, and synthesize_long of PARAGRAPH."""
+    from sopro_tpu_torch import kernels
+    from sopro_tpu_torch.tts import split_sentences
+
+    texts, seeds = BATCH
+    sr, hop = tts.engine.mimi_cfg.sampling_rate, tts.engine.mimi_cfg.hop_length
+    tts.synthesize_batch(texts, ref=ref, max_frames=8, seeds=seeds)  # first-call costs outside
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = tts.synthesize_batch(texts, ref=ref, max_frames=MAX_FRAMES, seeds=seeds)
+    sec = time.perf_counter() - t0
+    launches = launched("batch", ("ar_loop", "nar_heads", "seanet"))
+    audio_s = sum(o.shape[1] for o in outs) / float(sr)
+    log(f"  synthesize_batch B={len(texts)}: {[o.shape[1] // hop for o in outs]} frames, "
+        f"{audio_s:.2f} s audio in {sec:.3f} s, RTF {sec / audio_s:.4f}, "
+        f"{audio_s / sec:.1f} s of audio per second")
+    if not all(np.isfinite(o).all() for o in outs):
+        raise AssertionError("synthesize_batch: non-finite samples")
+    if not np.array_equal(outs[0], outs[3]):
+        raise AssertionError("synthesize_batch: duplicated rows differ")
+    singles = 0.0
+    for i, (text, seed) in enumerate(zip(texts, seeds)):
+        t1 = time.perf_counter()
+        one = tts.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=seed)
+        singles += time.perf_counter() - t1
+        err, peak = close_to(outs[i], one, f"synthesize_batch row {i}")
+        log(f"  row {i} vs synthesize(seed={seed}): max|err| {err:.3e}, peak {peak:.3e}")
+    log(f"  the same four requests one by one: {singles:.3f} s")
+    check_seanet(tts.engine.mimi, dev, rng, b=len(texts))
+
+    chunks = split_sentences(PARAGRAPH, max_chars=LONG_MAX_CHARS)
+    if len(chunks) < 3:
+        raise AssertionError(f"synthesize_long: {len(chunks)} chunks")
+    t0 = time.perf_counter()
+    long = tts.synthesize_long(PARAGRAPH, ref=ref, max_frames=MAX_FRAMES, seed=9,
+                               max_chars=LONG_MAX_CHARS)
+    sec = time.perf_counter() - t0
+    rows = tts.synthesize_batch(chunks, ref=ref, max_frames=MAX_FRAMES,
+                                seeds=[9 + i for i in range(len(chunks))])
+    gap = int(round(120.0 / 1000.0 * sr))
+    want = sum(r.shape[1] for r in rows) + gap * (len(chunks) - 1)
+    if long.shape != (1, want) or not np.isfinite(long).all():
+        raise AssertionError(f"synthesize_long: {long.shape}, want (1, {want})")
+    log(f"  synthesize_long: {len(chunks)} chunks, {long.shape[1] / sr:.2f} s audio in "
+        f"{sec:.3f} s, = the chunks plus {len(chunks) - 1} gaps")
+    return launches
+
+
+def drive_per_step_route(cfg, mcfg, dev, ref_tokens, k1_tts, k1_ref):
+    """The K5 route: a SoproTTS with use_pallas_resident=False (same seed,
+    same weights as `k1_tts`); counted requests, then the B = 3 refusal and
+    a near-greedy request against the K1 route."""
+    from sopro_tpu_torch import kernels
+    from sopro_tpu_torch.config import RuntimeConfig
+    from sopro_tpu_torch.tts import SoproTTS
+
+    tts = SoproTTS.from_random(cfg, seed=SEED, mimi_cfg=mcfg, device=dev,
+                               runtime=RuntimeConfig(use_pallas_resident=False))
+    ref = tts.prepare_reference(ref_tokens_tq=ref_tokens)
+    tts.synthesize("warm up", ref=ref, max_frames=8, seed=0)  # first-call costs outside the run
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    secs = []
+    for text, seed in REQUESTS[:2]:
+        t0 = time.perf_counter()
+        wav = tts.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=seed)
+        secs.append(time.perf_counter() - t0)
+        if wav.shape[1] <= 0 or not np.isfinite(wav).all():
+            raise AssertionError(f"per-step synthesize: {wav.shape}")
+    texts, seeds = BATCH[0][:2], BATCH[1][:2]
+    t0 = time.perf_counter()
+    outs = tts.synthesize_batch(texts, ref=ref, max_frames=MAX_FRAMES, seeds=seeds)
+    batch_s = time.perf_counter() - t0
+    text, seed = STREAM_REQUESTS[0]
+    chunks, ttfa, gaps = run_stream(tts, text, ref, seed)
+    launches = launched("per-step route", ("ar_step", "nar_heads", "seanet", "seanet_chunk"))
+    if launches["ar_loop"]:
+        raise AssertionError(f"per-step route launched K1 {launches['ar_loop']} times")
+    frames = check_stream(chunks, tts, text, ref, seed, "per-step stream")
+    try:
+        tts.synthesize_batch(BATCH[0][:3], ref=ref, max_frames=8)
+    except ValueError as e:
+        log(f"  B=3 on the per-step route raises ValueError: {e}")
+    else:
+        raise AssertionError("per-step route: a B = 3 batch did not raise")
+
+    k1_secs = []
+    for text, seed in REQUESTS[:2]:
+        t0 = time.perf_counter()
+        k1_tts.synthesize(text, ref=k1_ref, max_frames=MAX_FRAMES, seed=seed)
+        k1_secs.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    k1_tts.synthesize_batch(texts, ref=k1_ref, max_frames=MAX_FRAMES, seeds=seeds)
+    k1_batch_s = time.perf_counter() - t0
+    log(f"  synthesize, {MAX_FRAMES + 1} frames: {', '.join(f'{x:.3f}' for x in secs)} s (K5 route) vs "
+        f"{', '.join(f'{x:.3f}' for x in k1_secs)} s (K1 route)")
+    log(f"  synthesize_batch B=2: {batch_s:.3f} s (K5 route, {[o.shape[1] for o in outs]} samples) "
+        f"vs {k1_batch_s:.3f} s (K1 route)")
+    log(f"  stream chunk {CHUNK}: {frames} frames, TTFA {ttfa * 1e3:.2f} ms, steady chunk mean "
+        f"{statistics.mean(gaps) * 1e3:.2f} ms (K5 route)")
+    text, seed = REQUESTS[2]
+    greedy = dict(max_frames=MAX_FRAMES, seed=seed, temperature=1e-4, anti_loop=False)
+    err, peak = close_to(tts.synthesize(text, ref=ref, **greedy),
+                         k1_tts.synthesize(text, ref=k1_ref, **greedy), "per-step near-greedy")
+    log(f"  near-greedy request, K5 route vs K1 route: max|err| {err:.3e}, peak {peak:.3e}")
+    return launches
 
 
 def run_stream(tts, text, ref, seed, chunk=CHUNK):
@@ -424,18 +633,24 @@ def main() -> int:
         "seanet_chunk": check_seanet_chunk(mimi, dev, rng),
         "ar_loop": check_ar_loop(model, mimi, dev, rng),
     }
+    stats["ar_step"] = check_ar_step(model, mimi, dev, rng, stats["ar_loop"])
     del model, mimi
     torch.cuda.empty_cache()
 
     log("[4] synthesize path: SoproTTS.from_random -> prepare_reference -> synthesize x3")
-    synth_launches, tts, ref = drive_main_path(dev, rng, cfg, mcfg)
+    synth_launches, tts, ref, ref_tokens = drive_main_path(dev, rng, cfg, mcfg)
     log(f"[5] stream path: SoproTTSStreamer.stream x3, max_frames={MAX_FRAMES}, chunk {CHUNK}")
     stream_launches = drive_stream_path(tts, ref)
     log("[6] reference from audio: WAV -> encode_reference -> prepare_reference -> stream")
     drive_reference_audio(tts, ref)
+    log(f"[7] batch path: synthesize_batch B={len(BATCH[0])}, synthesize_long")
+    drive_batch_path(tts, ref, dev, rng)
+    log("[8] per-step route: RuntimeConfig(use_pallas_resident=False)")
+    step_launches = drive_per_step_route(cfg, mcfg, dev, ref_tokens, tts, ref)
 
-    # each kernel's count from the path it belongs to (K4: the stream)
-    launches = dict(synth_launches, seanet_chunk=stream_launches["seanet_chunk"])
+    # each kernel's count from the path it belongs to (K4: the stream, K5: the per-step route)
+    launches = dict(synth_launches, seanet_chunk=stream_launches["seanet_chunk"],
+                    ar_step=step_launches["ar_step"])
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": stats[name]["max_abs_err"],

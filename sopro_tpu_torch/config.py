@@ -3,7 +3,8 @@
 `SoproTTSConfig` keeps the checkpoint's exact field set and defaults, so a
 `cfg` JSON deserializes unchanged. `RuntimeConfig` keeps only the knobs the
 port reads: the padding buckets, which must match the JAX package's so both
-compute on the same padded shapes.
+compute on the same padded shapes, the batch grouping and the choice of AR
+kernel.
 """
 
 from __future__ import annotations
@@ -119,14 +120,28 @@ def _cycle_to(cycle: Tuple[int, ...], n: int) -> Tuple[int, ...]:
 
 @dataclass(frozen=True)
 class RuntimeConfig:
-    """Execution knobs; not part of the checkpoint contract. The port
-    computes in float32 only (every tolerance it is held to assumes it)."""
+    """Execution knobs; not part of the checkpoint contract, names and
+    defaults as in the JAX package. The port computes in float32 only
+    (every tolerance it is held to assumes it)."""
 
     # Pad text-token sequences to these bucket lengths (same rule as the
     # JAX package, so both packages compute on identical padded shapes).
     text_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256, 512, 1024, 2048)
     # Pad reference-token sequences (frames) to these buckets.
     ref_buckets: Tuple[int, ...] = (32, 64, 96, 128, 160, 256)
+    # The adaptive plan's NAR + Mimi decode run over the generated length
+    # rounded up to a multiple of this.
+    nar_pad_multiple: int = 64
+    # synthesize_batch sub-batch size (0: one batch); every group is
+    # enqueued before the first is copied to the host.
+    batch_pipeline_group: int = 0
+    # The per-step AR kernel K5 (`ops/ar_step.py`, `ar_step`), for B <= 2
+    # where K1 is not selected. None: on for a CUDA device.
+    use_pallas_ar: "bool | None" = None
+    # The whole-loop AR kernel K1 (`ops/ar_loop.py`, `ar_loop`) wherever its
+    # shared memory fits (`Engine.resident_eligible`). None: on for a CUDA
+    # device. On CUDA, a call that neither knob selects raises.
+    use_pallas_resident: "bool | None" = None
 
 
 def pick_bucket(n: int, buckets: Tuple[int, ...]) -> int:

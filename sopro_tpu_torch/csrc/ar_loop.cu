@@ -41,6 +41,17 @@
 // outputs. The count grid is rebuilt from the history at entry, as the TPU
 // kernel does. The sampler mirrors the JAX op sequence op for op, so tokens
 // equal the plain path except at genuine near-ties.
+//
+// Kernel K5, the same kernel in its logits-only mode (`kLogitsOnly`),
+// replaces sopro_tpu/ops/pallas_ar.py::ar_step_pallas: ONE step for B rows
+// from x [B, D] and the ring buffers [N, B, CTX, D] in device memory, with no
+// sampler. Each rank writes its real logit columns straight to logits[b, :]
+// and the shifted buffers go back oldest-first (the JAX `shifted` layout);
+// the count grid, the bisections, Threefry and the state scalars are
+// skipped. The block stack is K1's own code, so K1 and K5 compute the same
+// step. K5 is bound like one step of K1 (the weights out of L2, ~40
+// dependent phases), plus a launch and the cluster's set-up per step; the
+// caller samples between launches.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -74,6 +85,8 @@ struct ArLoopArgs {
   long long* key_out;
   int* hist_out;
   float* bufs_out;
+  const float* x_in;  // K5 only: [B, D] step input
+  float* logits;      // K5 only: [B, V]
 };
 
 namespace {
@@ -272,6 +285,8 @@ __host__ __device__ size_t smem_floats(const ArLoopArgs& a, const Layout& l) {
          4 * (size_t)kThreads + 64 + mine;
 }
 
+// kLogitsOnly: K5, one step from a.x_in, logits out, no sampler or state.
+template <bool kLogitsOnly>
 __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a) {
   extern __shared__ float smem[];
   cg::cluster_group cl = cg::this_cluster();
@@ -321,21 +336,25 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
   float* bufs_out = a.bufs_out + (size_t)b * CTX * D;
 
   // ---- entry: state, count grid, my ring columns ----
-  for (int i = tid; i < V; i += nt) cnt[i] = 0;
+  if constexpr (!kLogitsOnly) {
+    for (int i = tid; i < V; i += nt) cnt[i] = 0;
+    if (tid == 0) {
+      st[T] = a.t_in[b];
+      st[LAST] = a.last_in[b];
+      st[STREAK] = a.streak_in[b];
+      st[STOPPED] = a.stopped_in[b];
+      st[FEOS] = a.feos_in[b];
+      st[K0] = (int)(uint32_t)(a.key_in[2 * b] & 0xffffffffLL);
+      st[K1] = (int)(uint32_t)(a.key_in[2 * b + 1] & 0xffffffffLL);
+    }
+    for (int i = tid; i < a.hist_len; i += nt) hist[i] = a.hist_in[(size_t)b * a.hist_len + i];
+  }
   if (tid == 0) {
-    st[T] = a.t_in[b];
-    st[LAST] = a.last_in[b];
-    st[STREAK] = a.streak_in[b];
-    st[STOPPED] = a.stopped_in[b];
-    st[FEOS] = a.feos_in[b];
-    st[K0] = (int)(uint32_t)(a.key_in[2 * b] & 0xffffffffLL);
-    st[K1] = (int)(uint32_t)(a.key_in[2 * b + 1] & 0xffffffffLL);
     st[HEAD] = 0;
     int any = 0;
     for (int l = 0; l < L; ++l) any |= a.mask[(size_t)b * L + l] != 0;
     st[NONE_VALID] = !any;
   }
-  for (int i = tid; i < a.hist_len; i += nt) hist[i] = a.hist_in[(size_t)b * a.hist_len + i];
   for (int li = 0; li < a.N; ++li) {
     for (int i = tid; i < CTX * lay.cw; i += nt) {
       const int j = i / lay.cw, c = i - j * lay.cw;
@@ -353,22 +372,27 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
     for (int c = tid; c < lay.fw; c += nt) ff1bS[li * lay.fw + c] = a.ff1_b[(size_t)li * 4 * D + f0 + c];
   }
   __syncthreads();
-  for (int i = tid; i < a.hist_len; i += nt)
-    if (hist[i] >= 0 && hist[i] < V) atomicAdd(&cnt[hist[i]], 1);
+  if constexpr (!kLogitsOnly)
+    for (int i = tid; i < a.hist_len; i += nt)
+      if (hist[i] >= 0 && hist[i] < V) atomicAdd(&cnt[hist[i]], 1);
   cl.sync();  // every block has started before any shared memory is pushed
 
   const float pen = a.rep_pen;
   const float scale_att = 1.f / sqrtf((float)hd);
   int step = 0;
   for (; step < a.n_steps; ++step) {
-    const int t = st[T];
-    if (!(t < a.S && st[STOPPED] == 0)) break;  // identical in every block
+    const int t = kLogitsOnly ? 0 : st[T];
+    if constexpr (kLogitsOnly) {
+      for (int i = tid; i < D; i += nt) h[i] = a.x_in[(size_t)b * D + i];
+    } else {
+      if (!(t < a.S && st[STOPPED] == 0)) break;  // identical in every block
 
-    // ---- x_t = cond[b, t] + emb[prev] ----
-    const int prev = t == 0 ? V : st[LAST];
-    const int tc = t < a.S - 1 ? t : a.S - 1;
-    for (int i = tid; i < D; i += nt)
-      h[i] = a.cond[((size_t)b * a.S + tc) * D + i] + a.emb[(size_t)prev * D + i];
+      // ---- x_t = cond[b, t] + emb[prev] ----
+      const int prev = t == 0 ? V : st[LAST];
+      const int tc = t < a.S - 1 ? t : a.S - 1;
+      for (int i = tid; i < D; i += nt)
+        h[i] = a.cond[((size_t)b * a.S + tc) * D + i] + a.emb[(size_t)prev * D + i];
+    }
     const int head = st[HEAD];
     __syncthreads();
 
@@ -487,6 +511,13 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
     // ---- head: my logits, pushed to every block ----
     rmsnorm(h, a.out_norm, hn, D, red);
     gemv_cols(a.head_w, a.Vp, hn, D, v0, v1 - v0, loc, part);
+    if constexpr (kLogitsOnly) {  // K5: my real logit columns out, the ring head on
+      for (int c = tid; c < v1r - v0; c += nt)
+        a.logits[(size_t)b * V + v0 + c] = loc[c] + __ldg(a.head_b + v0 + c);
+      if (tid == 0) st[HEAD] = (head + 1) % CTX;
+      __syncthreads();
+      continue;
+    }
     for (int c = tid; c < v1r - v0; c += nt) loc[c] += __ldg(a.head_b + v0 + c);
     __syncthreads();
     push(cl, lg + v0, loc, max(0, v1r - v0), cs);
@@ -615,7 +646,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
   }
 
   // ---- exit: tokens of skipped steps, state out, my ring columns ----
-  if (r == 0) {
+  if (!kLogitsOnly && r == 0) {
     for (int i = step + tid; i < a.n_steps; i += nt) a.tokens[(size_t)b * a.n_steps + i] = 0;
     if (tid == 0) {
       a.t_out[b] = st[T];
@@ -638,21 +669,20 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
   cl.sync();  // no block leaves while a peer could still address its shared memory
 }
 
-}  // namespace
-
-// Runs a.n_steps decode steps for a.B rows, one thread-block cluster per row.
-// Returns cudaGetLastError() after the launch (or an error code for
-// unsupported shapes). `cluster_out` (nullable) receives the cluster size.
-extern "C" int sopro_ar_loop(const ArLoopArgs* args, int* cluster_out, void* stream) {
-  const ArLoopArgs& a = *args;
+// Launches `kernel` for a.B rows, one thread-block cluster per row: the
+// largest cluster (16, 8, ...) whose shared memory fits and that the card
+// schedules. Returns cudaGetLastError() after the launch (or an error code
+// for unsupported shapes). `cluster_out` (nullable) receives the cluster size.
+template <bool kLogitsOnly>
+int launch(const ArLoopArgs& a, int* cluster_out, void* stream) {
   if (a.B <= 0 || a.N <= 0 || a.N > kMaxLayers || a.H <= 0 || a.D % a.H != 0 || a.V <= 0 ||
       a.Vp < a.V || a.Vp % 4 != 0 ||
       a.L <= 0 || a.S <= 0 || a.freq <= 0 || a.CTX <= 0 || a.hist_len < 32 || a.hist_len > 64)
     return (int)cudaErrorInvalidValue;
   for (int li = 0; li < a.N; ++li)
     if ((a.K - 1) * a.dils[li] + 1 > a.CTX) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(ar_loop_kernel,
-                                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  auto kernel = ar_loop_kernel<kLogitsOnly>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return (int)e;
   for (int cs = 16; cs >= 1; cs /= 2) {
     if (a.D % cs != 0) continue;
@@ -660,8 +690,7 @@ extern "C" int sopro_ar_loop(const ArLoopArgs* args, int* cluster_out, void* str
     if (lay.cw * a.K > 4 * kThreads) continue;  // conv products must fit `part`
     const size_t ints = (size_t)a.V + a.hist_len + 64 + 16;
     const size_t smem = (smem_floats(a, lay) + ints) * 4;
-    e = cudaFuncSetAttribute(ar_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((unsigned)(a.B * cs));
@@ -676,15 +705,31 @@ extern "C" int sopro_ar_loop(const ArLoopArgs* args, int* cluster_out, void* str
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, ar_loop_kernel, &cfg) != cudaSuccess ||
+    if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess ||
         clusters <= 0) {
       (void)cudaGetLastError();  // clear the refusal and try a smaller cluster
       continue;
     }
     if (cluster_out != nullptr) *cluster_out = cs;
-    e = cudaLaunchKernelEx(&cfg, ar_loop_kernel, a);
+    e = cudaLaunchKernelEx(&cfg, kernel, a);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidConfiguration;
+}
+
+}  // namespace
+
+// K1: runs a.n_steps decode steps for a.B rows.
+extern "C" int sopro_ar_loop(const ArLoopArgs* args, int* cluster_out, void* stream) {
+  return launch<false>(*args, cluster_out, stream);
+}
+
+// K5: one step for a.B rows, a.x_in [B, D] and a.bufs_in -> a.logits [B, V]
+// and a.bufs_out; the sampler and state fields are not read.
+extern "C" int sopro_ar_step(const ArLoopArgs* args, int* cluster_out, void* stream) {
+  ArLoopArgs a = *args;
+  if (a.x_in == nullptr || a.logits == nullptr) return (int)cudaErrorInvalidValue;
+  a.n_steps = 1;
+  return launch<true>(a, cluster_out, stream);
 }

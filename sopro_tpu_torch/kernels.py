@@ -9,10 +9,11 @@ point returns `cudaGetLastError()` after its launches, which the caller
 turns into an exception.
 
 `KERNELS` names the kernels, each counted on its own; `SOURCES` the files
-they are built from (K3 `seanet` and K4 `seanet_chunk` share `seanet.cu`).
+they are built from (K1 `ar_loop` and K5 `ar_step` share `ar_loop.cu`, K3
+`seanet` and K4 `seanet_chunk` share `seanet.cu`).
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it on the
 device; `reset_launches()` zeroes the counts. `LAUNCH_INFO` keeps what a
-kernel chose at launch time (the AR loop's cluster size).
+kernel chose at launch time (the AR kernels' cluster size).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("ar_loop", "nar_heads", "seanet", "seanet_chunk")
+KERNELS = ("ar_loop", "ar_step", "nar_heads", "seanet", "seanet_chunk")
 SOURCES = ("ar_loop", "nar_heads", "seanet")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -23,7 +23,8 @@ from sopro_tpu_torch.models import nar as N
 from sopro_tpu_torch.models.base import ParamModule
 from sopro_tpu_torch.models.speaker import SpeakerFiLM, Token2SV
 from sopro_tpu_torch.models.text import TextEncoder
-from sopro_tpu_torch.ops.ar_loop import ARLoopContext, ar_loop
+from sopro_tpu_torch.ops.ar_loop import STATE_KEYS, ARLoopContext, ar_loop, ar_loop_step
+from sopro_tpu_torch.ops.ar_step import ARStepContext
 from sopro_tpu_torch.ops.attention import build_kv_cache, ref_xattn
 from sopro_tpu_torch.ops.blocks import rmsnorm, ssmlite
 from sopro_tpu_torch.ops.embeddings import (
@@ -92,6 +93,17 @@ def prepare_reference(
         for xp in m.shared.p["ref_xattn"]
     )
     return PreparedReference(sv_ref=sv_ref, ref_seq=ref_seq, ref_kv=ref_kv)
+
+
+def tile_reference(ref: PreparedReference, n: int) -> PreparedReference:
+    """A one-row reference broadcast to `n` rows (views, no copies)."""
+    def tile(x):
+        return x.expand(n, *x.shape[1:]) if isinstance(x, torch.Tensor) and x.shape[0] == 1 else x
+
+    return PreparedReference(
+        sv_ref=tile(ref.sv_ref), ref_seq=tile(ref.ref_seq),
+        ref_kv=tuple({k: tile(v) for k, v in kv.items()} for kv in ref.ref_kv),
+    )
 
 
 def prepare_conditioning(
@@ -178,48 +190,92 @@ def init_ar_carry(
     )
 
 
+def _prev_token_table(m: SoproModel) -> torch.Tensor:
+    """[V+1, D]: rows 0..V-1 the codebook-1 embeddings, row V the BOS row."""
+    cfg = m.cfg
+    emb = m.shared.p["cb_embed"]["emb"]
+    bos = int(cfg.num_codebooks) * int(cfg.codebook_size)
+    return torch.cat([emb[: cfg.ar_vocab], emb[bos: bos + 1]], dim=0).contiguous()
+
+
 def ar_context(
     m: SoproModel, txt_seq: torch.Tensor, text_mask: torch.Tensor
 ) -> ARLoopContext:
-    """Text KV caches + the compact previous-token table for the loop."""
-    cfg = m.cfg
-    kv = G.build_text_kv_caches(m.ar.p, cfg, txt_seq, text_mask)
-    emb = m.shared.p["cb_embed"]["emb"]
-    bos = int(cfg.num_codebooks) * int(cfg.codebook_size)
-    emb_c = torch.cat([emb[: cfg.ar_vocab], emb[bos: bos + 1]], dim=0).contiguous()
+    """Text KV caches + the compact previous-token table for the loop (K1 on
+    CUDA, the plain per-step loop on the CPU)."""
+    kv = G.build_text_kv_caches(m.ar.p, m.cfg, txt_seq, text_mask)
     stacked = m.ar.stacked() if txt_seq.device.type == "cuda" else None
-    return ARLoopContext(cfg=cfg, p_ar=m.ar.p, stacked=stacked, kv=kv,
-                         mask=text_mask, emb=emb_c)
+    return ARLoopContext(cfg=m.cfg, p_ar=m.ar.p, stacked=stacked, kv=kv,
+                         mask=text_mask, emb=_prev_token_table(m))
+
+
+def ar_step_context(
+    m: SoproModel, txt_seq: torch.Tensor, text_mask: torch.Tensor
+) -> ARStepContext:
+    """The per-step route's context: a loop of K5 steps (`ops/ar_step.py`)
+    with the sampler as plain torch between them."""
+    kv = [c for c in G.build_text_kv_caches(m.ar.p, m.cfg, txt_seq, text_mask) if c is not None]
+    return ARStepContext(
+        cfg=m.cfg, p_ar=m.ar.p,
+        stacked=m.ar.stacked() if txt_seq.device.type == "cuda" else None,
+        kv_k=torch.stack([c["k"] for c in kv]).contiguous(),
+        kv_v=torch.stack([c["v"] for c in kv]).contiguous(),
+        mask=text_mask, emb=_prev_token_table(m),
+    )
+
+
+def _state(carry: ARCarry) -> Dict[str, torch.Tensor]:
+    return {k: getattr(carry, k) for k in STATE_KEYS}
+
+
+def ar_row_active(carry: ARCarry) -> torch.Tensor:
+    """[B] bool: rows still decoding."""
+    return (carry.t < carry.tokens.shape[1]) & (carry.stopped == 0)
+
+
+def ar_single_step(
+    carry: ARCarry, cond_ar: torch.Tensor, ctx: ARStepContext, settings: ARSettings,
+) -> ARCarry:
+    """One frame for every row (one K5 launch on CUDA, then the sampler);
+    rows that stopped or reached the end keep their state."""
+    b = carry.tokens.shape[0]
+    tok, active, ns = ar_loop_step(
+        ctx, cond_ar, _state(carry), settings.per_row(b, cond_ar.device), settings.anti_loop
+    )
+    rows = torch.arange(b, device=cond_ar.device)
+    t_safe = torch.clamp(carry.t, max=carry.tokens.shape[1] - 1).long()
+    tokens = carry.tokens.clone()
+    tokens[rows, t_safe] = torch.where(active, tok, carry.tokens[rows, t_safe])
+    return replace(carry, tokens=tokens, **ns)
 
 
 def ar_chunk(
     carry: ARCarry,
     cond_ar: torch.Tensor,
-    ctx: ARLoopContext,
+    ctx,
     settings: ARSettings,
     n_steps: int,
 ) -> ARCarry:
-    """Advance every row by up to `n_steps` steps (K1 on CUDA, the plain
-    loop on the CPU) and merge the chunk's tokens into the absolute buffer."""
+    """Advance every row by up to `n_steps` steps and merge the chunk's
+    tokens into the absolute buffer. An ARLoopContext runs them in one K1
+    launch on CUDA (the plain loop on the CPU); an ARStepContext runs one K5
+    step at a time, ending early once every row stopped."""
+    if isinstance(ctx, ARStepContext):
+        for _ in range(int(n_steps)):
+            if not bool(ar_row_active(carry).any()):
+                break
+            carry = ar_single_step(carry, cond_ar, ctx, settings)
+        return carry
     b, s_tok = carry.tokens.shape
-    state = {
-        "t": carry.t, "last": carry.last, "streak": carry.streak,
-        "stopped": carry.stopped, "first_eos": carry.first_eos,
-        "key": carry.key, "hist": carry.hist, "bufs": carry.bufs,
-    }
     tok_chunk, ns = ar_loop(
-        ctx, cond_ar, state, settings.per_row(b, cond_ar.device), int(n_steps),
+        ctx, cond_ar, _state(carry), settings.per_row(b, cond_ar.device), int(n_steps),
         settings.anti_loop,
     )
     pos = torch.arange(s_tok, device=cond_ar.device)[None, :]
     rel = pos - carry.t[:, None]
     in_chunk = (rel >= 0) & (rel < int(n_steps)) & (pos < ns["t"][:, None])
     gath = torch.gather(tok_chunk, 1, torch.clamp(rel, 0, int(n_steps) - 1).long())
-    return replace(
-        carry, t=ns["t"], bufs=ns["bufs"], hist=ns["hist"], streak=ns["streak"],
-        last=ns["last"], key=ns["key"], first_eos=ns["first_eos"],
-        stopped=ns["stopped"], tokens=torch.where(in_chunk, gath, carry.tokens),
-    )
+    return replace(carry, tokens=torch.where(in_chunk, gath, carry.tokens), **ns)
 
 
 def ar_generate(
@@ -230,10 +286,13 @@ def ar_generate(
     seed: int,
     settings: ARSettings,
     max_steps: int,
+    ctx=None,
 ) -> ARCarry:
-    """Full AR decode: every step in one K1 launch on CUDA, the plain loop
-    (with early exit once every row stopped) on the CPU."""
-    ctx = ar_context(m, txt_seq, text_mask)
+    """Full AR decode of `max_steps` steps through `ctx` (`ar_chunk`); by
+    default an ARLoopContext: every step in one K1 launch on CUDA, the plain
+    loop (with early exit once every row stopped) on the CPU."""
+    if ctx is None:
+        ctx = ar_context(m, txt_seq, text_mask)
     carry = init_ar_carry(m.cfg, cond_ar.shape[0], max_steps, seed, cond_ar.device)
     return ar_chunk(carry, cond_ar, ctx, settings, max_steps)
 

@@ -5,6 +5,9 @@ Replaces sopro_tpu/ops/pallas_ar_loop.py::ar_loop_pallas. `ar_loop` runs
 through the hand-written kernel `csrc/ar_loop.cu` (every step inside one
 launch); CPU tensors go through `ar_loop_plain`, the same steps as plain
 PyTorch ops with the semantics of the JAX package's `ar_single_step`.
+`ar_loop_step` is that step; it takes the block stack from its context
+(`ctx.step`), so the per-step kernel K5 (`ops/ar_step.py`, the same source
+in its logits-only mode) shares its sampler and per-row freeze.
 
 State: {t, last, streak, stopped, first_eos: int32 [B]; key: int64 [B, 2]
 holding uint32 words; hist: int32 [B, HIST_LEN]; bufs: f32 [N, B, CTX, D]}.
@@ -24,7 +27,7 @@ import torch
 from sopro_tpu_torch import kernels
 from sopro_tpu_torch import sampling as S
 from sopro_tpu_torch.config import SoproTTSConfig
-from sopro_tpu_torch.models.generator import TEXT_HEADS, ar_step
+from sopro_tpu_torch.models.generator import TEXT_HEADS, ar_step, conv_ctx
 
 STATE_KEYS = ("t", "last", "streak", "stopped", "first_eos", "key", "hist", "bufs")
 LOOP_STREAK = 8
@@ -46,16 +49,22 @@ class ARLoopContext:
     mask: torch.Tensor  # [B, L] bool
     emb: torch.Tensor  # [V+1, D]
 
+    def step(self, x: torch.Tensor, bufs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The block stack of one step as plain PyTorch ops."""
+        return ar_step(self.p_ar, self.cfg, x, bufs, self.kv)
+
 
 def ar_loop_step(
-    ctx: ARLoopContext,
+    ctx,
     cond: torch.Tensor,
     st: Dict[str, torch.Tensor],
     settings: Dict[str, torch.Tensor],
     anti_loop: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """One frame for every row -> (tok [B], active [B], new state). Inactive
-    rows (stopped, or t at the cond length) keep their state."""
+    rows (stopped, or t at the cond length) keep their state. `ctx` is an
+    ARLoopContext or an ARStepContext: its `cfg`, `emb` and `step(x, bufs)
+    -> (logits, bufs)` are read."""
     cfg = ctx.cfg
     b, s_max = cond.shape[0], cond.shape[1]
     v = int(cfg.ar_vocab)
@@ -71,7 +80,7 @@ def ar_loop_step(
         recovery=(settings["recovery_top_p"], settings["recovery_temp"]),
         loop_streak=LOOP_STREAK, enabled=anti_loop,
     )
-    logits, bufs = ar_step(ctx.p_ar, cfg, x, st["bufs"], ctx.kv)
+    logits, bufs = ctx.step(x, st["bufs"])
     key, sub = S.split_keys(st["key"])
     tok = S.sample_full_vocab(
         sub[:, 0:1], sub[:, 1:2], logits.float(), S.history_member(st["hist"], v),
@@ -135,10 +144,34 @@ def ar_loop(
 
 
 # --------------------------------------------------------------------------
-# kernel binding
+# kernel binding (shared with K5, ops/ar_step.py)
 # --------------------------------------------------------------------------
 
 MAX_LAYERS = 16
+THREADS = 1024  # kThreads in csrc/ar_loop.cu
+SMEM_PER_BLOCK = 232448  # 227 KB: the most shared memory a Hopper block can have
+
+
+def smem_bytes(cfg: SoproTTSConfig, text_len: int) -> Optional[int]:
+    """Shared memory per block that csrc/ar_loop.cu asks for at text length
+    `text_len`: a host mirror of its `smem_floats` and of the first cluster
+    size its launch loop tries (16, 8, ... dividing D, with the conv products
+    fitting the partial-sum buffer). None when no cluster size qualifies.
+    K1 and K5 take the same amount; the batch size and step count do not
+    enter (one cluster per row, the steps loop inside)."""
+    d, n, k, v = int(cfg.d_model), int(cfg.n_layers_ar), int(cfg.ar_kernel), int(cfg.ar_vocab)
+    vp = v + (-v) % 4
+    ctx = conv_ctx(cfg)
+    for cs in (16, 8, 4, 2, 1):
+        cw, fw = d // cs, 4 * d // cs
+        if d % cs or cw * k > 4 * THREADS:
+            continue
+        vw = ((vp + cs - 1) // cs + 3) // 4 * 4
+        mine = n * (ctx + 3 + k) * cw + n * fw
+        floats = 7 * d + max(fw, vw) + 2 * cs * d + int(text_len) + 3 * v + 4 * THREADS + 64 + mine
+        ints = v + S.HIST_LEN + 64 + 16
+        return 4 * (floats + ints)
+    return None
 
 
 class _Args(ctypes.Structure):
@@ -158,48 +191,49 @@ class _Args(ctypes.Structure):
             "ff1_b", "ff2_w", "ff2_b", "x_nq", "x_q", "x_out", "x_gate",
             "kv_k", "kv_v", "mask", "out_norm", "head_w", "head_b",
             "tokens", "t_out", "last_out", "streak_out", "stopped_out",
-            "feos_out", "key_out", "hist_out", "bufs_out",
+            "feos_out", "key_out", "hist_out", "bufs_out", "x_in", "logits",
         )]
     )
 
 
-def _need(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+WEIGHTS = ("norm", "glu_w", "glu_b", "dw_w", "dw_b", "ff_norm", "ff1_w", "ff1_b",
+           "ff2_w", "ff2_b", "x_nq", "x_q", "x_out", "x_gate", "out_norm", "head_w", "head_b")
+
+
+def need(kernel: str, t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if t.device != device:
-        raise ValueError(f"ar_loop: {name} is on {t.device}, expected {device}")
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise ValueError(f"ar_loop: {name} has dtype {t.dtype}, expected {dtype}")
+        raise ValueError(f"{kernel}: {name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"ar_loop: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"ar_loop: {name} is not contiguous")
+        raise ValueError(f"{kernel}: {name} is not contiguous")
 
 
-def _ar_loop_cuda(ctx, cond, state, settings, n_steps, anti_loop):
-    cfg = ctx.cfg
-    dev = cond.device
-    b, s_max, d = cond.shape
-    n, k = int(cfg.n_layers_ar), int(cfg.ar_kernel)
-    v = int(cfg.ar_vocab)
-    freq = int(cfg.ar_text_attn_freq)
-    w = ctx.stacked
+def block_args(
+    kernel: str, cfg: SoproTTSConfig, w: Dict[str, torch.Tensor], kv_k: torch.Tensor,
+    kv_v: torch.Tensor, mask: torch.Tensor, bufs: torch.Tensor,
+) -> _Args:
+    """The fields K1 and K5 share, checked: sizes, dilations, the stacked
+    weights, the text KV [A, B, H, L, hd], the int32 mask [B, L] and the
+    ring buffers [N, B, CTX, D] going in."""
+    dev = bufs.device
+    n, b, ctx_len, d = (int(x) for x in bufs.shape)
+    k, v, freq = int(cfg.ar_kernel), int(cfg.ar_vocab), int(cfg.ar_text_attn_freq)
     vp = int(w["head_w"].shape[1])  # V padded to a multiple of 4
     a_n = int(w["x_q"].shape[0])
-    kv_k = torch.stack([c["k"] for c in ctx.kv if c is not None]).contiguous()
-    kv_v = torch.stack([c["v"] for c in ctx.kv if c is not None]).contiguous()
     l_txt = int(kv_k.shape[3])
     hd = d // TEXT_HEADS
-    ctx_len = int(state["bufs"].shape[2])
-    if n > MAX_LAYERS or a_n != n // freq or vp % 4 or vp < v:
-        raise ValueError("ar_loop: unsupported layer/attention layout")
-    if ctx_len < (k - 1) * max(cfg.ar_dilations()) + 1:
-        raise ValueError("ar_loop: conv buffer shorter than the receptive field")
-    mask = ctx.mask.to(torch.int32).contiguous()
-
-    i32, f32 = torch.int32, torch.float32
+    if n != int(cfg.n_layers_ar) or n > MAX_LAYERS or a_n != n // freq or vp % 4 or vp < v:
+        raise ValueError(f"{kernel}: unsupported layer/attention layout")
+    if ctx_len < conv_ctx(cfg):
+        raise ValueError(f"{kernel}: conv buffer shorter than the receptive field")
+    f32 = torch.float32
     checks = [
-        (cond, "cond", f32, (b, s_max, d)), (ctx.emb, "emb", f32, (v + 1, d)),
         (kv_k, "kv_k", f32, (a_n, b, TEXT_HEADS, l_txt, hd)),
-        (kv_v, "kv_v", f32, (a_n, b, TEXT_HEADS, l_txt, hd)), (mask, "mask", i32, (b, l_txt)),
+        (kv_v, "kv_v", f32, (a_n, b, TEXT_HEADS, l_txt, hd)),
+        (mask, "mask", torch.int32, (b, l_txt)), (bufs, "bufs", f32, (n, b, ctx_len, d)),
         (w["norm"], "norm", f32, (n, d)), (w["glu_w"], "glu_w", f32, (n, d, 2 * d)),
         (w["glu_b"], "glu_b", f32, (n, 2 * d)), (w["dw_w"], "dw_w", f32, (n, k, d)),
         (w["dw_b"], "dw_b", f32, (n, d)), (w["ff_norm"], "ff_norm", f32, (n, d)),
@@ -210,61 +244,77 @@ def _ar_loop_cuda(ctx, cond, state, settings, n_steps, anti_loop):
         (w["out_norm"], "out_norm", f32, (d,)), (w["head_w"], "head_w", f32, (d, vp)),
         (w["head_b"], "head_b", f32, (vp,)),
     ]
-    for name in ("t", "last", "streak", "stopped", "first_eos"):
-        checks.append((state[name], name, i32, (b,)))
-    checks += [
-        (state["key"], "key", torch.int64, (b, 2)),
-        (state["hist"], "hist", i32, (b, S.HIST_LEN)),
-        (state["bufs"], "bufs", f32, (n, b, ctx_len, d)),
-    ]
-    for name in ("top_p", "temperature", "recovery_top_p", "recovery_temp"):
-        checks.append((settings[name], name, f32, (b,)))
-    checks.append((settings["min_gen"], "min_gen", i32, (b,)))
     for t, name, dtype, shape in checks:
-        _need(t, name, dtype, shape, dev)
-
-    tokens = torch.empty((b, int(n_steps)), dtype=i32, device=dev)
-    out = {name: torch.empty_like(state[name]) for name in STATE_KEYS}
+        need(kernel, t, name, dtype, shape, dev)
 
     args = _Args()
     for name, val in (
-        ("B", b), ("S", s_max), ("n_steps", int(n_steps)), ("L", l_txt), ("D", d),
-        ("N", n), ("K", k), ("CTX", ctx_len), ("A", a_n), ("H", TEXT_HEADS),
-        ("V", v), ("Vp", vp), ("freq", freq), ("anti_loop", int(bool(anti_loop))),
-        ("eos", int(cfg.eos_id)), ("hist_len", S.HIST_LEN), ("top_k", TOP_K),
-        ("loop_streak", LOOP_STREAK),
+        ("B", b), ("L", l_txt), ("D", d), ("N", n), ("K", k), ("CTX", ctx_len), ("A", a_n),
+        ("H", TEXT_HEADS), ("V", v), ("Vp", vp), ("freq", freq), ("eos", int(cfg.eos_id)),
+        ("hist_len", S.HIST_LEN), ("top_k", TOP_K), ("loop_streak", LOOP_STREAK),
     ):
         setattr(args, name, val)
     for i, dil in enumerate(cfg.ar_dilations()):
         args.dils[i] = int(dil)
     args.rep_pen = REP_PENALTY
+    for name, t in dict({name: w[name] for name in WEIGHTS},
+                        kv_k=kv_k, kv_v=kv_v, mask=mask, bufs_in=bufs).items():
+        setattr(args, name, t.data_ptr())
+    return args
+
+
+def launch(kernel: str, entry: str, args: _Args, device) -> None:
+    """Call C entry point `entry` of csrc/ar_loop.cu on the current stream,
+    raise on a refused launch, count it under `kernel`."""
+    fn = getattr(kernels.lib("ar_loop"), entry)
+    fn.argtypes = [ctypes.POINTER(_Args), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cluster = ctypes.c_int(0)
+    rc = fn(ctypes.byref(args), ctypes.byref(cluster), kernels.stream_ptr(device))
+    kernels.check(rc, kernel)
+    kernels.LAUNCHES[kernel] += 1
+    kernels.LAUNCH_INFO[kernel] = {"cluster_blocks_per_row": cluster.value}
+
+
+def _ar_loop_cuda(ctx, cond, state, settings, n_steps, anti_loop):
+    dev = cond.device
+    b, s_max, d = cond.shape
+    v = int(ctx.cfg.ar_vocab)
+    kv_k = torch.stack([c["k"] for c in ctx.kv if c is not None]).contiguous()
+    kv_v = torch.stack([c["v"] for c in ctx.kv if c is not None]).contiguous()
+    mask = ctx.mask.to(torch.int32).contiguous()
+    args = block_args("ar_loop", ctx.cfg, ctx.stacked, kv_k, kv_v, mask, state["bufs"])
+
+    i32, f32 = torch.int32, torch.float32
+    checks = [(cond, "cond", f32, (b, s_max, d)), (ctx.emb, "emb", f32, (v + 1, d))]
+    for name in ("t", "last", "streak", "stopped", "first_eos"):
+        checks.append((state[name], name, i32, (b,)))
+    checks += [
+        (state["key"], "key", torch.int64, (b, 2)),
+        (state["hist"], "hist", i32, (b, S.HIST_LEN)),
+    ]
+    for name in ("top_p", "temperature", "recovery_top_p", "recovery_temp"):
+        checks.append((settings[name], name, f32, (b,)))
+    checks.append((settings["min_gen"], "min_gen", i32, (b,)))
+    for t, name, dtype, shape in checks:
+        need("ar_loop", t, name, dtype, shape, dev)
+
+    tokens = torch.empty((b, int(n_steps)), dtype=i32, device=dev)
+    out = {name: torch.empty_like(state[name]) for name in STATE_KEYS}
+    args.S, args.n_steps, args.anti_loop = s_max, int(n_steps), int(bool(anti_loop))
     bind = {
         "top_p": settings["top_p"], "temp": settings["temperature"],
         "rtp": settings["recovery_top_p"], "rtemp": settings["recovery_temp"],
         "min_gen": settings["min_gen"],
         "t_in": state["t"], "last_in": state["last"], "streak_in": state["streak"],
         "stopped_in": state["stopped"], "feos_in": state["first_eos"],
-        "key_in": state["key"], "hist_in": state["hist"], "bufs_in": state["bufs"],
-        "cond": cond, "emb": ctx.emb, "kv_k": kv_k, "kv_v": kv_v, "mask": mask,
+        "key_in": state["key"], "hist_in": state["hist"], "cond": cond, "emb": ctx.emb,
         "tokens": tokens, "t_out": out["t"], "last_out": out["last"],
         "streak_out": out["streak"], "stopped_out": out["stopped"],
         "feos_out": out["first_eos"], "key_out": out["key"],
         "hist_out": out["hist"], "bufs_out": out["bufs"],
     }
-    bind.update({name: w[name] for name in (
-        "norm", "glu_w", "glu_b", "dw_w", "dw_b", "ff_norm", "ff1_w", "ff1_b",
-        "ff2_w", "ff2_b", "x_nq", "x_q", "x_out", "x_gate", "out_norm",
-        "head_w", "head_b",
-    )})
     for name, t in bind.items():
         setattr(args, name, t.data_ptr())
-
-    fn = kernels.lib("ar_loop").sopro_ar_loop
-    fn.argtypes = [ctypes.POINTER(_Args), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    cluster = ctypes.c_int(0)
-    rc = fn(ctypes.byref(args), ctypes.byref(cluster), kernels.stream_ptr(dev))
-    kernels.check(rc, "ar_loop")
-    kernels.LAUNCHES["ar_loop"] += 1
-    kernels.LAUNCH_INFO["ar_loop"] = {"cluster_blocks_per_row": cluster.value}
+    launch("ar_loop", "sopro_ar_loop", args, dev)
     return tokens, out

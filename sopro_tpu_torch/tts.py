@@ -1,19 +1,23 @@
 """User-facing facade (counterpart: sopro_tpu/tts.py): `SoproTTS` with the
-JAX package's argument names and defaults for the synthesize and stream
-paths.
+JAX package's argument names and defaults for the synthesize, batch,
+long-form and stream paths.
 
 Waveforms are numpy float32 [1, S] at 24 kHz on the host. `synthesize` runs
-the fused plan for every `max_frames`; `stream` yields chunks from the
-stream plan (streaming.py). A reference voice comes as Mimi tokens
-(`ref_tokens_tq`) or as a WAV file (`ref_audio_path`: VAD trim, resample to
-24 kHz, centre crop, Mimi encode).
+the fused plan for `max_frames` >= 256 and the adaptive plan below that (or
+as `fused=` says); `synthesize_batch` runs padded batches of texts, each row
+with its own seed; `synthesize_long` splits a text into sentence chunks and
+runs them as one batch; `stream` yields chunks from the stream plan
+(streaming.py). A reference voice comes as Mimi tokens (`ref_tokens_tq`) or
+as a WAV file (`ref_audio_path`: VAD trim, resample to 24 kHz, centre crop,
+Mimi encode).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import wave
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,7 +27,7 @@ from sopro_tpu_torch.codec.mimi_config import MimiConfig
 from sopro_tpu_torch.config import RuntimeConfig, SoproTTSConfig
 from sopro_tpu_torch.constants import TARGET_SR
 from sopro_tpu_torch.engine import Engine
-from sopro_tpu_torch.models.sopro import PreparedReference
+from sopro_tpu_torch.models.sopro import PreparedReference, tile_reference
 from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
 from sopro_tpu_torch import weights as W
 
@@ -34,6 +38,38 @@ def center_crop_tokens(tokens_tq: np.ndarray, win: int) -> np.ndarray:
         return tokens_tq
     s = (t - win) // 2
     return tokens_tq[s: s + win]
+
+
+def split_sentences(text: str, max_chars: int = 350) -> List[str]:
+    """Split text into sentence chunks of at most ~max_chars for long-form
+    synthesis past the 400-frame cap: breaks after . ! ? ; and at line
+    breaks, keeping the punctuation; sentences merge greedily up to
+    max_chars; an over-long sentence falls back to comma, then space breaks
+    (the JAX package's rule)."""
+    text = text.strip()
+    if not text:
+        return []
+    raw = [s.strip() for s in re.split(r"(?<=[.!?;])\s+|\n+", text) if s.strip()]
+
+    def hard_split(s: str) -> List[str]:
+        out = []
+        while len(s) > max_chars:
+            window = s[: max_chars + 1]
+            comma = window.rfind(", ")
+            cut = comma + 1 if comma > 0 else window.rfind(" ")
+            if cut <= 0:
+                cut = max_chars
+            out.append(s[:cut].strip())
+            s = s[cut:].lstrip(", ").strip()
+        return out + [s] if s else out
+
+    merged: List[str] = []
+    for p in (p for s in raw for p in hard_split(s)):
+        if merged and len(merged[-1]) + 1 + len(p) <= max_chars:
+            merged[-1] = merged[-1] + " " + p
+        else:
+            merged.append(p)
+    return merged
 
 
 def _resolve_device(device) -> torch.device:
@@ -115,6 +151,19 @@ class SoproTTS:
         hop = int(mcfg.hop_length)
         return self.engine.encode_audio(wav[: (wav.shape[-1] // hop) * hop])
 
+    def encode_speaker(
+        self,
+        *,
+        ref_audio_path: Optional[str] = None,
+        ref_tokens_tq: Optional[np.ndarray] = None,
+        ref_seconds: Optional[float] = None,
+    ) -> np.ndarray:
+        """-> speaker embedding [sv_dim] of the reference (Token2SV)."""
+        toks = self.encode_reference(
+            ref_audio_path=ref_audio_path, ref_tokens_tq=ref_tokens_tq, ref_seconds=ref_seconds
+        )
+        return self.engine.token2sv(toks)
+
     def prepare_reference(
         self,
         *,
@@ -127,18 +176,15 @@ class SoproTTS:
         )
         return self.engine.prepare_reference(toks)
 
-    def _run(self, text, ref, ref_audio_path, ref_tokens_tq, ref_seconds, style_strength,
-             min_gen_frames, return_tokens, **kw):
-        if ref is None:
-            ref = self.prepare_reference(
-                ref_audio_path=ref_audio_path, ref_tokens_tq=ref_tokens_tq, ref_seconds=ref_seconds
-            )
-        style = float(style_strength if style_strength is not None else self.cfg.style_strength)
-        return self.engine.synthesize_fused(
-            self.encode_text(text), ref, style_strength=style,
-            min_gen=int(min_gen_frames or self.cfg.min_gen_frames),
-            return_tokens=return_tokens, **kw,
+    def _ref(self, ref, ref_audio_path, ref_tokens_tq, ref_seconds) -> PreparedReference:
+        if ref is not None:
+            return ref
+        return self.prepare_reference(
+            ref_audio_path=ref_audio_path, ref_tokens_tq=ref_tokens_tq, ref_seconds=ref_seconds
         )
+
+    def _style(self, style_strength: Optional[float]) -> float:
+        return float(style_strength if style_strength is not None else self.cfg.style_strength)
 
     def synthesize(
         self,
@@ -156,17 +202,37 @@ class SoproTTS:
         min_gen_frames: Optional[int] = None,
         seed: int = 0,
         pcm16: bool = False,
+        fused: Optional[bool] = None,
     ) -> np.ndarray:
-        """-> wav [1, S] @ 24 kHz, float32 (int16 with `pcm16=True`)."""
-        wav, t = self._run(
-            text, ref, ref_audio_path, ref_tokens_tq, ref_seconds, style_strength,
-            min_gen_frames, False,
-            max_frames=max_frames, seed=seed, top_p=top_p, temperature=temperature,
-            anti_loop=anti_loop,
+        """-> wav [1, S] @ 24 kHz, float32 (int16 with `pcm16=True`).
+
+        `fused=None` picks the plan as the JAX package does: the fused plan
+        (NAR and Mimi decode over all max_frames+1 frames, one copy to the
+        host) when max_frames >= 256, else the adaptive plan (AR decode,
+        then NAR and Mimi decode over the generated length rounded up to
+        `nar_pad_multiple`)."""
+        ref = self._ref(ref, ref_audio_path, ref_tokens_tq, ref_seconds)
+        ids = self.encode_text(text)
+        empty = np.zeros((1, 0), np.int16 if pcm16 else np.float32)
+        sampling = dict(max_frames=max_frames, seed=seed, top_p=top_p,
+                        temperature=temperature, anti_loop=anti_loop)
+        if fused if fused is not None else int(max_frames) >= 256:
+            wav, t = self.engine.synthesize_fused(
+                ids, ref, style_strength=self._style(style_strength),
+                min_gen=int(min_gen_frames or self.cfg.min_gen_frames), **sampling,
+            )
+            if t <= 0:
+                return empty
+            return to_pcm16(wav) if pcm16 else wav
+        prep = self.engine.prepare_conditioning(
+            ids, ref, max_frames=max_frames, style_strength=self._style(style_strength)
+        )
+        tokens_dev, t = self.engine.ar_generate_device(
+            prep, min_gen_frames=min_gen_frames, **sampling
         )
         if t <= 0:
-            return np.zeros((1, 0), np.int16 if pcm16 else np.float32)
-        return to_pcm16(wav) if pcm16 else wav
+            return empty
+        return self.engine.nar_decode_fused(prep["cond_ar"], tokens_dev, t, pcm16=pcm16)
 
     def generate_tokens(
         self,
@@ -181,14 +247,103 @@ class SoproTTS:
         min_gen_frames: Optional[int] = None,
         seed: int = 0,
     ) -> np.ndarray:
-        """text + prepared ref -> [T, num_codebooks] token matrix (the tokens
-        the fused plan decodes)."""
-        _, _, toks = self._run(
-            text, ref, None, None, None, style_strength, min_gen_frames, True,
-            max_frames=max_frames, seed=seed, top_p=top_p, temperature=temperature,
-            anti_loop=anti_loop,
+        """text + prepared ref -> [T, num_codebooks] token matrix: AR decode,
+        then the NAR over the generated length's frame bucket."""
+        prep = self.engine.prepare_conditioning(
+            self.encode_text(text), ref, max_frames=max_frames,
+            style_strength=self._style(style_strength),
         )
-        return toks
+        rvq1, t = self.engine.ar_generate(
+            prep, max_frames=max_frames, seed=seed, top_p=top_p, temperature=temperature,
+            anti_loop=anti_loop, min_gen_frames=min_gen_frames,
+        )
+        if t <= 0:
+            return np.zeros((0, self.cfg.num_codebooks), np.int32)
+        return self.engine.nar_refine(prep["cond_ar"], rvq1, t)
+
+    def synthesize_batch(
+        self,
+        texts: Sequence[str],
+        *,
+        ref: Optional[PreparedReference] = None,
+        ref_audio_path: Optional[str] = None,
+        ref_tokens_tq: Optional[np.ndarray] = None,
+        max_frames: int = 400,
+        top_p: float = 0.9,
+        temperature: float = 1.05,
+        anti_loop: bool = True,
+        style_strength: Optional[float] = None,
+        ref_seconds: Optional[float] = None,
+        min_gen_frames: Optional[int] = None,
+        seeds: Optional[Sequence[int]] = None,
+        pcm16: bool = False,
+        pipeline_group: Optional[int] = None,
+    ) -> List[np.ndarray]:
+        """Batched synthesis with one reference: the texts decode as padded
+        batches, each row with its own seed (default: its index) and its own
+        EOS, one NAR + Mimi decode per group. Groups of `pipeline_group` rows
+        (default `RuntimeConfig.batch_pipeline_group`, 0: one group) are all
+        enqueued before the first is copied to the host. Returns one
+        [1, S_i] waveform per text (float32, or int16 with `pcm16=True`,
+        converted on the device); row i equals `synthesize(texts[i],
+        seed=seeds[i], fused=True)`."""
+        ref = self._ref(ref, ref_audio_path, ref_tokens_tq, ref_seconds)
+        b = len(texts)
+        seeds = list(seeds) if seeds is not None else list(range(b))
+        g = int(pipeline_group or self.rt.batch_pipeline_group or b) or b
+        ids_rows = [self.encode_text(t) for t in texts]
+        hop = int(self.engine.mimi_cfg.hop_length)
+        packed = [
+            self.engine.synthesize_batch_dispatch(
+                ids_rows[lo: lo + g], tile_reference(ref, len(ids_rows[lo: lo + g])),
+                max_frames=max_frames, style_strength=self._style(style_strength),
+                seeds=seeds[lo: lo + g], top_p=top_p, temperature=temperature,
+                anti_loop=anti_loop, min_gen=int(min_gen_frames or self.cfg.min_gen_frames),
+                pcm16=pcm16,
+            )
+            for lo in range(0, b, g)
+        ]
+        outs = []
+        for p in packed:
+            wav, lengths = self.engine.synthesize_batch_read(p)
+            outs.extend(wav[i: i + 1, : int(lengths[i]) * hop] for i in range(wav.shape[0]))
+        return outs
+
+    def synthesize_long(
+        self,
+        text: str,
+        *,
+        ref: Optional[PreparedReference] = None,
+        ref_audio_path: Optional[str] = None,
+        ref_tokens_tq: Optional[np.ndarray] = None,
+        max_frames: int = 400,
+        gap_ms: float = 120.0,
+        max_chars: int = 350,
+        seed: int = 0,
+        pcm16: bool = False,
+        **kwargs,
+    ) -> np.ndarray:
+        """Synthesis past the 400-frame cap: `split_sentences`, then one
+        chunk goes to `synthesize`, several to one `synthesize_batch` with
+        seeds seed + i, joined with `gap_ms` of silence between chunks.
+        Chunks take the other keyword arguments (top_p, temperature, ...).
+        Returns wav [1, S] (int16 with `pcm16=True`)."""
+        ref = self._ref(ref, ref_audio_path, ref_tokens_tq, kwargs.pop("ref_seconds", None))
+        chunks = split_sentences(text, max_chars=max_chars)
+        dtype = np.int16 if pcm16 else np.float32
+        if not chunks:
+            return np.zeros((1, 0), dtype)
+        if len(chunks) == 1:
+            return self.synthesize(
+                chunks[0], ref=ref, max_frames=max_frames, seed=seed, pcm16=pcm16, **kwargs
+            )
+        outs = self.synthesize_batch(
+            chunks, ref=ref, max_frames=max_frames,
+            seeds=[seed + i for i in range(len(chunks))], pcm16=pcm16, **kwargs,
+        )
+        gap = np.zeros((1, int(round(gap_ms / 1000.0 * TARGET_SR))), dtype)
+        parts = [x for i, w in enumerate(outs) for x in ((gap,) if i else ()) + (w.astype(dtype),)]
+        return np.concatenate(parts, axis=1)
 
     def stream(self, text: str, **kwargs) -> Iterator[np.ndarray]:
         """Chunked synthesis: `streaming.stream` (chunk_frames 6 by default);

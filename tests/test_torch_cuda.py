@@ -1,6 +1,6 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card,
-at small shapes, and the synthesize and stream paths on the card against
-the CPU; each test skips without a CUDA device.
+"""The five CUDA kernels against their plain PyTorch versions on the card,
+at small shapes, and the synthesize, batch, per-step and stream paths on
+the card against the CPU; each test skips without a CUDA device.
 
 This file imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -52,7 +52,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tts_pair(dev):
+def _tts_pair(dev, runtime=None):
     """The same random small model on the CPU and on `dev`."""
     from sopro_tpu_torch.engine import Engine
     from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
@@ -63,7 +63,8 @@ def _tts_pair(dev):
     W.fill_zero_inits(tree, mtree, 6)
     return [
         SoproTTS(Engine(W.sopro_params_from_jax(tree, cfg, d),
-                        W.mimi_params_from_jax(mtree, mcfg, d)), cfg, SimpleCharTokenizer())
+                        W.mimi_params_from_jax(mtree, mcfg, d), runtime), cfg,
+                 SimpleCharTokenizer(), runtime)
         for d in ("cpu", dev)
     ]
 
@@ -204,10 +205,10 @@ def test_slice_on_cuda_matches_cpu(cuda):
     text = "a second, longer request"
     kernels.reset_launches()
     got = gpu.generate_tokens(text, gpu.prepare_reference(ref_tokens_tq=ref), **kw)
-    assert all(kernels.LAUNCHES[k] > 0 for k in ("ar_loop", "nar_heads", "seanet")), kernels.LAUNCHES
     want = cpu.generate_tokens(text, cpu.prepare_reference(ref_tokens_tq=ref), **kw)
     np.testing.assert_array_equal(got, want)
     wg = gpu.synthesize(text, ref_tokens_tq=ref, **kw)
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("ar_loop", "nar_heads", "seanet")), kernels.LAUNCHES
     wc = cpu.synthesize(text, ref_tokens_tq=ref, **kw)
     np.testing.assert_allclose(wg, wc, atol=1e-4 * float(np.abs(wc).max()), rtol=0)
 
@@ -245,3 +246,72 @@ def _stream_tokens(tts, ref):
         wav, valid, done, carry, mstate = eng.stream_step_fused(
             carry, ctx, cond, mstate, valid, chunk=4, nar_ctx=tts.cfg.rf_nar(), **sampling)
     return carry.tokens.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [(9,), (12, 5), (7, 0, 12)])
+def test_ar_step_kernel_matches_plain(cuda, valid):
+    """K5 against its plain version at B = 1, 2, 3 with partial masks (one
+    row with no valid text key), over 5 chained steps; logits and buffers
+    within 1e-5 of their peak."""
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.ops.ar_step import ar_step, ar_step_plain
+
+    _, tts = _tts_pair(cuda)
+    model, cfg = tts.engine.model, tts.cfg
+    b = len(valid)
+    g = torch.Generator().manual_seed(b)
+    txt = torch.randn(b, 12, cfg.d_model, generator=g).to(cuda)
+    mask = (torch.arange(12)[None, :] < torch.tensor(valid)[:, None]).to(cuda)
+    ctx = M.ar_step_context(model, txt, mask)
+    bufs = torch.randn(cfg.n_layers_ar, b, 9, cfg.d_model, generator=g).to(cuda)
+    before = kernels.LAUNCHES["ar_step"]
+    for _ in range(5):
+        x = torch.randn(b, cfg.d_model, generator=g).to(cuda)
+        (lg, bg), (lw, bw) = ar_step(ctx, x, bufs), ar_step_plain(ctx, x, bufs)
+        assert lg.shape == (b, cfg.ar_vocab) and bg.shape == bufs.shape
+        assert float((lg - lw).abs().max()) <= 1e-5 * float(lw.abs().max())
+        assert float((bg - bw).abs().max()) <= 1e-5 * float(bw.abs().max())
+        bufs = bw
+    assert kernels.LAUNCHES["ar_step"] == before + 5
+
+
+@pytest.mark.cuda
+def test_per_step_route_on_cuda_matches_k1_route(cuda):
+    """With use_pallas_resident=False a request goes through K5 and never K1,
+    and at near-greedy settings gives the K1 route's tokens and waveform
+    (within 1e-4 of its peak); a B = 3 batch raises."""
+    from sopro_tpu_torch.config import RuntimeConfig
+
+    _, k1 = _tts_pair(cuda)
+    _, k5 = _tts_pair(cuda, RuntimeConfig(use_pallas_resident=False))
+    ref = np.random.default_rng(12).integers(0, 32, (40, 8)).astype(np.int32)
+    kw = dict(ref_tokens_tq=ref, max_frames=24, seed=3, temperature=1e-4, anti_loop=False)
+    kernels.reset_launches()
+    got = k5.synthesize("a second, longer request", **kw)
+    assert kernels.LAUNCHES["ar_step"] > 0 and kernels.LAUNCHES["ar_loop"] == 0, kernels.LAUNCHES
+    want = k1.synthesize("a second, longer request", **kw)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4 * float(np.abs(want).max()), rtol=0)
+    with pytest.raises(ValueError, match="use_pallas_ar"):
+        k5.synthesize_batch(["a", "b", "c"], ref_tokens_tq=ref, max_frames=8)
+
+
+@pytest.mark.cuda
+def test_synthesize_batch_on_cuda_matches_cpu(cuda):
+    """A B = 3 batch through K1, K2 and K3 gives the CPU's rows at
+    near-greedy settings (lengths equal, waveforms within 1e-4 of peak)."""
+    cpu, gpu = _tts_pair(cuda)
+    ref = np.random.default_rng(12).integers(0, 32, (40, 8)).astype(np.int32)
+    texts = ("hello there", "a second, longer request", "hello there")
+    kw = dict(ref_tokens_tq=ref, max_frames=24, seeds=(3, 5, 3), temperature=1e-4,
+              anti_loop=False)
+    kernels.reset_launches()
+    got = gpu.synthesize_batch(texts, **kw)
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("ar_loop", "nar_heads", "seanet")), \
+        kernels.LAUNCHES
+    want = cpu.synthesize_batch(texts, **kw)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-4 * float(np.abs(w).max()), rtol=0)
+    np.testing.assert_array_equal(got[0], got[2])

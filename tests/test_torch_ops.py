@@ -182,7 +182,7 @@ def test_import_leaves_jax_out():
     """The port imports neither JAX nor the JAX package."""
     code = (
         "import sys, sopro_tpu_torch.tts, sopro_tpu_torch.engine, "
-        "sopro_tpu_torch.codec.vocoder, sopro_tpu_torch.ops.ar_loop, "
+        "sopro_tpu_torch.codec.vocoder, sopro_tpu_torch.ops.ar_loop, sopro_tpu_torch.ops.ar_step, "
         "sopro_tpu_torch.ops.nar_heads, sopro_tpu_torch.streaming, "
         "sopro_tpu_torch.codec.streaming, sopro_tpu_torch.audio\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -202,6 +202,7 @@ def test_cpu_wrappers_run_plain_and_count_nothing(trees):
     )
     from sopro_tpu_torch.models import sopro as M
     from sopro_tpu_torch.ops.ar_loop import ar_loop, ar_loop_plain
+    from sopro_tpu_torch.ops.ar_step import ar_step, ar_step_plain
     from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax, nar_heads_argmax_plain
 
     tree, mimi, _, tcfg, _, tm = trees
@@ -233,4 +234,9 @@ def test_cpu_wrappers_run_plain_and_count_nothing(trees):
     got, _ = ar_loop(ctx, cond, state, sett, 8, True)
     want, _ = ar_loop_plain(ctx, cond, state, sett, 8, True)
     assert torch.equal(got, want)
-    assert kernels.LAUNCHES == {"ar_loop": 0, "nar_heads": 0, "seanet": 0, "seanet_chunk": 0}
+    sctx = M.ar_step_context(model, txt, mask)
+    x = cond[:, 0]
+    for g, w in zip(ar_step(sctx, x, state["bufs"]), ar_step_plain(sctx, x, state["bufs"])):
+        assert torch.equal(g, w)
+    assert kernels.LAUNCHES == {"ar_loop": 0, "ar_step": 0, "nar_heads": 0, "seanet": 0,
+                                "seanet_chunk": 0}
