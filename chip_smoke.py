@@ -40,7 +40,14 @@ Phases (each raises, so the script exits non-zero, on failure):
    near-greedy request equals the K1 route within 1e-4 of its peak; print
    request seconds against the K1 route's.
 The last three lines are the card's name and power limit, the kernels' JSON
-record and {"ok": true, "device": {...}}.
+record and {"ok": true, "device": {...}}. Per kernel the record holds its
+launches in its path's counted run and per request of that run, its time,
+its plain version's, the library's (K2: einsum + argmax; K3 and K4: the
+stack as cuDNN convs, `bench_kernels.seanet_library`; K1 and K5: none), and
+its bound (`bench_kernels.bound`: bytes over HBM's rate, or operations over
+the 3-pass TF32 rate for the tensor-core kernels K2 and K3 and the fp32
+rate for the others); K2 also at 6, 187, 401 and 1,604 rows, K3 also at
+B = 4, with errors against float64 plain versions.
 """
 
 from __future__ import annotations
@@ -71,6 +78,8 @@ KERNELS = {
     "seanet_chunk": ("sopro_tpu_torch/csrc/seanet.cu", "sopro_tpu/codec/pallas_vocoder.py:383"),
 }
 CHUNK = 6  # stream() default chunk, AR frames
+# K2's row counts per stage: stream stage E, a stream window, one request, a B = 4 batch
+NAR_ROWS = (6, 187, MAX_FRAMES + 1, 4 * (MAX_FRAMES + 1))
 STREAM_REQUESTS = (
     ("Streaming from a graphics card, one small chunk at a time.", 4),
     ("A second streamed request.", 5),
@@ -79,6 +88,7 @@ STREAM_REQUESTS = (
 # four texts of 33-64 characters (one text bucket), the first one twice
 BATCH = ((REQUESTS[0][0], REQUESTS[1][0], STREAM_REQUESTS[0][0], REQUESTS[0][0]), (1, 2, 4, 1))
 LONG_MAX_CHARS = 80  # PARAGRAPH splits into 4 chunks
+PER_STEP_REQUESTS = 4  # the per-step route's counted run: 2 synthesize, 1 batch, 1 stream
 PARAGRAPH = (
     "Long-form speech is split into sentences. Each sentence is its own row of one batch. "
     "The rows decode side by side on the card, each with its own seed. "
@@ -124,37 +134,69 @@ def build_models(dev, seed: int, cfg, mcfg):
 
 
 def check_nar_heads(model, dev, rng):
+    """K2 over the four stages at each of NAR_ROWS rows (stream stage E,
+    stream window, one request, a B = 4 batch): ids equal to the plain
+    version's wherever the top-2 margin is above 1e-5; the error is the
+    largest gap between the float64 logit of the chosen id and the float64
+    maximum. The plain version (einsum + argmax) is also the library call."""
+    from sopro_tpu_torch.bench_kernels import bound, nar_cost
     from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax, nar_heads_argmax_plain
 
-    worst, mism, ms, plain_ms = 0.0, 0, 0.0, 0.0
-    for stage, (hid, w, b) in model.nar.head_stacks().items():
-        z = torch.from_numpy(rng.standard_normal((1, MAX_FRAMES + 1, w.shape[1])).astype(np.float32)).to(dev)
-        got = nar_heads_argmax(z, hid, w, b)
-        want = nar_heads_argmax_plain(z, hid, w, b)
-        logits = torch.einsum("bthd,hdv->bthv", z[:, :, None, :] + hid[None, None], w) + b[None, None]
-        top2 = torch.topk(logits, 2, dim=-1).values
-        margin = top2[..., 0] - top2[..., 1]
-        differ = got != want
-        bad = int((differ & (margin > 1e-5)).sum())
-        if bad:
-            raise AssertionError(f"nar_heads stage {stage}: {bad} ids differ at a clear margin")
-        mism += int(differ.sum())
-        gl = torch.gather(logits, -1, got.long()[..., None])[..., 0]
-        worst = max(worst, float((gl - top2[..., 0]).abs().max()))
-        ms += cuda_ms(lambda: nar_heads_argmax(z, hid, w, b), 20)
-        plain_ms += cuda_ms(lambda: nar_heads_argmax_plain(z, hid, w, b), 20)
-        log(f"  nar_heads stage {stage}: H={w.shape[0]} ids differ at {int(differ.sum())} "
-            f"near-tie positions of {differ.numel()}")
-    log(f"  nar_heads: 4 stages {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms (plain)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "mismatches": mism}
+    out = {"max_abs_err": 0.0, "mismatches": 0}
+    for rows in NAR_ROWS:
+        ms = plain_ms = flop = nbytes = 0.0
+        for stage, (hid, w, b, packed) in model.nar.head_stacks().items():
+            z = torch.from_numpy(rng.standard_normal((1, rows, w.shape[1])).astype(np.float32)).to(dev)
+            got = nar_heads_argmax(z, hid, w, b, packed)
+            want = nar_heads_argmax_plain(z, hid, w, b)
+            logits = torch.einsum("bthd,hdv->bthv", (z[:, :, None, :] + hid[None, None]).double(),
+                                  w.double()) + b[None, None].double()
+            top2 = torch.topk(logits, 2, dim=-1).values
+            differ = got != want
+            bad = int((differ & (top2[..., 0] - top2[..., 1] > 1e-5)).sum())
+            if bad:
+                raise AssertionError(f"nar_heads {rows} rows stage {stage}: {bad} ids differ at a "
+                                     f"clear margin")
+            out["mismatches"] += int(differ.sum())
+            gl = torch.gather(logits, -1, got.long()[..., None])[..., 0]
+            out["max_abs_err"] = max(out["max_abs_err"], float((top2[..., 0] - gl).max()))
+            ms += cuda_ms(lambda: nar_heads_argmax(z, hid, w, b, packed), 20)
+            plain_ms += cuda_ms(lambda: nar_heads_argmax_plain(z, hid, w, b), 20)
+            f, n = nar_cost(rows, *w.shape)
+            flop, nbytes = flop + f, nbytes + n
+            if differ.any():
+                log(f"  nar_heads {rows} rows stage {stage}: ids differ at {int(differ.sum())} "
+                    f"near-tie positions of {differ.numel()}")
+        bnd = bound(flop, nbytes, tf32x3=True)
+        log(f"  nar_heads {rows} rows, 4 stages: {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms "
+            f"(plain = einsum + argmax); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_rate']}), "
+            f"fp32 bound {bnd['fp32_bound_ms']:.4f} ms")
+        out[rows] = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms, **bnd)
+    log(f"  nar_heads: ids differ only at near-ties ({out['mismatches']} positions); worst float64 "
+        f"logit gap of a chosen id {out['max_abs_err']:.3e}")
+    return dict(out[MAX_FRAMES + 1], max_abs_err=out["max_abs_err"],
+                by_rows={r: out[r] for r in NAR_ROWS})
+
+
+def float64_decoder(mimi):
+    from sopro_tpu_torch.models.base import tree_map
+
+    return tree_map(lambda a: a.double() if torch.is_floating_point(a) else a, mimi.p["decoder"])
 
 
 def check_seanet(mimi, dev, rng, b=1):
+    """K3 on the Mimi decoder's own embeddings of 401 random 25 Hz frames:
+    within 1e-4 of peak of the float32 plain version; its error against a
+    float64 plain version, and the float32 plain version's own; timed beside
+    the plain version and the library stack (cuDNN convs, TF32 off)."""
+    from sopro_tpu_torch.bench_kernels import (
+        bound, conv_stack_cost, seanet_library, seanet_library_weights,
+    )
     from sopro_tpu_torch.codec.mimi import decode_embeddings, seanet_apply
     from sopro_tpu_torch.codec.mimi_config import decoder_plan
     from sopro_tpu_torch.codec.vocoder import seanet_decode
 
-    cfg = mimi.cfg
+    cfg, plan = mimi.cfg, decoder_plan(mimi.cfg)
     codes = torch.from_numpy(
         rng.integers(0, cfg.codebook_size, (b, MAX_FRAMES + 1, cfg.num_quantizers))
     ).to(dev)
@@ -162,33 +204,49 @@ def check_seanet(mimi, dev, rng, b=1):
         emb = decode_embeddings(mimi.p, cfg, codes).contiguous()
         packed = mimi.packed_decoder()
         got = seanet_decode(packed, cfg, emb)
-        want = seanet_apply(mimi.p["decoder"], decoder_plan(cfg), emb)[..., 0]
+        want = seanet_apply(mimi.p["decoder"], plan, emb)[..., 0]
+        ref = seanet_apply(float64_decoder(mimi), plan, emb.double())[..., 0]
+        lib_w = seanet_library_weights(mimi.p["decoder"], plan)
+        lib = seanet_library(lib_w, emb)
         torch.cuda.synchronize()
         if tuple(got.shape) != (b, emb.shape[1] * int(np.prod(cfg.upsampling_ratios))):
             raise AssertionError(f"seanet: shape {tuple(got.shape)}")
-        err = float((got - want).abs().max())
-        peak = float(want.abs().max())
-        log(f"  seanet: emb {tuple(emb.shape)} -> wav {tuple(got.shape)}, "
-            f"max|err| {err:.3e}, max|wav| {peak:.3e}")
+        err, peak = float((got - want).abs().max()), float(want.abs().max())
+        err64 = float((got.double() - ref).abs().max())
+        plain64 = float((want.double() - ref).abs().max())
+        log(f"  seanet: emb {tuple(emb.shape)} -> wav {tuple(got.shape)}, max|err| {err:.3e} "
+            f"(float64: kernel {err64:.3e}, float32 plain {plain64:.3e}, library "
+            f"{float((lib.double() - ref).abs().max()):.3e}), max|wav| {peak:.3e}")
         if not err <= 1e-4 * peak:
             raise AssertionError(f"seanet: max|err| {err} > 1e-4 * max|wav| {peak}")
+        if not float((lib - want).abs().max()) <= 1e-4 * peak:
+            raise AssertionError("seanet: the library stack disagrees with the plain version")
         ms = cuda_ms(lambda: seanet_decode(packed, cfg, emb), 5)
-        plain_ms = cuda_ms(lambda: seanet_apply(mimi.p["decoder"], decoder_plan(cfg), emb), 5)
-    log(f"  seanet B={b}: {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms (plain)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        plain_ms = cuda_ms(lambda: seanet_apply(mimi.p["decoder"], plan, emb), 5)
+        library_ms = cuda_ms(lambda: seanet_library(lib_w, emb), 5)
+    bnd = bound(*conv_stack_cost(packed["ops"], b, emb.shape[1], causal=True), tf32x3=True)
+    log(f"  seanet B={b}: {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms (plain), {library_ms:.3f} ms "
+        f"(cuDNN stack); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_rate']}), fp32 bound "
+        f"{bnd['fp32_bound_ms']:.4f} ms")
+    return dict(max_abs_err=err, err_f64=err64, plain_err_f64=plain64, peak=peak, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, **bnd)
 
 
 def check_seanet_chunk(mimi, dev, rng):
     """K4 against its plain version on [halo frames ++ chunk] taken from the
     Mimi decoder's own embeddings, with a full history, and at B = 2 with
     rows 0 and 5 frames into their streams; timed at each shape."""
+    from sopro_tpu_torch.bench_kernels import (
+        bound, conv_stack_cost, seanet_library, seanet_library_weights,
+    )
     from sopro_tpu_torch.codec.mimi import decode_embeddings
-    from sopro_tpu_torch.codec.mimi_config import required_halo
+    from sopro_tpu_torch.codec.mimi_config import decoder_plan, required_halo
     from sopro_tpu_torch.codec.vocoder import seanet_decode_chunk, seanet_decode_chunk_plain
 
     cfg = mimi.cfg
     halo, hop25 = required_halo(cfg), int(np.prod(cfg.upsampling_ratios))
     packed, params = mimi.packed_decoder(), mimi.p["decoder"]
+    lib_w = seanet_library_weights(params, decoder_plan(cfg))
     out = {}
     with torch.inference_mode():
         for b, m25, hist in ((1, 2 * CHUNK, None), (2, 2 * CHUNK, None), (1, 32, None),
@@ -210,9 +268,22 @@ def check_seanet_chunk(mimi, dev, rng):
                 raise AssertionError(f"{what}: max|err| {err} > 1e-4 * max|wav| {peak}")
             ms = cuda_ms(lambda: seanet_decode_chunk(packed, cfg, ext, n_hist), 20)
             plain_ms = cuda_ms(lambda: seanet_decode_chunk_plain(params, cfg, ext, n_hist), 20)
+            row, extra = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, ""
+            if hist is None:  # the library stack decodes all of ext causally: the same samples
+                n_out = m25 * hop25
+                lib = seanet_library(lib_w, ext)[:, -n_out:]
+                ref = seanet_decode_chunk_plain(float64_decoder(mimi), cfg, ext.double())
+                row["err_f64"] = float((got.double() - ref).abs().max())
+                if not float((lib - want).abs().max()) <= 1e-4 * peak:
+                    raise AssertionError(f"{what}: the library stack disagrees with the plain version")
+                row["library_ms"] = cuda_ms(lambda: seanet_library(lib_w, ext)[:, -n_out:], 20)
+                row.update(bound(*conv_stack_cost(packed["ops"], b, ext.shape[1], causal=False,
+                                                  keep=m25 * hop25), tf32x3=False))
+                extra = (f"; float64 err {row['err_f64']:.3e}; library {row['library_ms']:.3f} ms, "
+                         f"bound {row['bound_ms']:.4f} ms ({row['bound_rate']})")
             log(f"  {what} -> wav {tuple(got.shape)}: max|err| {err:.3e}, max|wav| {peak:.3e}; "
-                f"{ms:.3f} ms (kernel) vs {plain_ms:.3f} ms (plain)")
-            out[(b, m25, hist)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                f"{ms:.3f} ms (kernel) vs {plain_ms:.3f} ms (plain){extra}")
+            out[(b, m25, hist)] = row
     worst = max(v["max_abs_err"] for v in out.values())
     return dict(out[(1, 2 * CHUNK, None)], max_abs_err=worst)
 
@@ -272,9 +343,13 @@ def check_ar_loop(model, mimi, dev, rng):
         _, st = ar_loop(ctx, cond, fresh(), per_row, s, True)
         out["steps"] = int(st["t"][0])
     from sopro_tpu_torch import kernels
+    from sopro_tpu_torch.bench_kernels import ar_cost, bound
 
+    kv_k = torch.stack([c["k"] for c in ctx.kv if c is not None])
+    out.update(bound(*ar_cost(ctx.stacked, kv_k, out["steps"], 1), tf32x3=False), library_ms=None)
     log(f"  ar_loop: {out['steps']} steps {out['ms']:.3f} ms (kernel) vs "
-        f"{out['plain_ms']:.3f} ms (plain); launch {kernels.LAUNCH_INFO.get('ar_loop')}")
+        f"{out['plain_ms']:.3f} ms (plain); bound {out['bound_ms']:.4f} ms ({out['bound_rate']}); "
+        f"launch {kernels.LAUNCH_INFO.get('ar_loop')}")
     return out
 
 
@@ -336,7 +411,11 @@ def check_ar_step(model, mimi, dev, rng, k1):
             f"{'identical to' if same else 'DIFFER from'} the K1 route ({int(k1_run.t[0])} steps)")
         if not same:
             raise AssertionError("ar_step near-greedy: tokens differ from K1")
-    out["max_abs_err"] = worst
+    from sopro_tpu_torch.bench_kernels import ar_cost, bound
+
+    out.update(bound(*ar_cost(step_ctx.stacked, step_ctx.kv_k, 1, 1), tf32x3=False),
+               max_abs_err=worst, library_ms=None)
+    log(f"  K5 bound (B = 1, L = 64): {out['bound_ms'] * 1e3:.2f} µs ({out['bound_rate']})")
     log(f"  per step (B = 1, L = 64): K5 {out['ms'] * 1e3:.1f} µs, plain step "
         f"{out['plain_ms'] * 1e3:.1f} µs, K1 {k1['ms'] / k1['steps'] * 1e3:.1f} µs "
         f"({k1['ms']:.3f} ms / {k1['steps']} steps)")
@@ -434,7 +513,7 @@ def drive_batch_path(tts, ref, dev, rng):
         err, peak = close_to(outs[i], one, f"synthesize_batch row {i}")
         log(f"  row {i} vs synthesize(seed={seed}): max|err| {err:.3e}, peak {peak:.3e}")
     log(f"  the same four requests one by one: {singles:.3f} s")
-    check_seanet(tts.engine.mimi, dev, rng, b=len(texts))
+    seanet_b4 = check_seanet(tts.engine.mimi, dev, rng, b=len(texts))
 
     chunks = split_sentences(PARAGRAPH, max_chars=LONG_MAX_CHARS)
     if len(chunks) < 3:
@@ -451,7 +530,7 @@ def drive_batch_path(tts, ref, dev, rng):
         raise AssertionError(f"synthesize_long: {long.shape}, want (1, {want})")
     log(f"  synthesize_long: {len(chunks)} chunks, {long.shape[1] / sr:.2f} s audio in "
         f"{sec:.3f} s, = the chunks plus {len(chunks) - 1} gaps")
-    return launches
+    return launches, seanet_b4
 
 
 def drive_per_step_route(cfg, mcfg, dev, ref_tokens, k1_tts, k1_ref):
@@ -644,17 +723,22 @@ def main() -> int:
     log("[6] reference from audio: WAV -> encode_reference -> prepare_reference -> stream")
     drive_reference_audio(tts, ref)
     log(f"[7] batch path: synthesize_batch B={len(BATCH[0])}, synthesize_long")
-    drive_batch_path(tts, ref, dev, rng)
+    _, stats["seanet"]["B4"] = drive_batch_path(tts, ref, dev, rng)
     log("[8] per-step route: RuntimeConfig(use_pallas_resident=False)")
     step_launches = drive_per_step_route(cfg, mcfg, dev, ref_tokens, tts, ref)
 
-    # each kernel's count from the path it belongs to (K4: the stream, K5: the per-step route)
+    # each kernel's count from the path it belongs to (K4: the stream, K5: the per-step
+    # route), and per request of that path's counted run
     launches = dict(synth_launches, seanet_chunk=stream_launches["seanet_chunk"],
                     ar_step=step_launches["ar_step"])
+    requests = dict({name: len(REQUESTS) for name in KERNELS},
+                    seanet_chunk=len(STREAM_REQUESTS), ar_step=PER_STEP_REQUESTS)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("bound_rate", "fp32_bound_ms", "err_f64", "plain_err_f64", "by_rows", "B4")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+         "launches": launches[name], "launches_per_request": launches[name] / requests[name],
+         **{k: stats[name][k] for k in keys}, **{k: stats[name][k] for k in extra if k in stats[name]}}
         for name, (src, rep) in KERNELS.items()
     ]}
     log(card)

@@ -5,12 +5,13 @@ K3 replaces sopro_tpu/codec/pallas_vocoder.py::seanet_decode_pallas (and its
 [B, T25, H] to a waveform [B, T25 * 960] from zero history. K4 replaces
 `seanet_decode_pallas_chunk`: `seanet_decode_chunk` maps one streaming chunk
 with its real left context, ext [B, halo + m25, H], to the chunk's waveform
-[B, m25 * 960]. On CUDA tensors both run the hand-written convolution kernels
-of `csrc/seanet.cu` (causal and valid mode), one launch per conv of the
-decoder plan with activations crossing device memory between them; on CPU
-tensors both run `mimi.seanet_apply` (K4 keeping the last m25 * 960 samples,
-which equal the valid-mode result because the stack's receptive field is
-`halo` frames).
+[B, m25 * 960]. On CUDA tensors K3 runs the tensor-core kernels of
+`csrc/seanet.cu` (a causal conv per conv of stages 1-2 and per transpose,
+one fused kernel per residual block of the 128- and 64-channel stages, the
+last one with the final conv), and K4 the valid-mode per-conv kernel; on CPU
+tensors both run `mimi.seanet_apply` (K4 keeping the last m25 * 960
+samples, which equal the valid-mode result because the stack's receptive
+field is `halo` frames).
 
 Early in a stream the history holds only `n_hist` < halo real frames; the
 rows before them are no signal but the causal zero padding of every conv.
@@ -19,15 +20,25 @@ decodes ext[b, halo - n_hist[b]:] causally, and the kernel reads each conv's
 input rows before the stream's start as zero (`start_table`). Without it a
 zero history would carry the conv biases into the first chunk.
 
-Kernel layout (`pack_seanet_decoder`): a list of conv ops, each
-{"w": [taps, Cin, Cout] contiguous (a [taps*Cin, Cout] GEMM operand), "b",
-"dil", "phases", "elu_in", "residual"}. The plan's ELU layers fold into the
-next conv's `elu_in`; a transpose conv with k = 2s becomes `phases` = s
-two-tap convs, phase r using [w[s-1-r], w[2s-1-r]] and writing rows m*s + r;
-a residual block is a k3 conv into a hidden buffer and a k1 conv that adds
-the block input. "start_table" [halo + 1, n_ops] int32: for a chunk whose
-history starts at ext row s0, row s0 holds the first input row of each op
-that lies at or after the stream's start.
+Kernel layout (`pack_seanet_decoder`):
+- "ops" (K4): a list of conv ops, each {"w": [taps, Cin, Cout] contiguous
+  (a [taps*Cin, Cout] GEMM operand), "b", "dil", "phases", "elu_in",
+  "residual"}. The plan's ELU layers fold into the next conv's `elu_in`; a
+  transpose conv with k = 2s becomes `phases` = s two-tap convs, phase r
+  using [w[s-1-r], w[2s-1-r]] and writing rows m*s + r; a residual block is
+  a k3 conv into a hidden buffer and a k1 conv that adds the block input.
+- "k3": K3's launches. {"kind": "conv", "hi", "lo": [taps, cinp, np] (the
+  TF32 split of the weight, zero-padded to cinp = Cin rounded up to 32 and
+  np = N rounded up to 128), "b" [N], "taps", "dil", "elu_in", "cin", "n",
+  "phases", "residual"}: a transpose conv is one two-tap conv with N = s * Cout,
+  column r * Cout + c holding phase r, its bias repeated s times. {"kind":
+  "resblock", "c", "final", "w1hi", "w1lo" [3C, C/2], "b1", "w2hi", "w2lo"
+  [C/2, C], "b2", "wf" [3C], "bf" [1]}: a residual block of C = 128 or 64
+  channels (k3 dilation 1), with the final ELU + k3 conv to one channel
+  when "final" (wf and bf, float32, are then that conv's).
+- "start_table" [halo + 1, n_ops] int32: for a chunk whose history starts
+  at ext row s0, row s0 holds the first input row of each op that lies at
+  or after the stream's start.
 """
 
 from __future__ import annotations
@@ -43,6 +54,12 @@ from sopro_tpu_torch.codec.mimi import decode_embeddings, seanet_apply
 from sopro_tpu_torch.codec.mimi_config import (
     CONV, CONVT, ELU, RESNET, MimiConfig, decoder_plan, required_halo,
 )
+from sopro_tpu_torch.ops.tf32x3 import split_tf32
+
+CIN_MULTIPLE, N_MULTIPLE = 32, 128  # K3 conv kernel: Cin chunks, column tiles
+# the fused K3 residual-block kernel: width C -> rows of hidden per time tile
+# (csrc/seanet.cu ResTile::BM; a tile with the final conv writes 2 fewer)
+RESBLOCK_TILE_ROWS = {128: 32, 64: 64}
 
 
 def pack_seanet_decoder(dec_params: List[Dict], cfg: MimiConfig) -> Dict[str, Any]:
@@ -76,7 +93,62 @@ def pack_seanet_decoder(dec_params: List[Dict], cfg: MimiConfig) -> Dict[str, An
                         "dil": int(s1["dilation"]), "phases": 1, "elu_in": True,
                         "residual": True})
         elu_next = False
-    return {"params": dec_params, "ops": ops, "start_table": _start_table(ops, cfg)}
+    return {"params": dec_params, "ops": ops, "k3": _k3_launches(ops),
+            "start_table": _start_table(ops, cfg)}
+
+
+def _k3_conv(op: Dict[str, Any], residual: bool) -> Dict[str, Any]:
+    """A per-conv op -> K3's causal conv launch (a transpose as one two-tap
+    conv over s * Cout phase-major columns)."""
+    w = op["w"]
+    phases = int(op["phases"])
+    if phases > 1:  # [s, 2, Cin, Cout] -> [2, Cin, s * Cout]
+        w = w.permute(1, 2, 0, 3).reshape(w.shape[1], w.shape[2], phases * w.shape[3])
+    taps, cin, n = w.shape
+    cinp = -(-cin // CIN_MULTIPLE) * CIN_MULTIPLE
+    np_ = -(-n // N_MULTIPLE) * N_MULTIPLE
+    padded = torch.zeros((taps, cinp, np_), dtype=torch.float32, device=w.device)
+    padded[:, :cin, :n] = w
+    hi, lo = split_tf32(padded)
+    return {"kind": "conv", "hi": hi, "lo": lo, "b": op["b"].repeat(phases).contiguous(),
+            "taps": int(taps), "dil": int(op["dil"]), "elu_in": bool(op["elu_in"]),
+            "cin": int(cin), "n": int(n), "phases": phases, "residual": residual}
+
+
+def _fusable(k3: Dict[str, Any], k1: Dict[str, Any]) -> bool:
+    taps, c, ch = k3["w"].shape
+    return (c in RESBLOCK_TILE_ROWS and taps == 3 and int(k3["dil"]) == 1 and ch == c // 2
+            and tuple(k1["w"].shape) == (1, ch, c))
+
+
+def _k3_launches(ops: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """K3's launch list from the per-conv ops: residual blocks of 128 or 64
+    channels fuse (the last one with the final one-channel conv after it);
+    every other conv is one causal conv launch."""
+    out: List[Dict[str, Any]] = []
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        nxt = ops[i + 1] if i + 1 < len(ops) else None
+        if nxt is not None and nxt["residual"] and _fusable(op, nxt):
+            c = int(op["w"].shape[1])
+            last = ops[i + 2] if i + 3 == len(ops) else None
+            final = (last is not None and tuple(last["w"].shape) == (3, c, 1)
+                     and int(last["dil"]) == 1 and last["elu_in"] and int(last["phases"]) == 1)
+            w1hi, w1lo = split_tf32(op["w"].reshape(3 * c, c // 2).contiguous())
+            w2hi, w2lo = split_tf32(nxt["w"].reshape(c // 2, c).contiguous())
+            launch = {"kind": "resblock", "c": c, "final": final, "w1hi": w1hi, "w1lo": w1lo,
+                      "b1": op["b"], "w2hi": w2hi, "w2lo": w2lo, "b2": nxt["b"],
+                      "wf": None, "bf": None}
+            if final:
+                launch["wf"] = last["w"].reshape(3 * c).contiguous()
+                launch["bf"] = last["b"].reshape(1).contiguous()
+            out.append(launch)
+            i += 3 if final else 2
+        else:
+            out.append(_k3_conv(op, bool(op["residual"])))
+            i += 1
+    return out
 
 
 def _start_table(ops: List[Dict[str, Any]], cfg: MimiConfig) -> torch.Tensor:
@@ -106,23 +178,62 @@ def _op_shape(op: Dict[str, Any], cin: int):
     return int(taps), int(cout)
 
 
-def _conv_cuda(op: Dict[str, Any], x: torch.Tensor, residual) -> torch.Tensor:
-    """K3's causal conv: y has x's length (times the phase count)."""
-    b, t_in, cin = x.shape
-    taps, cout = _op_shape(op, cin)
-    phases = int(op["phases"])
-    y = torch.empty((b, t_in * phases, cout), dtype=torch.float32, device=x.device)
-    fn = kernels.lib("seanet").sopro_seanet_conv
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def _conv_cuda(launch: Dict[str, Any], x: torch.Tensor, residual) -> torch.Tensor:
+    """K3's causal tensor-core conv: y [B, T, N] from x [B, T, Cin], returned
+    as [B, T * phases, N / phases] (a transpose's phase-major columns are
+    its output rows)."""
+    b, t, cin = x.shape
+    if cin != launch["cin"]:
+        raise ValueError(f"seanet kernel: input has {cin} channels, weight {launch['cin']}")
+    y = torch.empty((b, t, launch["n"]), dtype=torch.float32, device=x.device)
+    fn = kernels.lib("seanet").sopro_seanet_conv_tc
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
-        kernels.ptr(x), kernels.ptr(op["w"]), kernels.ptr(op["b"]),
-        None if residual is None else kernels.ptr(residual), kernels.ptr(y),
-        b, t_in, cin, cout, taps, int(op["dil"]), int(op["elu_in"]), phases,
+        kernels.ptr(x), kernels.ptr(launch["hi"]), kernels.ptr(launch["lo"]),
+        kernels.ptr(launch["b"]), None if residual is None else kernels.ptr(residual),
+        kernels.ptr(y), b, t, cin, int(launch["hi"].shape[1]), launch["n"],
+        int(launch["hi"].shape[2]), launch["taps"], launch["dil"], int(launch["elu_in"]),
         kernels.stream_ptr(x.device),
     )
     kernels.check(rc, "seanet")
+    return y.view(b, t * launch["phases"], launch["n"] // launch["phases"])
+
+
+def _resblock_cuda(launch: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """K3's fused residual block: [B, T, C] -> [B, T, C], or -> wav [B, T]
+    when it carries the final conv."""
+    b, t, c = x.shape
+    if c != launch["c"]:
+        raise ValueError(f"seanet kernel: input has {c} channels, block {launch['c']}")
+    y = torch.empty((b, t) if launch["final"] else (b, t, c), dtype=torch.float32, device=x.device)
+    fn = kernels.lib("seanet").sopro_seanet_resblock
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    opt = (lambda k: None if launch[k] is None else kernels.ptr(launch[k]))
+    rc = fn(
+        kernels.ptr(x), kernels.ptr(launch["w1hi"]), kernels.ptr(launch["w1lo"]),
+        kernels.ptr(launch["b1"]), kernels.ptr(launch["w2hi"]), kernels.ptr(launch["w2lo"]),
+        kernels.ptr(launch["b2"]), opt("wf"), opt("bf"), kernels.ptr(y), b, t, c,
+        int(launch["final"]), kernels.stream_ptr(x.device),
+    )
+    kernels.check(rc, "seanet")
     return y
+
+
+def run_k3(launches: List[Dict[str, Any]], emb: torch.Tensor) -> torch.Tensor:
+    """K3's launches in order over emb [B, T, H] (CUDA) -> wav [B, T * hop]."""
+    x = emb.contiguous()
+    block_in = None
+    for launch in launches:
+        if launch["kind"] == "resblock":
+            x = _resblock_cuda(launch, x)
+        elif launch["residual"]:
+            x = _conv_cuda(launch, x, block_in)
+        else:
+            block_in = x
+            x = _conv_cuda(launch, x, None)
+    return x if x.dim() == 2 else x[..., 0]
 
 
 def _conv_valid_cuda(
@@ -175,16 +286,9 @@ def seanet_decode(packed: Dict[str, Any], cfg: MimiConfig, emb: torch.Tensor) ->
     if emb.device.type == "cpu":
         return seanet_apply(packed["params"], decoder_plan(cfg), emb)[..., 0]
     _check_cuda_inputs("seanet_decode", packed, emb)
-    x = emb.contiguous()
-    block_in = None
-    for op in packed["ops"]:
-        if op["residual"]:
-            x = _conv_cuda(op, x, block_in)
-        else:
-            block_in = x
-            x = _conv_cuda(op, x, None)
+    wav = run_k3(packed["k3"], emb)
     kernels.LAUNCHES["seanet"] += 1
-    return x[..., 0]
+    return wav
 
 
 def seanet_decode_chunk_plain(

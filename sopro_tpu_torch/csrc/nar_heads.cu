@@ -1,4 +1,4 @@
-// Kernel K2: NAR stage heads + greedy argmax, float32.
+// Kernel K2: NAR stage heads + greedy argmax, float32 in and out.
 //
 // Replaces sopro_tpu/ops/pallas_nar.py::nar_heads_argmax (its `_kernel`).
 // Per stage: ids[row, h] = argmax_v((z[row] + hid[h]) . W[h][:, v] + b[h][v]),
@@ -7,159 +7,263 @@
 //
 // What bounds it on the H100: at the main path's shape (rows = 401,
 // hd = 256, V = 2048, H = 3/4/8/16 over the four stages) the four stages are
-// ~13 GFLOP of float32 FMA against ~64 MB of weights, so it is compute-bound
-// on the CUDA cores (full fp32 has no tensor-core path), and the small stages
-// need enough blocks to fill 132 SMs. Design: an SGEMM-style tile per block
-// -- 32 rows of (z + hid[h]) resident in shared memory, W streamed through
-// shared memory in 16 x 128 chunks with float4 loads, a 2 x 8 register tile
-// per thread -- over one V chunk of 512 columns (grid: row tiles x heads x
-// V chunks). Each thread keeps a running (max, lowest index) pair per row;
-// 16 lanes fold theirs with shuffles, and the V chunks meet through a 64-bit
-// atomicMax on (order-preserving float bits, ~index), so equal logits keep
-// the lowest index. A last tiny kernel turns the keys into ids.
+// 13.0 GFLOP against 65 MB of float32 weights: compute-bound. Full float32
+// on the CUDA cores is bounded at 0.195 ms (67 TF/s); the design runs the
+// products on the tensor cores as 3-pass TF32 (tf32x3.cuh), bounded at
+// 0.079 ms (3 x 13.0 GFLOP / 495 TF/s), with float32-level error.
+//
+// Design: one launch per stage, no scratch and no second kernel. A thread
+// block cluster of CN = ceil(V / 256) <= 8 blocks (grid x) splits V; grid y
+// is the row tile, grid z the head, so the blocks running at one time share
+// one head's weights in L2. Row tiles of BM = 16, 32 or 64 rows (the host picks
+// the one with the fewest waves of blocks, so the stream's 6-row stage E
+// runs one 16-row tile). Each block:
+// - forms (z + hid[h]) for its BM rows once, split into TF32 hi/lo, in
+//   shared memory;
+// - streams its [hd, 256] slice of the pre-split weights (pack_nar_heads:
+//   hi and lo arrays [H, kp, vp], zero-padded) through a cp.async ring of
+//   3-4 stages, BK rows per stage, and runs m16n8k8 TF32 MMAs on it, three
+//   per fragment pair;
+// - adds the bias in registers and keeps, per row, a (max, lowest index)
+//   pair: per thread over its columns in increasing order, then over the 4
+//   lanes sharing the rows (shuffles), then over the warps (shared memory).
+// The cluster's blocks meet through distributed shared memory: rank 0 reads
+// every rank's pairs in rank order (columns in increasing order) and writes
+// the int32 ids. Near-ties (a top-2 margin of a few 1e-6) may resolve
+// differently from a float32 einsum, as between any two float32 orders.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kTM = 32;        // rows per block
-constexpr int kTN = 128;       // columns per tile
-constexpr int kBK = 16;        // depth per shared-memory chunk
-constexpr int kVChunk = 512;   // columns per block (grid z)
-constexpr int kThreads = 256;  // 16 row pairs x 16 column lanes
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kBN = 256;       // columns per block
+constexpr int kLDB = kBN + 8;  // ring row stride (B fragments on 32 banks)
+constexpr int kMaxCluster = 8;
 
-__device__ __forceinline__ unsigned long long pack(float v, int idx) {
-  const uint32_t u = __float_as_uint(v);
-  const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);  // monotone in v
-  return ((unsigned long long)ord << 32) | (uint32_t)(~(uint32_t)idx);
+template <int BM>
+struct Tile {
+  static constexpr int WGM = BM == 64 ? 2 : 1;  // warps along rows
+  static constexpr int WGN = 8 / WGM;           // warps along columns
+  static constexpr int WM = BM / WGM, WN = kBN / WGN;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int BK = BM == 64 ? 8 : 16;      // weight rows per ring stage
+  static constexpr int STAGES = BM == 64 ? 4 : 3;  // ring depth
+};
+
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
 }
 
+template <int BM>
+size_t smem_bytes(int kp) {
+  using T = Tile<BM>;
+  return sizeof(float) * ((size_t)2 * BM * (kp + 4) + (size_t)T::STAGES * 2 * T::BK * kLDB +
+                          (size_t)2 * T::WGN * BM + 2 * BM);
+}
+
+template <int BM>
 __global__ void __launch_bounds__(kThreads) nar_heads_kernel(
-    const float* __restrict__ z, const float* __restrict__ hid, const float* __restrict__ w,
-    const float* __restrict__ bias, unsigned long long* __restrict__ keys, int rows, int H,
-    int hd, int V) {
-  extern __shared__ float smem[];
-  float* As = smem;             // [kTM][hd]: z + hid[h]
-  float* Bs = As + kTM * hd;    // [kBK][kTN]
-  const int h = blockIdx.y;
-  const int row0 = blockIdx.x * kTM;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int vbeg = blockIdx.z * kVChunk, vend = min(V, vbeg + kVChunk);
+    const float* __restrict__ z, const float* __restrict__ hid, const float* __restrict__ whi,
+    const float* __restrict__ wlo, const float* __restrict__ bias, int* __restrict__ ids,
+    int rows, int H, int hd, int kp, int V, int vp) {
+  using T = Tile<BM>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int lda = kp + 4;
+  float* a_hi = smem;                       // [BM][lda]
+  float* a_lo = a_hi + BM * lda;            // [BM][lda]
+  float* ring = a_lo + BM * lda;            // [STAGES][hi, lo][BK][kLDB]
+  float* red_v = ring + T::STAGES * 2 * T::BK * kLDB;  // [WGN][BM]
+  int* red_i = reinterpret_cast<int*>(red_v + T::WGN * BM);
+  float* best_v = reinterpret_cast<float*>(red_i + T::WGN * BM);  // [BM], read by rank 0
+  int* best_i = reinterpret_cast<int*>(best_v + BM);
 
-  for (int i = tid; i < kTM * hd; i += kThreads) {
-    const int r = i / hd, k = i - r * hd;
-    const int row = row0 + r;
-    As[i] = row < rows ? z[(size_t)row * hd + k] + hid[(size_t)h * hd + k] : 0.f;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), cn = (int)cluster.num_blocks();
+  const int h = blockIdx.z, row0 = blockIdx.y * BM, n0 = rank * kBN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int wm = warp / T::WGN, wn = warp % T::WGN;
+  const float* wh = whi + (size_t)h * kp * vp + n0;
+  const float* wl = wlo + (size_t)h * kp * vp + n0;
+  const int nk = kp / T::BK;
+
+  auto load_w = [&](int chunk, int slot) {
+    if (chunk < nk) {
+      constexpr int kPerHalf = T::BK * (kBN / 4);
+      for (int i = tid; i < 2 * kPerHalf; i += kThreads) {
+        const int half = i / kPerHalf, rem = i - half * kPerHalf;
+        const int kk = rem / (kBN / 4), c4 = rem - kk * (kBN / 4);
+        const float* src = (half ? wl : wh) + (size_t)(chunk * T::BK + kk) * vp + c4 * 4;
+        float* dst = ring + ((slot * 2 + half) * T::BK + kk) * kLDB + c4 * 4;
+        tf32x3::cp_async16(dst, src, true);
+      }
+    }
+    tf32x3::cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < T::STAGES - 1; ++s) load_w(s, s);
+
+  // (z + hid[h]) for this tile, split once
+  for (int i = tid; i < BM * kp; i += kThreads) {
+    const int r = i / kp, k = i - r * kp, row = row0 + r;
+    const float v = (row < rows && k < hd) ? __ldg(z + (size_t)row * hd + k) + __ldg(hid + (size_t)h * hd + k) : 0.f;
+    tf32x3::split(v, a_hi[r * lda + k], a_lo[r * lda + k]);
   }
-  const float* wh = w + (size_t)h * hd * V;
-  const float* bh = bias + (size_t)h * V;
-  const bool vec = (V & 3) == 0;
 
-  float best[2] = {-INFINITY, -INFINITY};
-  int best_i[2] = {V, V};
-  for (int n0 = vbeg; n0 < vend; n0 += kTN) {
-    float acc[2][8];
+  float acc[T::MT][T::NT][4];
+  tf32x3::zero(acc);
+  const int a_off = wm * T::WM * lda;
+  for (int c = 0; c < nk; ++c) {
+    tf32x3::cp_async_wait<T::STAGES - 2>();
+    __syncthreads();  // chunk c landed for all; the slot refilled below is free
+    load_w(c + T::STAGES - 1, (c + T::STAGES - 1) % T::STAGES);
+    const float* bh = ring + ((c % T::STAGES) * 2) * T::BK * kLDB + wn * T::WN;
+    tf32x3::mma3_tile<T::MT, T::NT>(acc, a_hi + a_off + c * T::BK, a_lo + a_off + c * T::BK, lda,
+                                    bh, bh + T::BK * kLDB, kLDB, T::BK / 8);
+  }
+
+  // bias in registers: this thread's columns, increasing
+  float bcol[T::NT][2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < hd; k0 += kBK) {
-      __syncthreads();  // previous chunk consumed (and As written, first time)
-      for (int i = tid; i < kBK * (kTN / 4); i += kThreads) {
-        const int kk = i / (kTN / 4), c4 = i - kk * (kTN / 4);
-        const int k = k0 + kk, n = n0 + c4 * 4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k < hd) {
-          const float* src = wh + (size_t)k * V + n;
-          if (vec && n + 3 < vend) {
-            v = __ldg(reinterpret_cast<const float4*>(src));
-          } else {
-            if (n < vend) v.x = __ldg(src);
-            if (n + 1 < vend) v.y = __ldg(src + 1);
-            if (n + 2 < vend) v.z = __ldg(src + 2);
-            if (n + 3 < vend) v.w = __ldg(src + 3);
+    for (int e = 0; e < 2; ++e) {
+      const int col = n0 + wn * T::WN + nt * 8 + 2 * q + e;
+      bcol[nt][e] = col < V ? __ldg(bias + (size_t)h * V + col) : -INFINITY;
+    }
+#pragma unroll
+  for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float bv = -INFINITY;
+      int bi = 0x7fffffff;
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + wn * T::WN + nt * 8 + 2 * q + e;
+          const float l = acc[mt][nt][hh * 2 + e] + bcol[nt][e];
+          if (col < V && better(l, col, bv, bi)) {
+            bv = l;
+            bi = col;
           }
         }
-        *reinterpret_cast<float4*>(Bs + kk * kTN + c4 * 4) = v;
-      }
-      __syncthreads();
-      const int kmax = min(kBK, hd - k0);
-      for (int kk = 0; kk < kmax; ++kk) {
-        const float a0 = As[(ty * 2) * hd + k0 + kk];
-        const float a1 = As[(ty * 2 + 1) * hd + k0 + kk];
-        const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * kTN + tx * 4);
-        const float4 b1 = *reinterpret_cast<const float4*>(Bs + kk * kTN + 64 + tx * 4);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[0][j] = fmaf(a0, bv[j], acc[0][j]);
-          acc[1][j] = fmaf(a1, bv[j], acc[1][j]);
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (better(ov, oi, bv, bi)) {
+          bv = ov;
+          bi = oi;
         }
       }
-    }
-    // this thread's columns, in increasing order: a strict '>' keeps the
-    // lowest index among equal logits
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (col < vend) {
-        const float b = __ldg(bh + col);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float l = acc[i][j] + b;
-          if (l > best[i]) {
-            best[i] = l;
-            best_i[i] = col;
-          }
-        }
+      if (q == 0) {
+        const int r = wm * T::WM + mt * 16 + hh * 8 + g;
+        red_v[wn * BM + r] = bv;
+        red_i[wn * BM + r] = bi;
       }
     }
+  __syncthreads();
+  if (tid < BM) {
+    float bv = red_v[tid];
+    int bi = red_i[tid];
+    for (int w = 1; w < T::WGN; ++w)
+      if (better(red_v[w * BM + tid], red_i[w * BM + tid], bv, bi)) {
+        bv = red_v[w * BM + tid];
+        bi = red_i[w * BM + tid];
+      }
+    best_v[tid] = bv;
+    best_i[tid] = bi;
   }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float bv = best[i];
-    int bi = best_i[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {  // the 16 lanes sharing these rows
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
+  cluster.sync();  // every rank's pairs visible to rank 0
+  if (rank == 0 && tid < BM && row0 + tid < rows) {
+    float bv = -INFINITY;
+    int bi = 0x7fffffff;
+    for (int r = 0; r < cn; ++r) {
+      const float v = cluster.map_shared_rank(best_v, r)[tid];
+      const int i = cluster.map_shared_rank(best_i, r)[tid];
+      if (better(v, i, bv, bi)) {
+        bv = v;
+        bi = i;
       }
     }
-    const int row = row0 + ty * 2 + i;
-    if (tx == 0 && row < rows && bi < V) atomicMax(keys + (size_t)row * H + h, pack(bv, bi));
+    ids[(size_t)(row0 + tid) * H + h] = bi < V ? bi : 0;
   }
+  cluster.sync();  // rank 0 done reading the others' shared memory
 }
 
-__global__ void keys_to_ids(const unsigned long long* __restrict__ keys, int* __restrict__ out,
-                            int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = keys[i] == 0ull ? 0 : (int)(~(uint32_t)(keys[i] & 0xffffffffull));
+template <int BM>
+int launch(const float* z, const float* hid, const float* whi, const float* wlo,
+           const float* bias, int* out, int rows, int H, int hd, int kp, int V, int vp,
+           cudaStream_t s) {
+  const size_t smem = smem_bytes<BM>(kp);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(nar_heads_kernel<BM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int cn = vp / kBN;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cn, (rows + BM - 1) / BM, H);  // heads slowest: a head's slice stays in L2
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cn;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, nar_heads_kernel<BM>, z, hid, whi, wlo, bias, out, rows, H, hd,
+                         kp, V, vp);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The row tile the launch takes: fewest waves of (row tiles x H x CN)
+// blocks at one block per SM, weighted by the tile's rows plus a fixed cost
+// for streaming the block's weight slice.
+int row_tile(int rows, int H, int V) {
+  const long long cn = (V + kBN - 1) / kBN;
+  int best = 16;
+  long long best_cost = -1;
+  const int tiles[3] = {16, 32, 64};
+  for (int bm : tiles) {
+    const long long blocks = (rows + bm - 1) / bm * (long long)H * cn;
+    const long long cost = (blocks + 131) / 132 * (bm + 16);
+    if (best_cost < 0 || cost <= best_cost) {
+      best = bm;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
 }  // namespace
 
-// z [rows, hd], hid [H, hd], w [H, hd, V], bias [H, V] (float32, contiguous)
-// -> out [rows, H] int32, through the scratch `keys` [rows * H] (uint64).
-// Returns cudaGetLastError() after the launches.
-extern "C" int sopro_nar_heads_argmax(const float* z, const float* hid, const float* w,
-                                      const float* bias, int* out, void* keys, int rows, int H,
-                                      int hd, int V, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)kTM * hd + kBK * kTN);
-  if (rows <= 0 || H <= 0 || hd <= 0 || V <= 0 || H > 65535 || smem > 48 * 1024)
+// z [rows, hd], hid [H, hd], bias [H, V] float32; whi / wlo [H, kp, vp]
+// (pack_nar_heads: the TF32 hi / lo split of W [H, hd, V], zero-padded to kp
+// = hd rounded up to 16 and vp = 256 * ceil(V / 256)); out [rows, H] int32.
+// All contiguous. Returns cudaGetLastError() after the launch.
+extern "C" int sopro_nar_heads_argmax(const float* z, const float* hid, const float* whi,
+                                      const float* wlo, const float* bias, int* out, int rows,
+                                      int H, int hd, int kp, int V, int vp, void* stream) {
+  if (rows <= 0 || H <= 0 || hd <= 0 || V <= 0 || H > 65535 || kp < hd || kp % 16 != 0 ||
+      vp != kBN * ((V + kBN - 1) / kBN) || vp / kBN > kMaxCluster)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  unsigned long long* k = (unsigned long long*)keys;
-  const size_t n = (size_t)rows * H;
-  cudaError_t e = cudaMemsetAsync(k, 0, n * sizeof(unsigned long long), s);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((rows + kTM - 1) / kTM, H, (V + kVChunk - 1) / kVChunk);
-  nar_heads_kernel<<<grid, kThreads, smem, s>>>(z, hid, w, bias, k, rows, H, hd, V);
-  keys_to_ids<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(k, out, (int)n);
-  return (int)cudaGetLastError();
+  const int bm = row_tile(rows, H, V);
+  if ((rows + bm - 1) / bm > 65535) return (int)cudaErrorInvalidValue;
+  if (bm == 16) return launch<16>(z, hid, whi, wlo, bias, out, rows, H, hd, kp, V, vp, s);
+  if (bm == 32) return launch<32>(z, hid, whi, wlo, bias, out, rows, H, hd, kp, V, vp, s);
+  return launch<64>(z, hid, whi, wlo, bias, out, rows, H, hd, kp, V, vp, s);
 }

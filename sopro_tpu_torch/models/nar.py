@@ -15,7 +15,7 @@ from sopro_tpu_torch.config import SoproTTSConfig
 from sopro_tpu_torch.models.base import ParamModule
 from sopro_tpu_torch.ops.blocks import gelu, linear, rmsnorm, ssmlite
 from sopro_tpu_torch.ops.embeddings import CodebookEmbeddingSpec, cb_sum_embed_subset
-from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax
+from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax, pack_nar_heads
 
 Params = Dict
 
@@ -53,10 +53,13 @@ def _stage_hidden(
 
 
 def _stage_head_stacks(p: Params, stage: str):
+    """(hid, w_stack, b_stack, packed): `packed` is K2's TF32 hi/lo split of
+    the weights on CUDA (pack_nar_heads), None on the CPU."""
     hid = p["head_id_emb"][stage]["emb"].contiguous()  # [H, hd]
     w_stack = torch.stack([hp["w"] for hp in p["heads"][stage]]).contiguous()  # [H, hd, V]
     b_stack = torch.stack([hp["b"] for hp in p["heads"][stage]]).contiguous()  # [H, V]
-    return hid, w_stack, b_stack
+    packed = pack_nar_heads(w_stack) if w_stack.is_cuda else None
+    return hid, w_stack, b_stack, packed
 
 
 def nar_stage_preds(
@@ -71,8 +74,7 @@ def nar_stage_preds(
 ) -> torch.Tensor:
     """One stage's greedy tokens [B, T', H] int32 (kernel K2 on CUDA)."""
     z = _stage_hidden(p, cfg, stage, cond, prev_emb, mask, head_tail).contiguous()
-    hid, w_stack, b_stack = stacks if stacks is not None else _stage_head_stacks(p, stage)
-    return nar_heads_argmax(z, hid, w_stack, b_stack)
+    return nar_heads_argmax(z, *(stacks if stacks is not None else _stage_head_stacks(p, stage)))
 
 
 def nar_refine(

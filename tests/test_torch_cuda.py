@@ -91,6 +91,68 @@ def test_nar_heads_kernel_matches_plain(cuda, b, t, h, hd, v):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [6, 187, 401, 1604])
+@pytest.mark.parametrize("h", [3, 16])
+def test_nar_heads_kernel_main_path_rows(cuda, rows, h):
+    """K2 at the main paths' row counts (stream stage E, stream window, one
+    request, a B = 4 batch) and widths (hd 256, V 2048), H = 3 and 16, with
+    the packed weights: ids equal the plain version's wherever the top-2
+    margin exceeds 1e-5, and an exact tie planted in head 0 goes to the
+    lowest index."""
+    from sopro_tpu_torch.ops.nar_heads import (
+        nar_heads_argmax, nar_heads_argmax_plain, pack_nar_heads,
+    )
+
+    g = torch.Generator().manual_seed(rows + h)
+    z, hid = torch.randn(1, rows, 256, generator=g), torch.randn(h, 256, generator=g) * 0.1
+    w = torch.randn(h, 256, 2048, generator=g) * 0.02
+    bias = torch.randn(h, 2048, generator=g) * 0.02
+    w[0, :, 1500] = w[0, :, 300]
+    bias[0, 300] = bias[0, 1500] = 30.0
+    z, hid, w, bias = (x.to(cuda) for x in (z, hid, w, bias))
+    before = kernels.LAUNCHES["nar_heads"]
+    got = nar_heads_argmax(z, hid, w, bias, pack_nar_heads(w))
+    assert kernels.LAUNCHES["nar_heads"] == before + 1
+    want = nar_heads_argmax_plain(z, hid, w, bias)
+    logits = torch.einsum("bthd,hdv->bthv", z[:, :, None] + hid[None, None], w) + bias[None, None]
+    top2 = torch.topk(logits, 2, dim=-1).values
+    differ = got != want
+    assert not bool((differ & (top2[..., 0] - top2[..., 1] > 1e-5)).any())
+    assert bool((got[..., 0] == 300).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+def test_seanet_kernel_full_width(cuda, b):
+    """K3 at full Mimi width (802 25 Hz rows -> 769,920 samples per row):
+    the tensor-core convs and the fused residual blocks of the 128- and
+    64-channel stages, within 1e-4 of peak of the float32 plain version and
+    of a float64 one. 3-pass TF32 reads ~1e-5 of peak against float64 on
+    the H100, 20x the float32 stack's error: the tensor cores' float32
+    accumulation does not round to nearest."""
+    from sopro_tpu_torch.codec.mimi import seanet_apply
+    from sopro_tpu_torch.codec.mimi_config import decoder_plan
+    from sopro_tpu_torch.codec.vocoder import pack_seanet_decoder, seanet_decode
+    from sopro_tpu_torch.models.base import tree_map
+
+    mcfg = MimiConfig()
+    mtree = W.init_mimi_params(3, mcfg)
+    W.fill_zero_inits(None, mtree, 4)
+    dec = W.to_torch(mtree["decoder"], cuda)
+    packed = pack_seanet_decoder(dec, mcfg)
+    assert [x["kind"] for x in packed["k3"]].count("resblock") == 2
+    emb = torch.randn(b, 802, mcfg.hidden_size, generator=torch.Generator().manual_seed(b)).to(cuda)
+    got = seanet_decode(packed, mcfg, emb)
+    want = seanet_apply(dec, decoder_plan(mcfg), emb)[..., 0]
+    dec64 = tree_map(lambda a: a.double() if torch.is_floating_point(a) else a, dec)
+    ref = seanet_apply(dec64, decoder_plan(mcfg), emb.double())[..., 0]
+    assert got.shape == (b, 802 * 960)
+    peak = float(ref.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * peak
+    assert float((got.double() - ref).abs().max()) <= 1e-4 * peak
+
+
+@pytest.mark.cuda
 def test_seanet_kernel_matches_plain(cuda):
     from sopro_tpu_torch.codec.mimi import seanet_apply
     from sopro_tpu_torch.codec.mimi_config import decoder_plan
