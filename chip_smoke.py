@@ -11,7 +11,9 @@ Phases (each raises, so the script exits non-zero, on failure):
 3. hold each of the five kernels against its plain PyTorch version at the
    main paths' shapes (full Sopro v1.5 and Mimi widths, random weights from
    a seed with the zero-initialised leaves filled, TF32 off) and time both
-   with CUDA events; K4 at 12, 32 and 802 25 Hz frames (B = 1) and 12 (B = 2);
+   with CUDA events; K4 at chunks of 6 and 16 AR frames (12 and 32 25 Hz
+   rows; B = 1, and B = 2 with partial histories) and 802 rows, against
+   float64 too and repeated bit-identically;
    K5 at B = 1 and 2, text buckets 64 and 2048, and 401 chained near-greedy
    steps of the K5 route token-identical to K1; µs per step of K5, of the
    plain step and of K1;
@@ -45,9 +47,9 @@ launches in its path's counted run and per request of that run, its time,
 its plain version's, the library's (K2: einsum + argmax; K3 and K4: the
 stack as cuDNN convs, `bench_kernels.seanet_library`; K1 and K5: none), and
 its bound (`bench_kernels.bound`: bytes over HBM's rate, or operations over
-the 3-pass TF32 rate for the tensor-core kernels K2 and K3 and the fp32
-rate for the others); K2 also at 6, 187, 401 and 1,604 rows, K3 also at
-B = 4, with errors against float64 plain versions.
+the 3-pass TF32 rate for the tensor-core kernels K2, K3 and K4 and the fp32
+rate for K1 and K5); K2 also at 6, 187, 401 and 1,604 rows, K3 also at
+B = 4, K4 also at chunk 16, with errors against float64 plain versions.
 """
 
 from __future__ import annotations
@@ -234,8 +236,12 @@ def check_seanet(mimi, dev, rng, b=1):
 
 def check_seanet_chunk(mimi, dev, rng):
     """K4 against its plain version on [halo frames ++ chunk] taken from the
-    Mimi decoder's own embeddings, with a full history, and at B = 2 with
-    rows 0 and 5 frames into their streams; timed at each shape."""
+    Mimi decoder's own embeddings, at chunks of 6 and 16 AR frames (12 and 32
+    25 Hz rows), B = 1 with a full history and B = 2 with rows a few frames
+    into their streams, and over a whole utterance (802 rows): within 1e-4
+    of peak of the float32 plain version, its error against a float64 plain
+    version reported, and a repeated call bit-identical (the split-K
+    partials meet in a fixed order); timed at each shape."""
     from sopro_tpu_torch.bench_kernels import (
         bound, conv_stack_cost, seanet_library, seanet_library_weights,
     )
@@ -249,8 +255,8 @@ def check_seanet_chunk(mimi, dev, rng):
     lib_w = seanet_library_weights(params, decoder_plan(cfg))
     out = {}
     with torch.inference_mode():
-        for b, m25, hist in ((1, 2 * CHUNK, None), (2, 2 * CHUNK, None), (1, 32, None),
-                             (1, 2 * (MAX_FRAMES + 1), None), (2, 2 * CHUNK, (0, 5))):
+        for b, m25, hist in ((1, 2 * CHUNK, None), (2, 2 * CHUNK, (0, 5)), (1, 32, None),
+                             (2, 32, (3, halo)), (1, 2 * (MAX_FRAMES + 1), None)):
             frames = -(-(halo + m25) // 2)  # 12.5 Hz frames -> 2 embedding rows each
             codes = torch.from_numpy(
                 rng.integers(0, cfg.codebook_size, (b, frames, cfg.num_quantizers))
@@ -258,34 +264,42 @@ def check_seanet_chunk(mimi, dev, rng):
             ext = decode_embeddings(mimi.p, cfg, codes)[:, -(halo + m25):].contiguous()
             n_hist = None if hist is None else torch.tensor(hist, dtype=torch.int32, device=dev)
             got = seanet_decode_chunk(packed, cfg, ext, n_hist)
+            again = seanet_decode_chunk(packed, cfg, ext, n_hist)
             want = seanet_decode_chunk_plain(params, cfg, ext, n_hist)
+            ref = seanet_decode_chunk_plain(float64_decoder(mimi), cfg, ext.double(), n_hist)
             torch.cuda.synchronize()
-            if tuple(got.shape) != (b, m25 * hop25):
-                raise AssertionError(f"seanet_chunk: shape {tuple(got.shape)}")
-            err, peak = float((got - want).abs().max()), float(want.abs().max())
             what = f"seanet_chunk B={b} ext {tuple(ext.shape)} n_hist={hist or halo}"
+            if tuple(got.shape) != (b, m25 * hop25):
+                raise AssertionError(f"{what}: shape {tuple(got.shape)}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: a repeated call is not bit-identical")
+            err, peak = float((got - want).abs().max()), float(want.abs().max())
             if not err <= 1e-4 * peak:
                 raise AssertionError(f"{what}: max|err| {err} > 1e-4 * max|wav| {peak}")
             ms = cuda_ms(lambda: seanet_decode_chunk(packed, cfg, ext, n_hist), 20)
             plain_ms = cuda_ms(lambda: seanet_decode_chunk_plain(params, cfg, ext, n_hist), 20)
-            row, extra = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, ""
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "err_f64": float((got.double() - ref).abs().max()),
+                   "plain_err_f64": float((want.double() - ref).abs().max())}
+            extra = ""
             if hist is None:  # the library stack decodes all of ext causally: the same samples
                 n_out = m25 * hop25
                 lib = seanet_library(lib_w, ext)[:, -n_out:]
-                ref = seanet_decode_chunk_plain(float64_decoder(mimi), cfg, ext.double())
-                row["err_f64"] = float((got.double() - ref).abs().max())
                 if not float((lib - want).abs().max()) <= 1e-4 * peak:
                     raise AssertionError(f"{what}: the library stack disagrees with the plain version")
                 row["library_ms"] = cuda_ms(lambda: seanet_library(lib_w, ext)[:, -n_out:], 20)
                 row.update(bound(*conv_stack_cost(packed["ops"], b, ext.shape[1], causal=False,
-                                                  keep=m25 * hop25), tf32x3=False))
-                extra = (f"; float64 err {row['err_f64']:.3e}; library {row['library_ms']:.3f} ms, "
-                         f"bound {row['bound_ms']:.4f} ms ({row['bound_rate']})")
-            log(f"  {what} -> wav {tuple(got.shape)}: max|err| {err:.3e}, max|wav| {peak:.3e}; "
-                f"{ms:.3f} ms (kernel) vs {plain_ms:.3f} ms (plain){extra}")
+                                                  keep=m25 * hop25), tf32x3=True))
+                extra = (f"; library {row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                         f"({row['bound_rate']}), fp32 bound {row['fp32_bound_ms']:.4f} ms")
+            log(f"  {what} -> wav {tuple(got.shape)}: max|err| {err:.3e} (float64: kernel "
+                f"{row['err_f64']:.3e}, float32 plain {row['plain_err_f64']:.3e}), max|wav| "
+                f"{peak:.3e}, repeat bit-identical; {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms "
+                f"(plain){extra}")
             out[(b, m25, hist)] = row
     worst = max(v["max_abs_err"] for v in out.values())
-    return dict(out[(1, 2 * CHUNK, None)], max_abs_err=worst)
+    return dict(out[(1, 2 * CHUNK, None)], max_abs_err=worst,
+                chunk16=out[(1, 32, None)], err_f64_worst=max(v["err_f64"] for v in out.values()))
 
 
 def check_ar_loop(model, mimi, dev, rng):
@@ -342,6 +356,7 @@ def check_ar_loop(model, mimi, dev, rng):
         out["plain_ms"] = cuda_ms(lambda: ar_loop_plain(ctx, cond, fresh(), per_row, s, True), 1)
         _, st = ar_loop(ctx, cond, fresh(), per_row, s, True)
         out["steps"] = int(st["t"][0])
+        out["us_per_step"] = out["ms"] * 1e3 / out["steps"]
     from sopro_tpu_torch import kernels
     from sopro_tpu_torch.bench_kernels import ar_cost, bound
 
@@ -734,7 +749,8 @@ def main() -> int:
     requests = dict({name: len(REQUESTS) for name in KERNELS},
                     seanet_chunk=len(STREAM_REQUESTS), ar_step=PER_STEP_REQUESTS)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("bound_rate", "fp32_bound_ms", "err_f64", "plain_err_f64", "by_rows", "B4")
+    extra = ("bound_rate", "fp32_bound_ms", "err_f64", "plain_err_f64", "by_rows", "B4",
+             "chunk16", "err_f64_worst", "us_per_step", "first_diff_production")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "launches_per_request": launches[name] / requests[name],

@@ -43,7 +43,7 @@ ABLATIONS = {
     )],
     "conv: no ELU or split": [(
         "seanet.cu",
-        "      if (elu_in) v = elu(v);\n"
+        "      if (a.elu_in) v = elu(v);\n"
         "      tf32x3::split(v, a_hi[r * Tl::LDA + k], a_lo[r * Tl::LDA + k]);",
         "      a_hi[r * Tl::LDA + k] = v;",
     )],

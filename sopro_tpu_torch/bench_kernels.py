@@ -1,18 +1,22 @@
-"""Per-stage timing of kernel K2 and per-conv timing of kernel K3 on one
+"""Per-stage timing of kernel K2, per-launch timing of kernels K3 and K4,
+and (with `--old-src`) K4, K1 and K5 against an older `csrc/`, on one
 NVIDIA GPU, beside the library calls for the same work and the bounds.
 
     python -m sopro_tpu_torch.bench_kernels [--old-src DIR] [--out PATH]
 
 Full Sopro v1.5 and Mimi widths, random weights from a numpy seed, TF32 off,
 CUDA-event medians with warm caches. K2 at 6, 187, 401 and 1,604 rows per
-stage: this tree's kernel, `--old-src`'s kernel (a `csrc/` directory holding
-an older `nar_heads.cu`, default none) and einsum + argmax. K3 at B = 1 and
-4 per conv: `--old-src`'s per-conv kernel (`sopro_seanet_conv`), cuDNN
-(`F.conv1d` / `F.conv_transpose1d`, the conv alone) and, per launch, this
-tree's kernels. Bounds per row: FLOP over 67 TFLOP/s (fp32 CUDA cores) and
-three times the FLOP over 495 TFLOP/s (3-pass TF32 tensor cores), bytes
-(inputs read once, output written once) over 3.35 TB/s. Prints tables and
-writes them as JSON to PATH (default build/bench_kernels.json).
+stage: this tree's kernel and einsum + argmax. K3 at B = 1 and 4: cuDNN
+(`F.conv1d` / `F.conv_transpose1d`, the conv alone) per conv of the decoder
+plan and this tree's kernels per launch. K4 at chunks of 6 and 16 AR frames
+(ext of 8 + 12 and 8 + 32 rows, B = 1 and 2): this tree's launches one by
+one, `--old-src`'s per-conv K4 kernel (`sopro_seanet_conv_valid`, before K4 ran K3's kernels)
+per conv and whole, the plain version and the cuDNN stack. With
+`--old-src`, K1 and K5 old against new as `bench_ar` times them. Bounds per
+row: FLOP over 67 TFLOP/s (fp32 CUDA cores) and three times the FLOP over
+495 TFLOP/s (3-pass TF32 tensor cores), bytes (inputs read once, output
+written once) over 3.35 TB/s. Prints tables and writes them as JSON to PATH
+(default build/bench_kernels.json).
 """
 
 from __future__ import annotations
@@ -165,35 +169,7 @@ def old_lib(src_dir: Path, name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
-def nar_old(lib, z, hid, w, b):
-    rows, hd = z.shape[-2] * z.shape[0], z.shape[-1]
-    h, _, v = w.shape
-    out = torch.empty((rows, h), dtype=torch.int32, device=z.device)
-    keys = torch.empty((rows * h,), dtype=torch.int64, device=z.device)
-    fn = lib.sopro_nar_heads_argmax
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    kernels.check(fn(kernels.ptr(z), kernels.ptr(hid), kernels.ptr(w), kernels.ptr(b),
-                     kernels.ptr(out), kernels.ptr(keys), rows, h, hd, v,
-                     kernels.stream_ptr(z.device)), "nar_heads (old)")
-    return out
-
-
-def conv_old(lib, op, x, residual):
-    """The per-conv causal kernel of an older seanet.cu on one op of the
-    per-conv plan (`pack_seanet_decoder(...)["ops"]`)."""
-    b, t, cin = x.shape
-    taps, cout, phases = op["w"].shape[-3], op["w"].shape[-1], int(op["phases"])
-    y = torch.empty((b, t * phases, cout), dtype=torch.float32, device=x.device)
-    fn = lib.sopro_seanet_conv
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    kernels.check(fn(kernels.ptr(x), kernels.ptr(op["w"]), kernels.ptr(op["b"]),
-                     None if residual is None else kernels.ptr(residual), kernels.ptr(y),
-                     b, t, cin, cout, taps, int(op["dil"]), int(op["elu_in"]), phases,
-                     kernels.stream_ptr(x.device)), "seanet (old)")
-    return y
-
-
-def bench_nar(model, dev, rng, old) -> list:
+def bench_nar(model, dev, rng) -> list:
     from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax, nar_heads_argmax_plain
 
     rows_out = []
@@ -209,9 +185,6 @@ def bench_nar(model, dev, rng, old) -> list:
             row["ms"] = cuda_ms(lambda: nar_heads_argmax(z, *stack))
             want = nar_heads_argmax_plain(z, hid, w, b)
             row["ids_differ"] = int((nar_heads_argmax(z, *stack) != want).sum())
-            if old is not None:
-                row["old_ms"] = cuda_ms(lambda: nar_old(old, z, hid, w, b))
-                row["old_ids_differ"] = int((nar_old(old, z, hid, w, b).view_as(want) != want).sum())
             rows_out.append(row)
     return rows_out
 
@@ -233,7 +206,7 @@ def _library_calls(params, cfg):
     return calls
 
 
-def bench_seanet(mimi, dev, rng, old, b: int) -> dict:
+def bench_seanet(mimi, dev, rng, b: int) -> dict:
     from sopro_tpu_torch.codec.mimi import decode_embeddings
     from sopro_tpu_torch.codec.vocoder import seanet_decode
 
@@ -268,40 +241,31 @@ def bench_seanet(mimi, dev, rng, old, b: int) -> dict:
             else:
                 xt = F.pad(xt, (c["pad"], 0))
                 lib = (lambda xt=xt, c=c: F.conv1d(xt, c["w"], dilation=c["dil"]))
-            row = {"conv": name, "M": bb * t, "N": ph * cout, "K": taps * cin,
-                   **bounds(flop, nbytes), "library_ms": cuda_ms(lib, 5)}
-            if old is not None:
-                row["old_ms"] = cuda_ms(lambda: conv_old(old, op, x, res), 5)
-            out["convs"].append(row)
+            out["convs"].append({"conv": name, "M": bb * t, "N": ph * cout, "K": taps * cin,
+                                 **bounds(flop, nbytes), "library_ms": cuda_ms(lib, 5)})
         out["launches"] = _bench_k3_launches(packed["k3"], emb)
         want = seanet_apply(params, plan, emb)[..., 0]
         out["plain_ms"] = cuda_ms(lambda: seanet_apply(params, plan, emb), 5)
         out["ms"] = cuda_ms(lambda: seanet_decode(packed, cfg, emb), 5)
         out["err"] = _errors(seanet_decode(packed, cfg, emb), emb, params, plan, want)
-        if old is not None:
-            def old_stack():
-                x, block_in = emb, None
-                for op in packed["ops"]:
-                    res = block_in if op["residual"] else None
-                    if not op["residual"]:
-                        block_in = x
-                    x = conv_old(old, op, x, res)
-                return x[..., 0]
-            out["old_ms"] = cuda_ms(old_stack, 5)
-            out["old_err"] = _errors(old_stack(), emb, params, plan, want)
     return out
 
 
-def _bench_k3_launches(launches, emb) -> list:
-    """This tree's K3, launch by launch (inputs from running the list)."""
-    from sopro_tpu_torch.codec.vocoder import _conv_cuda, _resblock_cuda
+def _bench_k3_launches(launches, emb, valid: bool = False, keep=None, reps: int = 5) -> list:
+    """This tree's K3 (or, `valid`, K4 keeping `keep` rows at the end),
+    launch by launch (inputs from running the list)."""
+    from sopro_tpu_torch.codec.vocoder import K4_MAX_SPLITS, _conv_cuda, _resblock_cuda, valid_rows
 
     rows, x, block_in = [], emb.contiguous(), None
-    for launch in launches:
+    splits = K4_MAX_SPLITS if valid else 1
+    for i, launch in enumerate(launches):
+        t_out = None
+        if valid:
+            t_out = keep if keep is not None and i == len(launches) - 1 else valid_rows(launch, x.shape[1])
+        m = x.shape[0] * (x.shape[1] if t_out is None else t_out)
         if launch["kind"] == "resblock":
-            fn = (lambda x=x, launch=launch: _resblock_cuda(launch, x))
+            fn = (lambda x=x, launch=launch, t_out=t_out: _resblock_cuda(launch, x, None, t_out))
             c = launch["c"]
-            m = x.shape[0] * x.shape[1]
             flop = 2.0 * m * (3 * c * c // 2 + c // 2 * c + (3 * c if launch["final"] else 0))
             nbytes = 4.0 * (x.numel() + m * (1 if launch["final"] else c) + 2 * c * c)
             name = f"resblock {c}" + (" + final k3" if launch["final"] else "")
@@ -309,15 +273,79 @@ def _bench_k3_launches(launches, emb) -> list:
             res = block_in if launch["residual"] else None
             if not launch["residual"]:
                 block_in = x
-            fn = (lambda x=x, res=res, launch=launch: _conv_cuda(launch, x, res))
-            m = x.shape[0] * x.shape[1]
+            fn = (lambda x=x, res=res, launch=launch, t_out=t_out:
+                  _conv_cuda(launch, x, res, None, t_out, splits))
             flop = 2.0 * m * launch["taps"] * launch["cin"] * launch["n"]
             nbytes = 4.0 * (x.numel() + m * launch["n"] * (2 if res is not None else 1)
                             + launch["taps"] * launch["cin"] * launch["n"])
             name = f"conv k{launch['taps']} {launch['cin']}->{launch['n']}"
-        rows.append({"launch": name, **bounds(flop, nbytes), "ms": cuda_ms(fn, 5)})
+        rows.append({"launch": name, "M": m, **bounds(flop, nbytes), "ms": cuda_ms(fn, reps)})
         x = fn()
     return rows
+
+
+def conv_valid_old(lib, op, x, residual, keep=None):
+    """The per-conv K4 entry point of an older seanet.cu
+    (`sopro_seanet_conv_valid`, float32 CUDA cores) on one op of the
+    per-conv plan, full history."""
+    b, t_in, cin = x.shape
+    taps, cout, phases, dil = op["w"].shape[-3], op["w"].shape[-1], int(op["phases"]), int(op["dil"])
+    t_valid = t_in - (taps - 1) * dil
+    t_out = t_valid if keep is None else keep
+    res_t = 0 if residual is None else int(residual.shape[1])
+    y = torch.empty((b, t_out * phases, cout), dtype=torch.float32, device=x.device)
+    fn = lib.sopro_seanet_conv_valid
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p, ctypes.c_int,
+                                                                 ctypes.c_void_p]
+    kernels.check(fn(x.data_ptr(), op["w"].data_ptr(), op["b"].data_ptr(),
+                     None if residual is None else residual.data_ptr(), y.data_ptr(), b, t_in,
+                     t_out, t_valid - t_out, cin, cout, taps, dil, int(op["elu_in"]), phases,
+                     res_t, res_t - t_out, None, 0, kernels.stream_ptr(x.device).value),
+                  "seanet_chunk (old)")
+    return y
+
+
+def bench_seanet_chunk(mimi, dev, rng, old, b: int, m25: int) -> dict:
+    """K4 on ext [b, halo + m25, H] (full history): this tree's launches,
+    the old kernel per conv and whole, the plain version and the cuDNN
+    stack (`seanet_library`)."""
+    from sopro_tpu_torch.codec.mimi import decode_embeddings
+    from sopro_tpu_torch.codec.mimi_config import decoder_plan, required_halo
+    from sopro_tpu_torch.codec.vocoder import seanet_decode_chunk, seanet_decode_chunk_plain
+
+    cfg, params = mimi.cfg, mimi.p["decoder"]
+    packed, halo = mimi.packed_decoder(), required_halo(mimi.cfg)
+    n_out = m25 * int(np.prod(cfg.upsampling_ratios))
+    codes = torch.from_numpy(rng.integers(0, cfg.codebook_size,
+                                          (b, -(-(halo + m25) // 2), cfg.num_quantizers))).to(dev)
+    lib_w = seanet_library_weights(params, decoder_plan(cfg))
+    out = {"B": b, "m25": m25}
+    with torch.inference_mode():
+        ext = decode_embeddings(mimi.p, cfg, codes)[:, -(halo + m25):].contiguous()
+        out["launches"] = _bench_k3_launches(packed["k3"], ext, valid=True, keep=n_out, reps=20)
+        out["ms"] = cuda_ms(lambda: seanet_decode_chunk(packed, cfg, ext))
+        out["plain_ms"] = cuda_ms(lambda: seanet_decode_chunk_plain(params, cfg, ext))
+        out["library_ms"] = cuda_ms(lambda: seanet_library(lib_w, ext)[:, -n_out:])
+        if old is not None:
+            def old_stack(time_convs=False):
+                x, block_in, convs = ext, None, []
+                for i, op in enumerate(packed["ops"]):
+                    res = block_in if op["residual"] else None
+                    if not op["residual"]:
+                        block_in = x
+                    keep = n_out if i == len(packed["ops"]) - 1 else None
+                    if time_convs:
+                        convs.append(cuda_ms(lambda x=x, op=op, res=res, keep=keep:
+                                             conv_valid_old(old, op, x, res, keep)))
+                    x = conv_valid_old(old, op, x, res, keep)
+                return x[..., 0], convs
+
+            out["old_conv_ms"] = old_stack(True)[1]
+            out["old_ms"] = cuda_ms(lambda: old_stack()[0])
+            want = seanet_decode_chunk_plain(params, cfg, ext)
+            out["old_err"] = float((old_stack()[0] - want).abs().max())
+            out["err"] = float((seanet_decode_chunk(packed, cfg, ext) - want).abs().max())
+    return out
 
 
 def _conv_plain(op, x, res):
@@ -364,35 +392,54 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     kernels.build()
-    old = {n: old_lib(args.old_src, n) for n in ("nar_heads", "seanet")} if args.old_src else {}
+    old_k4 = old_lib(args.old_src, "seanet") if args.old_src else None
     cfg, mcfg = SoproTTSConfig(), MimiConfig()
     tree, mtree = W.init_sopro_params(args.seed, cfg, 259), W.init_mimi_params(args.seed, mcfg)
     W.fill_zero_inits(tree, mtree, args.seed + 1)
     model, mimi = W.sopro_params_from_jax(tree, cfg, dev), W.mimi_params_from_jax(mtree, mcfg, dev)
     rng = np.random.default_rng(args.seed)
     result = {"card": card, "torch": torch.__version__,
-              "nar": bench_nar(model, dev, rng, old.get("nar_heads")),
-              "seanet": [bench_seanet(mimi, dev, rng, old.get("seanet"), b) for b in (1, 4)]}
+              "nar": bench_nar(model, dev, rng),
+              "seanet": [bench_seanet(mimi, dev, rng, b) for b in (1, 4)],
+              "seanet_chunk": [bench_seanet_chunk(mimi, dev, rng, old_k4, b, m25)
+                               for b, m25 in ((1, 12), (2, 12), (1, 32))]}
+    if args.old_src is not None:  # K1 and K5: bench_ar's old-vs-new comparison
+        from sopro_tpu_torch import bench_ar
+
+        result["ar"] = bench_ar.compare(dev, args.old_src, args.seed)
     print(card)
     print("K2 per stage: rows stage H | GFLOP MB | fp32 / 3xTF32 / bytes bound ms | "
-          "kernel ms | old ms | einsum+argmax ms")
+          "kernel ms | einsum+argmax ms")
     for r in result["nar"]:
         print(f"  {r['rows']:5d} {r['stage']} {r['H']:2d} | {r['gflop']:.3f} {r['mbytes']:.1f} | "
               f"{r['fp32_ms']:.4f} {r['tf32x3_ms']:.4f} {r['bytes_ms']:.4f} | {r['ms']:.4f} | "
-              f"{r.get('old_ms', math.nan):.4f} | {r['library_ms']:.4f}")
+              f"{r['library_ms']:.4f}")
     for s in result["seanet"]:
-        print(f"K3 B={s['B']}: conv M N K | GFLOP MB | fp32 / 3xTF32 / bytes bound ms | "
-              f"old ms | cuDNN ms")
+        print(f"K3 B={s['B']}: conv M N K | GFLOP MB | fp32 / 3xTF32 / bytes bound ms | cuDNN ms")
         for r in s["convs"]:
             print(f"  {r['conv']:28s} {r['M']:8d} {r['N']:5d} {r['K']:5d} | {r['gflop']:.2f} "
                   f"{r['mbytes']:.1f} | {r['fp32_ms']:.4f} {r['tf32x3_ms']:.4f} {r['bytes_ms']:.4f} | "
-                  f"{r.get('old_ms', math.nan):.4f} | {r['library_ms']:.4f}")
+                  f"{r['library_ms']:.4f}")
         print(f"K3 B={s['B']} launches: GFLOP MB | fp32 / 3xTF32 / bytes bound ms | ms")
         for r in s["launches"]:
             print(f"  {r['launch']:28s} | {r['gflop']:.2f} {r['mbytes']:.1f} | {r['fp32_ms']:.4f} "
                   f"{r['tf32x3_ms']:.4f} {r['bytes_ms']:.4f} | {r['ms']:.4f}")
-        print(f"  whole stack: kernel {s['ms']:.3f} ms, old {s.get('old_ms', math.nan):.3f} ms, "
-              f"plain {s['plain_ms']:.3f} ms; errors {s['err']}; old errors {s.get('old_err')}")
+        print(f"  whole stack: kernel {s['ms']:.3f} ms, plain {s['plain_ms']:.3f} ms; "
+              f"errors {s['err']}")
+    for s in result["seanet_chunk"]:
+        print(f"K4 B={s['B']} m25={s['m25']}: launch | M | GFLOP MB | 3xTF32 / bytes bound ms | ms")
+        for r in s["launches"]:
+            print(f"  {r['launch']:28s} {r['M']:7d} | {r['gflop']:.3f} {r['mbytes']:.1f} | "
+                  f"{r['tf32x3_ms']:.4f} {r['bytes_ms']:.4f} | {r['ms']:.4f}")
+        if "old_conv_ms" in s:
+            print("  old per conv ms: " + " ".join(f"{x:.4f}" for x in s["old_conv_ms"]))
+        print(f"  chunk: kernel {s['ms']:.3f} ms, old {s.get('old_ms', math.nan):.3f} ms, plain "
+              f"{s['plain_ms']:.3f} ms, cuDNN stack {s['library_ms']:.3f} ms; max|err| new "
+              f"{s.get('err', math.nan):.3e}, old {s.get('old_err', math.nan):.3e}")
+    if "ar" in result:
+        from sopro_tpu_torch import bench_ar
+
+        bench_ar.report(result["ar"])
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     return 0

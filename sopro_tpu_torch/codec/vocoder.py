@@ -5,37 +5,39 @@ K3 replaces sopro_tpu/codec/pallas_vocoder.py::seanet_decode_pallas (and its
 [B, T25, H] to a waveform [B, T25 * 960] from zero history. K4 replaces
 `seanet_decode_pallas_chunk`: `seanet_decode_chunk` maps one streaming chunk
 with its real left context, ext [B, halo + m25, H], to the chunk's waveform
-[B, m25 * 960]. On CUDA tensors K3 runs the tensor-core kernels of
-`csrc/seanet.cu` (a causal conv per conv of stages 1-2 and per transpose,
-one fused kernel per residual block of the 128- and 64-channel stages, the
-last one with the final conv), and K4 the valid-mode per-conv kernel; on CPU
-tensors both run `mimi.seanet_apply` (K4 keeping the last m25 * 960
-samples, which equal the valid-mode result because the stack's receptive
-field is `halo` frames).
+[B, m25 * 960]. On CUDA tensors both run the same launch list of the
+tensor-core kernels of `csrc/seanet.cu` (`run_launches`: a conv per conv of
+stages 1-2 and per transpose, one fused kernel per residual block of the
+128- and 64-channel stages, the last one with the final conv), K3 causally
+and K4 in valid mode; on CPU tensors both run `mimi.seanet_apply` (K4
+keeping the last m25 * 960 samples, which equal the valid-mode result
+because the stack's receptive field is `halo` frames).
 
 Early in a stream the history holds only `n_hist` < halo real frames; the
 rows before them are no signal but the causal zero padding of every conv.
 `seanet_decode_chunk` takes `n_hist` per batch row: the plain version then
-decodes ext[b, halo - n_hist[b]:] causally, and the kernel reads each conv's
-input rows before the stream's start as zero (`start_table`). Without it a
-zero history would carry the conv biases into the first chunk.
+decodes ext[b, halo - n_hist[b]:] causally, and the kernels read each
+launch's input rows before the stream's start as zero (`start_table`).
+Without it a zero history would carry the conv biases into the first chunk.
 
-Kernel layout (`pack_seanet_decoder`):
-- "ops" (K4): a list of conv ops, each {"w": [taps, Cin, Cout] contiguous
-  (a [taps*Cin, Cout] GEMM operand), "b", "dil", "phases", "elu_in",
+Kernel layout (`pack_seanet_decoder`, once per device):
+- "ops": the per-conv plan, each {"w": [taps, Cin, Cout] contiguous (a
+  [taps*Cin, Cout] GEMM operand), "b", "dil", "phases", "elu_in",
   "residual"}. The plan's ELU layers fold into the next conv's `elu_in`; a
   transpose conv with k = 2s becomes `phases` = s two-tap convs, phase r
   using [w[s-1-r], w[2s-1-r]] and writing rows m*s + r; a residual block is
   a k3 conv into a hidden buffer and a k1 conv that adds the block input.
-- "k3": K3's launches. {"kind": "conv", "hi", "lo": [taps, cinp, np] (the
-  TF32 split of the weight, zero-padded to cinp = Cin rounded up to 32 and
-  np = N rounded up to 128), "b" [N], "taps", "dil", "elu_in", "cin", "n",
-  "phases", "residual"}: a transpose conv is one two-tap conv with N = s * Cout,
-  column r * Cout + c holding phase r, its bias repeated s times. {"kind":
-  "resblock", "c", "final", "w1hi", "w1lo" [3C, C/2], "b1", "w2hi", "w2lo"
-  [C/2, C], "b2", "wf" [3C], "bf" [1]}: a residual block of C = 128 or 64
-  channels (k3 dilation 1), with the final ELU + k3 conv to one channel
-  when "final" (wf and bf, float32, are then that conv's).
+  The bounds and the start table are computed from it.
+- "k3": the launch list of K3 and K4. {"kind": "conv", "op", "hi", "lo":
+  [taps, cinp, np] (the TF32 split of the weight, zero-padded to cinp = Cin
+  rounded up to 32 and np = N rounded up to 128), "b" [N], "taps", "dil",
+  "elu_in", "cin", "n", "phases", "residual"}: a transpose conv is one
+  two-tap conv with N = s * Cout, column r * Cout + c holding phase r, its
+  bias repeated s times. {"kind": "resblock", "op", "c", "final", "w1hi",
+  "w1lo" [3C, C/2], "b1", "w2hi", "w2lo" [C/2, C], "b2", "wf" [3C], "bf"
+  [1]}: a residual block of C = 128 or 64 channels (k3 dilation 1), with
+  the final ELU + k3 conv to one channel when "final" (wf and bf, float32,
+  are then that conv's). "op": the launch's first op in "ops".
 - "start_table" [halo + 1, n_ops] int32: for a chunk whose history starts
   at ext row s0, row s0 holds the first input row of each op that lies at
   or after the stream's start.
@@ -137,8 +139,8 @@ def _k3_launches(ops: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
                      and int(last["dil"]) == 1 and last["elu_in"] and int(last["phases"]) == 1)
             w1hi, w1lo = split_tf32(op["w"].reshape(3 * c, c // 2).contiguous())
             w2hi, w2lo = split_tf32(nxt["w"].reshape(c // 2, c).contiguous())
-            launch = {"kind": "resblock", "c": c, "final": final, "w1hi": w1hi, "w1lo": w1lo,
-                      "b1": op["b"], "w2hi": w2hi, "w2lo": w2lo, "b2": nxt["b"],
+            launch = {"kind": "resblock", "op": i, "c": c, "final": final, "w1hi": w1hi,
+                      "w1lo": w1lo, "b1": op["b"], "w2hi": w2hi, "w2lo": w2lo, "b2": nxt["b"],
                       "wf": None, "bf": None}
             if final:
                 launch["wf"] = last["w"].reshape(3 * c).contiguous()
@@ -146,7 +148,7 @@ def _k3_launches(ops: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
             out.append(launch)
             i += 3 if final else 2
         else:
-            out.append(_k3_conv(op, bool(op["residual"])))
+            out.append(dict(_k3_conv(op, bool(op["residual"])), op=i))
             i += 1
     return out
 
@@ -169,105 +171,107 @@ def _start_table(ops: List[Dict[str, Any]], cfg: MimiConfig) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=ops[0]["w"].device)
 
 
-def _op_shape(op: Dict[str, Any], cin: int):
-    """(taps, Cout) of a packed conv; raises if its input width differs."""
-    w = op["w"]
-    taps, wcin, cout = w.shape[-3:]
-    if wcin != cin:
-        raise ValueError(f"seanet kernel: input has {cin} channels, weight {wcin}")
-    return int(taps), int(cout)
+_C_PTR, _C_INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "sopro_seanet_conv_tc": [_C_PTR] * 6 + [_C_INT] * 11 + [_C_PTR, _C_INT, _C_INT, _C_PTR],
+    "sopro_seanet_resblock": [_C_PTR] * 10 + [_C_INT] * 5 + [_C_PTR, _C_INT, _C_PTR],
+}
+K4_MAX_SPLITS = 16  # csrc/seanet.cu kMaxSplits: K4's convs split Cin over up to 16 blocks
 
 
-def _conv_cuda(launch: Dict[str, Any], x: torch.Tensor, residual) -> torch.Tensor:
-    """K3's causal tensor-core conv: y [B, T, N] from x [B, T, Cin], returned
-    as [B, T * phases, N / phases] (a transpose's phase-major columns are
-    its output rows)."""
-    b, t, cin = x.shape
+def _entry(name: str):
+    return kernels.entry("seanet", name, _ARGTYPES[name])
+
+
+def _start_arg(start: Optional[torch.Tensor]):
+    return (None, 0) if start is None else (start.data_ptr(), int(start.stride(0)))
+
+
+def _conv_cuda(launch: Dict[str, Any], x: torch.Tensor, residual, start=None, t_out=None,
+               max_splits: int = 1, stream=None) -> torch.Tensor:
+    """One tensor-core conv launch: y [B, t_out, N] from x [B, T_in, Cin],
+    output row t the causal conv at input row T_in - t_out + t (K3: t_out =
+    T_in); input rows before `start` [B] (a column of the start table; None:
+    row 0) read as zero; a residual adds its last t_out rows. Returned as
+    [B, t_out * phases, N / phases] (a transpose's phase-major columns are
+    its output rows). `stream`: the current stream's handle (looked up when
+    None)."""
+    b, t_in, cin = x.shape
+    t_out = t_in if t_out is None else int(t_out)
     if cin != launch["cin"]:
         raise ValueError(f"seanet kernel: input has {cin} channels, weight {launch['cin']}")
-    y = torch.empty((b, t, launch["n"]), dtype=torch.float32, device=x.device)
-    fn = kernels.lib("seanet").sopro_seanet_conv_tc
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(
-        kernels.ptr(x), kernels.ptr(launch["hi"]), kernels.ptr(launch["lo"]),
-        kernels.ptr(launch["b"]), None if residual is None else kernels.ptr(residual),
-        kernels.ptr(y), b, t, cin, int(launch["hi"].shape[1]), launch["n"],
-        int(launch["hi"].shape[2]), launch["taps"], launch["dil"], int(launch["elu_in"]),
-        kernels.stream_ptr(x.device),
+    y = torch.empty((b, t_out, launch["n"]), dtype=torch.float32, device=x.device)
+    rc = _entry("sopro_seanet_conv_tc")(
+        x.data_ptr(), launch["hi"].data_ptr(), launch["lo"].data_ptr(), launch["b"].data_ptr(),
+        None if residual is None else residual.data_ptr(), y.data_ptr(), b, t_in, t_out,
+        0 if residual is None else int(residual.shape[1]), cin, int(launch["hi"].shape[1]),
+        launch["n"], int(launch["hi"].shape[2]), launch["taps"], launch["dil"],
+        int(launch["elu_in"]), *_start_arg(start), max_splits,
+        kernels.stream_ptr(x.device).value if stream is None else stream,
     )
     kernels.check(rc, "seanet")
-    return y.view(b, t * launch["phases"], launch["n"] // launch["phases"])
+    return y.view(b, t_out * launch["phases"], launch["n"] // launch["phases"])
 
 
-def _resblock_cuda(launch: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """K3's fused residual block: [B, T, C] -> [B, T, C], or -> wav [B, T]
-    when it carries the final conv."""
-    b, t, c = x.shape
+def _resblock_cuda(launch: Dict[str, Any], x: torch.Tensor, start=None, t_out=None,
+                   stream=None) -> torch.Tensor:
+    """The fused residual block: [B, T_in, C] -> [B, t_out, C], or -> wav
+    [B, t_out] when it carries the final conv; output row t the causal
+    result at input row T_in - t_out + t, input rows (and the final conv's
+    input rows) before `start` zero."""
+    b, t_in, c = x.shape
+    t_out = t_in if t_out is None else int(t_out)
     if c != launch["c"]:
         raise ValueError(f"seanet kernel: input has {c} channels, block {launch['c']}")
-    y = torch.empty((b, t) if launch["final"] else (b, t, c), dtype=torch.float32, device=x.device)
-    fn = kernels.lib("seanet").sopro_seanet_resblock
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    opt = (lambda k: None if launch[k] is None else kernels.ptr(launch[k]))
-    rc = fn(
-        kernels.ptr(x), kernels.ptr(launch["w1hi"]), kernels.ptr(launch["w1lo"]),
-        kernels.ptr(launch["b1"]), kernels.ptr(launch["w2hi"]), kernels.ptr(launch["w2lo"]),
-        kernels.ptr(launch["b2"]), opt("wf"), opt("bf"), kernels.ptr(y), b, t, c,
-        int(launch["final"]), kernels.stream_ptr(x.device),
+    y = torch.empty((b, t_out) if launch["final"] else (b, t_out, c), dtype=torch.float32,
+                    device=x.device)
+    opt = (lambda k: None if launch[k] is None else launch[k].data_ptr())
+    rc = _entry("sopro_seanet_resblock")(
+        x.data_ptr(), launch["w1hi"].data_ptr(), launch["w1lo"].data_ptr(),
+        launch["b1"].data_ptr(), launch["w2hi"].data_ptr(), launch["w2lo"].data_ptr(),
+        launch["b2"].data_ptr(), opt("wf"), opt("bf"), y.data_ptr(), b, t_in, t_out, c,
+        int(launch["final"]), *_start_arg(start),
+        kernels.stream_ptr(x.device).value if stream is None else stream,
     )
     kernels.check(rc, "seanet")
     return y
 
 
-def run_k3(launches: List[Dict[str, Any]], emb: torch.Tensor) -> torch.Tensor:
-    """K3's launches in order over emb [B, T, H] (CUDA) -> wav [B, T * hop]."""
-    x = emb.contiguous()
-    block_in = None
-    for launch in launches:
+def valid_rows(launch: Dict[str, Any], t_in: int) -> int:
+    """Output rows of a launch in valid mode: its input rows less its
+    receptive field (a fused block: the k3 conv's 2, and the final conv's 2)."""
+    if launch["kind"] == "resblock":
+        return t_in - (4 if launch["final"] else 2)
+    return t_in - (launch["taps"] - 1) * launch["dil"]
+
+
+def run_launches(launches: List[Dict[str, Any]], x: torch.Tensor,
+                 starts: Optional[torch.Tensor] = None, keep: Optional[int] = None,
+                 valid: bool = False) -> torch.Tensor:
+    """The launch list in order over x [B, T, H] (CUDA) -> wav. K3: causal
+    (every launch keeps the length). K4 (`valid`): every launch shrinks by
+    its receptive field, launch i reads rows before starts[:, launch "op"]
+    as zero, and the last one writes only its last `keep` rows."""
+    x, block_in = x.contiguous(), None
+    splits = K4_MAX_SPLITS if valid else 1
+    stream = kernels.stream_ptr(x.device).value
+    for i, launch in enumerate(launches):
+        start = None if starts is None else starts[:, launch["op"]]
+        t_out = None
+        if valid:
+            t_out = valid_rows(launch, int(x.shape[1]))
+            if keep is not None and i == len(launches) - 1:
+                if not 0 < keep <= t_out or launch.get("phases", 1) != 1:
+                    raise ValueError(f"seanet_decode_chunk: {t_out} valid rows, {keep} asked for")
+                t_out = keep
         if launch["kind"] == "resblock":
-            x = _resblock_cuda(launch, x)
+            x = _resblock_cuda(launch, x, start, t_out, stream)
         elif launch["residual"]:
-            x = _conv_cuda(launch, x, block_in)
+            x = _conv_cuda(launch, x, block_in, start, t_out, splits, stream)
         else:
             block_in = x
-            x = _conv_cuda(launch, x, None)
+            x = _conv_cuda(launch, x, None, start, t_out, splits, stream)
     return x if x.dim() == 2 else x[..., 0]
-
-
-def _conv_valid_cuda(
-    op: Dict[str, Any], x: torch.Tensor, residual, start: Optional[torch.Tensor],
-    keep: Optional[int] = None,
-) -> torch.Tensor:
-    """K4's valid-mode conv: output row t reads input rows t + j*dil, so
-    T_in - (taps-1)*dil rows come out (times the phase count); `keep` writes
-    only the last `keep` of them. A residual adds the block input's last
-    rows (those its convs consumed the rows before of). `start` [B] (a
-    column of the start table, or None): input rows before it read as 0."""
-    b, t_in, cin = x.shape
-    taps, cout = _op_shape(op, cin)
-    phases, dil = int(op["phases"]), int(op["dil"])
-    t_valid = t_in - (taps - 1) * dil
-    t_out = t_valid if keep is None else int(keep)
-    if t_out <= 0 or t_out > t_valid:
-        raise ValueError(f"seanet_decode_chunk: {t_in} input rows give {t_valid} valid rows, "
-                         f"{t_out} asked for")
-    res_t = 0 if residual is None else int(residual.shape[1])
-    y = torch.empty((b, t_out * phases, cout), dtype=torch.float32, device=x.device)
-    fn = kernels.lib("seanet").sopro_seanet_conv_valid
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    rc = fn(
-        kernels.ptr(x), kernels.ptr(op["w"]), kernels.ptr(op["b"]),
-        None if residual is None else kernels.ptr(residual), kernels.ptr(y),
-        b, t_in, t_out, t_valid - t_out, cin, cout, taps, dil, int(op["elu_in"]), phases,
-        res_t, res_t - t_out, None if start is None else kernels.ptr(start),
-        0 if start is None else int(start.stride(0)), kernels.stream_ptr(x.device),
-    )
-    kernels.check(rc, "seanet_chunk")
-    return y
 
 
 def _check_cuda_inputs(name: str, packed: Dict[str, Any], x: torch.Tensor) -> None:
@@ -286,7 +290,7 @@ def seanet_decode(packed: Dict[str, Any], cfg: MimiConfig, emb: torch.Tensor) ->
     if emb.device.type == "cpu":
         return seanet_apply(packed["params"], decoder_plan(cfg), emb)[..., 0]
     _check_cuda_inputs("seanet_decode", packed, emb)
-    wav = run_k3(packed["k3"], emb)
+    wav = run_launches(packed["k3"], emb)
     kernels.LAUNCHES["seanet"] += 1
     return wav
 
@@ -303,6 +307,17 @@ def seanet_decode_chunk_plain(
     first = required_halo(cfg) - torch.clamp(n_hist, 0, required_halo(cfg))
     return torch.cat([seanet_apply(params, plan, ext[i:i + 1, s0:])[:, -n_out:, 0]
                       for i, s0 in enumerate(first.tolist())])
+
+
+def chunk_starts(packed: Dict[str, Any], cfg: MimiConfig, n_hist: Optional[torch.Tensor],
+                 device) -> Optional[torch.Tensor]:
+    """[B, n_ops] int32: each op's first input row at or after the stream's
+    start, for `n_hist` real history rows per batch row (None: all real)."""
+    if n_hist is None:
+        return None
+    halo = required_halo(cfg)
+    first = halo - torch.clamp(n_hist.to(device).long(), 0, halo)
+    return packed["start_table"][first]
 
 
 def seanet_decode_chunk(
@@ -322,22 +337,10 @@ def seanet_decode_chunk(
     if ext.device.type == "cpu":
         return seanet_decode_chunk_plain(packed["params"], cfg, ext, n_hist)
     _check_cuda_inputs("seanet_decode_chunk", packed, ext)
-    starts = None
-    if n_hist is not None:
-        first = halo - torch.clamp(n_hist.to(ext.device).long(), 0, halo)
-        starts = packed["start_table"][first]  # [B, n_ops]
-    x = ext.contiguous()
-    block_in = None
-    ops = packed["ops"]
-    for i, op in enumerate(ops):
-        start = None if starts is None else starts[:, i]
-        if op["residual"]:
-            x = _conv_valid_cuda(op, x, block_in, start)
-        else:
-            block_in = x
-            x = _conv_valid_cuda(op, x, None, start, keep=n_out if i == len(ops) - 1 else None)
+    wav = run_launches(packed["k3"], ext, chunk_starts(packed, cfg, n_hist, ext.device),
+                       keep=n_out, valid=True)
     kernels.LAUNCHES["seanet_chunk"] += 1
-    return x[..., 0]
+    return wav
 
 
 def mimi_decode_with_slabs(

@@ -15,14 +15,10 @@
 //
 // What bounds it on the H100: a step reads every AR weight once (~42 MB in
 // fp32 at d = 384: six blocks of 5.9 MB, the attention projections, the
-// 3.1 MB head) for ~21 MFLOP, so it is bound by how fast the weights come out
-// of L2 (they stay resident in the 50 MB L2 across steps), then by the
-// barriers between the dependent matrix-vector products and by the ~60
-// block-wide reductions of the sampler. One block per row would stream the
-// weights through a single SM; instead each row runs on a thread-block
-// cluster of CS blocks (16 where the card schedules it, else 8, ...) that
-// split every product across CS SMs and exchange the pieces through
-// distributed shared memory:
+// 3.1 MB head) for ~21 MFLOP, and the weights stay resident in the 50 MB L2
+// across steps. Each row runs on a thread-block cluster of CS blocks (16
+// where the card schedules it, else 8, ...) that split every product across
+// CS SMs and exchange the pieces through distributed shared memory:
 //   * GLU columns and the depthwise conv by channel: block r owns channels
 //     [r*D/CS, (r+1)*D/CS), their ring-buffer columns (in shared memory
 //     behind a rotating head, written back oldest-first at exit), their
@@ -31,9 +27,9 @@
 //     multiplies them by its rows of ff2 -- a partial [D] sum that every
 //     block adds up in rank order (no hidden-vector exchange);
 //   * attention: block r computes its D/CS query columns (pushed to every
-//     block), then the softmax over the text for the head(s) its rows of the
-//     output projection belong to, and multiplies its slice of the attention
-//     output by those rows: again a partial [D] sum;
+//     block), the softmax over the text for the head its channels belong
+//     to, the attention output for its own channels only, and multiplies it
+//     by its rows of the output projection: again a partial [D] sum;
 //   * head: block r computes V/CS logits and pushes them.
 // That is two cluster barriers per SSMLite block, two per attention and one
 // for the head. RMSNorms and the sampler run redundantly in every block on
@@ -42,6 +38,24 @@
 // kernel does. The sampler mirrors the JAX op sequence op for op, so tokens
 // equal the plain path except at genuine near-ties.
 //
+// A step is a chain of ~40 dependent phases; the first design started every
+// product's weight loads only when the product started (an L2 round trip
+// per phase, 236 us per step on the H100). Here the sequence of weight
+// slices a rank reads in a step is fixed, so the host packs each rank's
+// slices contiguously in that order once per device (ops/ar_loop.py
+// `pack_ar_stream`, mirroring `stream_schedule`), and the block streams
+// them through a ring of kRing x 32 KB in shared memory, one 1-D bulk copy
+// (TMA) per chunk of whole rows, issued by one thread and completing on the
+// slot's mbarrier: every chunk taken frees a slot that is refilled with the
+// chunk kRing - 1 ahead, so loads run ahead across phases and across steps
+// (the next step's first GLU chunks land during the sampler). The floor of
+// that stream is one SM's L2 -> shared memory rate (bench_ar.py, 16 blocks
+// at once: ~65 GB/s with bulk copies in 3 x 32 KB, ~50 GB/s with per-thread
+// cp.async, whose issue also stalls the threads). Further: 512 threads a block (at
+// 1,024 the 64-register cap spilled in the hot loops); each RMSNorm's sum
+// of squares is taken in the pass that writes h; the attention output is
+// formed only for the block's own channels.
+//
 // Kernel K5, the same kernel in its logits-only mode (`kLogitsOnly`),
 // replaces sopro_tpu/ops/pallas_ar.py::ar_step_pallas: ONE step for B rows
 // from x [B, D] and the ring buffers [N, B, CTX, D] in device memory, with no
@@ -49,9 +63,12 @@
 // and the shifted buffers go back oldest-first (the JAX `shifted` layout);
 // the count grid, the bisections, Threefry and the state scalars are
 // skipped. The block stack is K1's own code, so K1 and K5 compute the same
-// step. K5 is bound like one step of K1 (the weights out of L2, ~40
-// dependent phases), plus a launch and the cluster's set-up per step; the
-// caller samples between launches.
+// step. K5 is bound like one step of K1, plus a launch and the cluster's
+// set-up per step; the caller samples between launches.
+//
+// Built with -DSOPRO_AR_CLOCKS (bench_ar.py), thread 0 of block 0 adds
+// clock64() deltas per phase of a step (AR_PHASE marks, the phases of
+// bench_ar.PHASES) into g_ar_clk, read by sopro_ar_clocks.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -60,9 +77,32 @@
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;   // 128 registers a thread (1,024 threads spill at 64)
 constexpr int kMaxLayers = 16;
 constexpr int kBisect = 26;
+constexpr int kRing = 3;        // weight ring stages
+constexpr int kStage = 8192;    // floats per stage (32 KB)
+
+#ifdef SOPRO_AR_CLOCKS
+// per phase in shared memory while the kernel runs, into g_ar_clk at exit
+__device__ unsigned long long g_ar_clk[32];
+__shared__ unsigned long long ar_clk_acc[32];
+#define AR_CLOCK_INIT long long ar_clk_last = clock64(); int ar_clk_cur = 0; \
+  if (threadIdx.x == 0) for (int i_ = 0; i_ < 32; ++i_) ar_clk_acc[i_] = 0;
+#define AR_PHASE(n) do { if (blockIdx.x == 0 && threadIdx.x == 0) { \
+  const long long ar_now = clock64(); ar_clk_acc[ar_clk_cur] += ar_now - ar_clk_last; \
+  ar_clk_last = ar_now; ar_clk_cur = (n); if ((n) == 0) ar_clk_acc[31] += 1; \
+  if ((n) == 30) for (int i_ = 0; i_ < 32; ++i_) g_ar_clk[i_] += ar_clk_acc[i_]; } } while (0)
+extern "C" int sopro_ar_clocks(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_ar_clk, sizeof(g_ar_clk));
+  if (e != cudaSuccess) return (int)e;
+  static const unsigned long long zeros[32] = {0};
+  return (int)cudaMemcpyToSymbol(g_ar_clk, zeros, sizeof(zeros));
+}
+#else
+#define AR_CLOCK_INIT
+#define AR_PHASE(n)
+#endif
 
 // Mirrored field for field by `_Args` in ops/ar_loop.py.
 struct ArLoopArgs {
@@ -87,6 +127,8 @@ struct ArLoopArgs {
   float* bufs_out;
   const float* x_in;  // K5 only: [B, D] step input
   float* logits;      // K5 only: [B, V]
+  const float* wstream;  // [cs][stream_len]: each rank's weight slices in the order read
+  int stream_len, cs;    // floats per rank; the cluster size the stream was packed for
 };
 
 namespace {
@@ -154,15 +196,18 @@ struct Red {
 };
 
 // op: 0 sum, 1 max, 2 min
+__device__ __forceinline__ float warp_op(float v, int op) {
+  return op == 0 ? warp_sum(v) : (op == 1 ? warp_max(v) : warp_min(v));
+}
+
 __device__ float block_reduce(float v, int op, Red& R) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  v = op == 0 ? warp_sum(v) : (op == 1 ? warp_max(v) : warp_min(v));
+  v = warp_op(v, op);
   float* buf = R.f + (R.k++ & 1) * 32;
   if (lane == 0) buf[wid] = v;
   __syncthreads();
   const float ident = op == 0 ? 0.f : (op == 1 ? -INFINITY : INFINITY);
-  const float u = lane < (int)(blockDim.x >> 5) ? buf[lane] : ident;
-  return op == 0 ? warp_sum(u) : (op == 1 ? warp_max(u) : warp_min(u));
+  return warp_op(lane < (int)(blockDim.x >> 5) ? buf[lane] : ident, op);
 }
 
 // op: 0 sum, 2 min
@@ -176,94 +221,19 @@ __device__ int block_reduce_i(int v, int op, Red& R) {
   return op == 0 ? warp_sum_i(u) : warp_min_i(u);
 }
 
-// y = scale * x * rsqrt(mean(x^2) + 1e-6), over n entries in shared memory
-__device__ void rmsnorm(const float* x, const float* __restrict__ scale, float* y, int n,
-                        Red& red) {
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s += x[i] * x[i];
-  s = block_reduce(s, 0, red);
-  const float inv = rsqrtf(s / (float)n + 1e-6f);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) y[i] = x[i] * inv * __ldg(scale + i);
+// hn = scale * h * rsqrt(mean(h^2) + 1e-6) over n entries, from each
+// thread's sum of squares `ss` over its own entries i = tid, tid + nt, ...,
+// taken in the pass that wrote them: each thread normalises its own
+// entries, then a barrier publishes hn (and h).
+__device__ void norm_from(const float* h, float ss, const float* __restrict__ scale, float* hn,
+                          int n, Red& red) {
+  ss = block_reduce(ss, 0, red);
+  const float inv = rsqrtf(ss / (float)n + 1e-6f);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) hn[i] = h[i] * inv * __ldg(scale + i);
   __syncthreads();
 }
 
-// out[c] = sum_{i < n_in} x[i] * W[i * ldw + col(c)] for c < ncols (x and
-// out in shared memory), where columns c < split start at col0 and the rest
-// at col1 (one product over two column ranges); WIDTH columns per thread
-// (4: float4 loads).
-// Neighbouring threads take neighbouring columns (coalesced rows); the input
-// range is split over G thread groups whose partial sums (`part`, >= 4 *
-// blockDim.x floats) are folded by up to 32 lanes per column with shuffles,
-// in a fixed order.
-template <int WIDTH>
-__device__ void gemv_impl(const float* __restrict__ W, int ldw, const float* x, int n_in,
-                          int col0, int col1, int split, int ncols, float* out, float* part) {
-  const int nt = blockDim.x, tid = threadIdx.x;
-  const int ngrp = ncols / WIDTH, gsplit = split / WIDTH;
-  const int G = max(1, nt / ngrp);
-  for (int idx = tid; idx < ngrp * G; idx += nt) {
-    const int g = idx / ngrp, c = idx - g * ngrp;
-    const float* wp = W + (c < gsplit ? col0 + c * WIDTH : col1 + (c - gsplit) * WIDTH);
-    float acc[WIDTH];
-#pragma unroll
-    for (int k = 0; k < WIDTH; ++k) acc[k] = 0.f;
-#pragma unroll 4
-    for (int i = g; i < n_in; i += G) {
-      const float xv = x[i];
-      if constexpr (WIDTH == 4) {
-        const float4 w = __ldg(reinterpret_cast<const float4*>(wp + (size_t)i * ldw));
-        acc[0] = fmaf(xv, w.x, acc[0]);
-        acc[1] = fmaf(xv, w.y, acc[1]);
-        acc[2] = fmaf(xv, w.z, acc[2]);
-        acc[3] = fmaf(xv, w.w, acc[3]);
-      } else {
-        acc[0] = fmaf(xv, __ldg(wp + (size_t)i * ldw), acc[0]);
-      }
-    }
-    float* dst = (G == 1 ? out : part + (size_t)g * ncols) + c * WIDTH;
-#pragma unroll
-    for (int k = 0; k < WIDTH; ++k) dst[k] = acc[k];
-  }
-  __syncthreads();
-  if (G > 1) {
-    int tpc = 1;  // lanes per output column: a power of two <= 32
-    while (tpc < 32 && ncols * tpc * 2 <= nt) tpc *= 2;
-    const int rounds = (ncols * tpc + nt - 1) / nt;
-    for (int rd = 0; rd < rounds; ++rd) {
-      const int idx = rd * nt + tid;
-      const int c = idx / tpc, lane = idx % tpc;
-      float s = 0.f;
-      if (c < ncols)
-        for (int g = lane; g < G; g += tpc) s += part[(size_t)g * ncols + c];
-      for (int o = tpc >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (c < ncols && lane == 0) out[c] = s;
-    }
-    __syncthreads();
-  }
-}
-
-__device__ void gemv_cols2(const float* __restrict__ W, int ldw, const float* x, int n_in,
-                           int col0, int col1, int split, int ncols, float* out, float* part) {
-  if (ncols <= 0) return;  // block-uniform
-  if (((ldw | col0 | col1 | split | ncols) & 3) == 0)
-    gemv_impl<4>(W, ldw, x, n_in, col0, col1, split, ncols, out, part);
-  else
-    gemv_impl<1>(W, ldw, x, n_in, col0, col1, split, ncols, out, part);
-}
-
-__device__ void gemv_cols(const float* __restrict__ W, int ldw, const float* x, int n_in,
-                          int col0, int ncols, float* out, float* part) {
-  gemv_cols2(W, ldw, x, n_in, col0, col0 + ncols, ncols, ncols, out, part);
-}
-
-// Write src[0..n) to dst[0..n) in the shared memory of every block of the
-// cluster (this one included); the caller's cluster barrier publishes it.
-__device__ void push(cg::cluster_group& cl, float* dst, const float* src, int n, int cs) {
-  for (int idx = threadIdx.x; idx < cs * n; idx += blockDim.x) {
-    const int rr = idx / n, i = idx - rr * n;
-    cl.map_shared_rank(dst, rr)[i] = src[i];
-  }
-}
+// ---- the weight stream ------------------------------------------------------
 
 struct Layout {
   int cs, cw, fw, vw;  // cluster size; channels, FFN columns, logits per block
@@ -278,17 +248,183 @@ __host__ __device__ Layout layout(const ArLoopArgs& a, int cs) {
   return l;
 }
 
+// One slice [rows][width] of a rank's stream: chunks of kStage / width whole
+// rows, each (offset, floats) into sched (nullable).
+__host__ __device__ inline void add_slice(int rows, int width, int* sched, int& n, int& off) {
+  const int rpc = kStage / width;
+  for (int r0 = 0; r0 < rows; r0 += rpc) {
+    const int nr = rows - r0 < rpc ? rows - r0 : rpc;
+    if (sched != nullptr) {
+      sched[2 * n] = off;
+      sched[2 * n + 1] = nr * width;
+    }
+    ++n;
+    off += nr * width;
+  }
+}
+
+// The slices a rank reads in one step, in order: per layer its GLU columns
+// [D][2cw] (a then b), ff1 columns [D][fw], ff2 rows [fw][D], after every
+// freq-th layer its x_q columns [D][cw] and x_out rows [cw][D]; then its head
+// columns [D][vw] (zero past Vp). Returns the chunks per step; *len the
+// floats per rank. Mirrored by ops/ar_loop.py `stream_schedule`.
+__host__ __device__ int stream_schedule(const ArLoopArgs& a, const Layout& l, int* sched, int* len) {
+  int n = 0, off = 0;
+  for (int li = 0; li < a.N; ++li) {
+    add_slice(a.D, 2 * l.cw, sched, n, off);
+    add_slice(a.D, l.fw, sched, n, off);
+    add_slice(l.fw, a.D, sched, n, off);
+    if ((li + 1) % a.freq == 0) {
+      add_slice(a.D, l.cw, sched, n, off);
+      add_slice(l.cw, a.D, sched, n, off);
+    }
+  }
+  add_slice(a.D, l.vw, sched, n, off);
+  if (len != nullptr) *len = off;
+  return n;
+}
+
+// The ring: this rank's stream, taken in schedule order. Chunk k (counted
+// over the whole launch) sits in slot k % kRing and is one 1-D bulk copy
+// (TMA) issued by one thread, completing on the slot's mbarrier with its byte
+// count; its use of the slot is phase (k / kRing) & 1 of that mbarrier.
+// sched holds the step's (offset, floats) per chunk, the same every step.
+struct Ring {
+  float* buf;         // [kRing][kStage]
+  uint64_t* bar;      // [kRing] one mbarrier per slot
+  const float* src;   // this rank's stream
+  const int* sched;   // [2 * nchunk]
+  int nchunk, k;      // chunks per step; chunks taken (identical in every thread)
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Thread 0: chunk k into its slot, whose previous chunk every thread read
+// before the barrier that precedes this call.
+__device__ void ring_issue(const Ring& rg, int k) {
+  if (threadIdx.x != 0) return;
+  const int c = k % rg.nchunk, slot = k % kRing;
+  const uint32_t bytes = 4u * (uint32_t)rg.sched[2 * c + 1];
+  const uint32_t bar = smem_addr(rg.bar + slot);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(rg.buf + slot * kStage)), "l"(rg.src + rg.sched[2 * c]), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Every thread: wait until chunk k has landed in its slot.
+__device__ void ring_wait(const Ring& rg, int k) {
+  const uint32_t bar = smem_addr(rg.bar + k % kRing), parity = (uint32_t)((k / kRing) & 1);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, p; }\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// The next chunk, landed. The barrier says every thread is done with the
+// chunk before, whose slot then takes the chunk kRing - 1 ahead.
+__device__ const float* ring_take(Ring& rg) {
+  ring_wait(rg, rg.k);
+  __syncthreads();
+  ring_issue(rg, rg.k + kRing - 1);
+  return rg.buf + (rg.k++ % kRing) * kStage;
+}
+
+// Every thread: the chunks issued ahead land before the block exits.
+__device__ void ring_drain(const Ring& rg) {
+  for (int k = rg.k; k < rg.k + kRing - 1; ++k) ring_wait(rg, k);
+}
+
+// out[c] = sum_{i < n_in} x[i] * S[i][c] for c < width (a multiple of 4),
+// S [n_in][width] the next slice of the stream (x and out in shared memory).
+// Thread (g, c4) takes columns 4c4..4c4+3 of rows g, g + G, ... of every
+// chunk (G = blockDim / (width / 4) groups); the G partial sums per column
+// (`part`, >= 4 * blockDim floats) are folded by up to 32 lanes per column
+// with shuffles, in a fixed order.
+__device__ void gemv_stream(Ring& rg, int width, int n_in, const float* x, float* out, float* part) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int ngrp = width / 4, G = max(1, nt / ngrp), rpc = kStage / width;
+  const int g = tid / ngrp, c4 = tid - g * ngrp;
+  const bool active = g < G;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r0 = 0; r0 < n_in; r0 += rpc) {
+    const float* w = ring_take(rg);
+    const int nr = min(rpc, n_in - r0);
+    if (active) {
+#pragma unroll 4
+      for (int i = g; i < nr; i += G) {
+        const float xv = x[r0 + i];
+        const float4 wv = *reinterpret_cast<const float4*>(w + (size_t)i * width + 4 * c4);
+        acc.x = fmaf(xv, wv.x, acc.x);
+        acc.y = fmaf(xv, wv.y, acc.y);
+        acc.z = fmaf(xv, wv.z, acc.z);
+        acc.w = fmaf(xv, wv.w, acc.w);
+      }
+    }
+  }
+  if (active) {
+    float* dst = (G == 1 ? out : part + (size_t)g * width) + 4 * c4;
+    dst[0] = acc.x;
+    dst[1] = acc.y;
+    dst[2] = acc.z;
+    dst[3] = acc.w;
+  }
+  __syncthreads();
+  if (G > 1) {
+    int tpc = 1;  // lanes per output column: a power of two <= 32
+    while (tpc < 32 && width * tpc * 2 <= nt) tpc *= 2;
+    const int rounds = (width * tpc + nt - 1) / nt;
+    for (int rd = 0; rd < rounds; ++rd) {
+      const int idx = rd * nt + tid;
+      const int c = idx / tpc, lane = idx % tpc;
+      float s = 0.f;
+      if (c < width)
+        for (int gg = lane; gg < G; gg += tpc) s += part[(size_t)gg * width + c];
+      for (int o = tpc >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (c < width && lane == 0) out[c] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// Write src[0..n) to dst[0..n) in the shared memory of every block of the
+// cluster (this one included); the caller's cluster barrier publishes it.
+__device__ void push(cg::cluster_group& cl, float* dst, const float* src, int n, int cs) {
+  for (int idx = threadIdx.x; idx < cs * n; idx += blockDim.x) {
+    const int rr = idx / n, i = idx - rr * n;
+    cl.map_shared_rank(dst, rr)[i] = src[i];
+  }
+}
+
+// floats: the ring's mbarriers [kRing] (8 bytes each, padded to 32 floats),
+// the ring, h, hn, gab [2D], cbuf, yl, q, loc [max(fw, vw)], pbuf [cs][D],
+// att [L], lg [V], p [V], part [4 * kThreads] (one of these two also holds
+// the sampler's penalized logits), my ring columns, GLU biases, conv taps
+// and biases, FFN biases, reduction partials [2][32]
 __host__ __device__ size_t smem_floats(const ArLoopArgs& a, const Layout& l) {
   const size_t loc = (size_t)(l.fw > l.vw ? l.fw : l.vw);
   const size_t mine = (size_t)a.N * (a.CTX + 3 + a.K) * l.cw + (size_t)a.N * l.fw;
-  return 7 * (size_t)a.D + loc + 2 * (size_t)l.cs * a.D + (size_t)a.L + 3 * (size_t)a.V +
-         4 * (size_t)kThreads + 64 + mine;
+  return 32 + (size_t)kRing * kStage + 7 * (size_t)a.D + loc + (size_t)l.cs * a.D + (size_t)a.L +
+         2 * (size_t)a.V + 4 * (size_t)kThreads + mine + 64;
+}
+
+// ints: the count grid [V], the history, reduction partials [2][32], the
+// state scalars [16], the step's chunk schedule [2 * nchunk]
+__host__ __device__ size_t smem_ints(const ArLoopArgs& a, int nchunk) {
+  return (size_t)a.V + a.hist_len + 64 + 16 + 2 * (size_t)nchunk;
 }
 
 // kLogitsOnly: K5, one step from a.x_in, logits out, no sampler or state.
 template <bool kLogitsOnly>
 __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  AR_CLOCK_INIT
   cg::cluster_group cl = cg::this_cluster();
   const int cs = (int)cl.num_blocks();
   const int r = (int)cl.block_rank();
@@ -301,41 +437,47 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
   const int f0 = r * lay.fw;                            // my FFN columns
   const int v0 = min(a.Vp, r * lay.vw), v1 = min(a.Vp, v0 + lay.vw);  // my logits (padded)
   const int v1r = min(V, v1);                                        // ... of which real
+  const int nchunk = stream_schedule(a, lay, nullptr, nullptr);
 
   // ---- shared memory (identical layout in every block of the cluster) ----
-  float* h = smem;                 // [D] residual stream
+  uint64_t* ringbar = reinterpret_cast<uint64_t*>(smem);  // [kRing] the ring's mbarriers
+  float* ringbuf = smem + 32;      // [kRing][kStage] weight ring (128-byte aligned)
+  float* h = ringbuf + kRing * kStage;  // [D] residual stream
   float* hn = h + D;               // [D] normed
   float* gab = hn + D;             // [2D] GLU a then b columns (mine)
-  float* cbuf = gab + 2 * D;       // [D] conv output, gathered; my rows of the attention output
+  float* cbuf = gab + 2 * D;       // [D] conv output, gathered; my channels of the attention output
   float* yl = cbuf + D;            // [D] my partial / my slice before a push
   float* q = yl + D;               // [D] attention query, gathered
   float* loc = q + D;              // [max(fw, vw)] my FFN hidden / my logits
-  float* pbuf = loc + max(lay.fw, lay.vw);  // [cs][D] FFN partials, by rank
-  float* pbuf2 = pbuf + (size_t)cs * D;     // [cs][D] attention partials, by rank
-  float* att = pbuf2 + (size_t)cs * D;      // [L] attention weights of one head
+  float* pbuf = loc + max(lay.fw, lay.vw);  // [cs][D] FFN / attention partials, by rank
+  float* att = pbuf + (size_t)cs * D;       // [L] attention weights of one head
   float* lg = att + L;             // [V] logits -> x (tempered)
-  float* xp = lg + V;              // [V] penalized
-  float* p = xp + V;               // [V] probabilities, then scores
+  float* p = lg + V;               // [V] probabilities, then scores
   float* part = p + V;             // [4 * kThreads] gemv partial sums
+  // [V] the sampler's penalized logits, in a buffer idle then: pbuf (no
+  // peer pushes into it before this block reaches the next step's first
+  // cluster barrier) where it is large enough, else part
+  float* xp = (size_t)cs * D >= (size_t)V ? pbuf : part;
   float* ringS = part + 4 * kThreads;                    // [N][CTX][cw] my ring columns
   float* glubS = ringS + (size_t)a.N * CTX * lay.cw;      // [N][2][cw] my GLU biases
   float* dwS = glubS + (size_t)a.N * 2 * lay.cw;          // [N][K][cw] my conv taps
   float* dwbS = dwS + (size_t)a.N * a.K * lay.cw;         // [N][cw] my conv biases
   float* ff1bS = dwbS + (size_t)a.N * lay.cw;             // [N][fw] my FFN hidden biases
   Red red;
-  red.f = ff1bS + (size_t)a.N * lay.fw;  // [64] reduction partials
+  red.f = ff1bS + (size_t)a.N * lay.fw;  // [2][32] reduction partials
   int* cnt = (int*)(red.f + 64);   // [V] penalty count grid
   int* hist = cnt + V;             // [hist_len]
-  red.i = hist + a.hist_len;       // [64]
+  red.i = hist + a.hist_len;       // [2][32]
   red.k = 0;
-  int* st = red.i + 64;            // scalar state
+  int* st = red.i + 64;            // [16] scalar state
+  int* sched = st + 16;            // [2 * nchunk] the step's weight chunks
   enum { T = 0, LAST, STREAK, STOPPED, FEOS, K0, K1, HEAD, REC, NONE_VALID };
 
   const size_t layer_stride = (size_t)a.B * CTX * D;  // one layer of [N, B, CTX, D]
   const float* bufs_in = a.bufs_in + (size_t)b * CTX * D;
   float* bufs_out = a.bufs_out + (size_t)b * CTX * D;
 
-  // ---- entry: state, count grid, my ring columns ----
+  // ---- entry: state, count grid, my ring columns, the weight schedule ----
   if constexpr (!kLogitsOnly) {
     for (int i = tid; i < V; i += nt) cnt[i] = 0;
     if (tid == 0) {
@@ -354,6 +496,10 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
     int any = 0;
     for (int l = 0; l < L; ++l) any |= a.mask[(size_t)b * L + l] != 0;
     st[NONE_VALID] = !any;
+    stream_schedule(a, lay, sched, nullptr);
+    for (int i = 0; i < kRing; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(ringbar + i)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int li = 0; li < a.N; ++li) {
     for (int i = tid; i < CTX * lay.cw; i += nt) {
@@ -375,32 +521,44 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
   if constexpr (!kLogitsOnly)
     for (int i = tid; i < a.hist_len; i += nt)
       if (hist[i] >= 0 && hist[i] < V) atomicAdd(&cnt[hist[i]], 1);
+  Ring rg{ringbuf, ringbar, a.wstream + (size_t)r * a.stream_len, sched, nchunk, 0};
+  for (int k = 0; k < kRing - 1; ++k) ring_issue(rg, k);
   cl.sync();  // every block has started before any shared memory is pushed
 
   const float pen = a.rep_pen;
   const float scale_att = 1.f / sqrtf((float)hd);
   int step = 0;
   for (; step < a.n_steps; ++step) {
+    AR_PHASE(0);
     const int t = kLogitsOnly ? 0 : st[T];
+    float ss = 0.f;  // this thread's sum of squares of the h entries it wrote
     if constexpr (kLogitsOnly) {
-      for (int i = tid; i < D; i += nt) h[i] = a.x_in[(size_t)b * D + i];
+      for (int i = tid; i < D; i += nt) {
+        const float v = a.x_in[(size_t)b * D + i];
+        h[i] = v;
+        ss += v * v;
+      }
     } else {
       if (!(t < a.S && st[STOPPED] == 0)) break;  // identical in every block
 
       // ---- x_t = cond[b, t] + emb[prev] ----
       const int prev = t == 0 ? V : st[LAST];
       const int tc = t < a.S - 1 ? t : a.S - 1;
-      for (int i = tid; i < D; i += nt)
-        h[i] = a.cond[((size_t)b * a.S + tc) * D + i] + a.emb[(size_t)prev * D + i];
+      for (int i = tid; i < D; i += nt) {
+        const float v = a.cond[((size_t)b * a.S + tc) * D + i] + a.emb[(size_t)prev * D + i];
+        h[i] = v;
+        ss += v * v;
+      }
     }
     const int head = st[HEAD];
-    __syncthreads();
+    AR_PHASE(1);
+    norm_from(h, ss, a.norm, hn, D, red);
 
     for (int li = 0; li < a.N; ++li) {
       // GLU (my channels) -> ring buffer -> dilated depthwise conv
-      rmsnorm(h, a.norm + (size_t)li * D, hn, D, red);
-      gemv_cols2(a.glu_w + (size_t)li * D * 2 * D, 2 * D, hn, D, c0, D + c0, lay.cw,
-                 2 * lay.cw, gab, part);
+      AR_PHASE(2);
+      gemv_stream(rg, 2 * lay.cw, D, hn, gab, part);
+      AR_PHASE(3);
       float* rl = ringS + (size_t)li * CTX * lay.cw;
       const float* gbias = glubS + li * 2 * lay.cw;
       const int dil = a.dils[li];
@@ -423,94 +581,130 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
         yl[c] = acc + dwbS[li * lay.cw + c];
       }
       __syncthreads();
+      AR_PHASE(4);
       push(cl, cbuf + c0, yl, lay.cw, cs);
       cl.sync();
-      for (int i = tid; i < D; i += nt) h[i] += cbuf[i];
-      __syncthreads();
+      ss = 0.f;
+      for (int i = tid; i < D; i += nt) {
+        const float v = h[i] + cbuf[i];
+        h[i] = v;
+        ss += v * v;
+      }
+      AR_PHASE(5);
+      norm_from(h, ss, a.ff_norm + (size_t)li * D, hn, D, red);
 
       // FFN: my hidden columns -> GELU -> my rows of ff2, summed over ranks
-      rmsnorm(h, a.ff_norm + (size_t)li * D, hn, D, red);
-      gemv_cols(a.ff1_w + (size_t)li * D * 4 * D, 4 * D, hn, D, f0, lay.fw, loc, part);
+      AR_PHASE(6);
+      gemv_stream(rg, lay.fw, D, hn, loc, part);
       for (int c = tid; c < lay.fw; c += nt) {
         const float v = loc[c] + ff1bS[li * lay.fw + c];
         loc[c] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
       }
       __syncthreads();
-      gemv_cols(a.ff2_w + ((size_t)li * 4 * D + f0) * D, D, loc, lay.fw, 0, D, yl, part);
+      AR_PHASE(7);
+      gemv_stream(rg, D, lay.fw, loc, yl, part);
+      AR_PHASE(8);
       push(cl, pbuf + (size_t)r * D, yl, D, cs);
       cl.sync();
+      ss = 0.f;
       for (int i = tid; i < D; i += nt) {
         float s = 0.f;
         for (int rr = 0; rr < cs; ++rr) s += pbuf[(size_t)rr * D + i];
-        h[i] += s + __ldg(a.ff2_b + (size_t)li * D + i);
+        const float v = h[i] + (s + __ldg(a.ff2_b + (size_t)li * D + i));
+        h[i] = v;
+        ss += v * v;
       }
-      __syncthreads();
+      const bool last = li + 1 == a.N;
+      const float* next_norm = last ? a.out_norm : a.norm + (size_t)(li + 1) * D;
+      if ((li + 1) % a.freq != 0) {
+        AR_PHASE(last ? 14 : 1);
+        norm_from(h, ss, next_norm, hn, D, red);
+        continue;
+      }
 
-      if ((li + 1) % a.freq == 0) {  // text cross-attention, sliced like the channels
-        const int ai = li / a.freq;
-        rmsnorm(h, a.x_nq + (size_t)ai * D, hn, D, red);
-        gemv_cols(a.x_q + (size_t)ai * D * D, D, hn, D, c0, lay.cw, yl, part);
-        push(cl, q + c0, yl, lay.cw, cs);  // q columns [c0, c0 + cw) -> everyone
-        cl.sync();
-        // attention output for the heads my rows of x_out belong to
-        for (int hh = c0 / hd; hh <= (c0 + lay.cw - 1) / hd; ++hh) {
-          const float* kk = a.kv_k + (((size_t)ai * a.B + b) * a.H + hh) * L * hd;
-          const float* vv = a.kv_v + (((size_t)ai * a.B + b) * a.H + hh) * L * hd;
-          const float* qh = q + hh * hd;
-          const int lane = tid & 31, wid = tid >> 5, nw = nt >> 5;
-          for (int l = wid; l < L; l += nw) {  // one warp per key row
-            float s = 0.f;
-            for (int d = lane; d < hd; d += 32) s = fmaf(qh[d], __ldg(kk + (size_t)l * hd + d), s);
-            s = warp_sum(s);
-            const bool keep = a.mask[(size_t)b * L + l] != 0 || (l == 0 && st[NONE_VALID]);
-            if (lane == 0) att[l] = keep ? s * scale_att : -INFINITY;
-          }
-          __syncthreads();
-          float mloc = -INFINITY;
-          for (int l = tid; l < L; l += nt) mloc = fmaxf(mloc, att[l]);
-          const float m = block_reduce(mloc, 1, red);
-          float sloc = 0.f;
-          for (int l = tid; l < L; l += nt) {
-            const float e = expf(att[l] - m);
-            att[l] = e;
-            sloc += e;
-          }
-          const float ssum = block_reduce(sloc, 0, red);
-          const int nsplit = max(1, nt / hd);  // (dim, key chunk) threads
-          for (int idx = tid; idx < hd * nsplit; idx += nt) {
-            const int sidx = idx / hd, d = idx - sidx * hd;
-            float s = 0.f;
-#pragma unroll 4
-            for (int l = sidx; l < L; l += nsplit)
-              s = fmaf(att[l] / ssum, __ldg(vv + (size_t)l * hd + d), s);
-            part[idx] = s;
-          }
-          __syncthreads();
-          for (int i = tid; i < lay.cw; i += nt) {  // my rows that belong to head hh
-            const int row = c0 + i;
-            if (row / hd != hh) continue;
-            float s = 0.f;
-            for (int sidx = 0; sidx < nsplit; ++sidx) s += part[sidx * hd + row - hh * hd];
-            cbuf[i] = isfinite(s) ? s : 0.f;  // NaN scrub
-          }
-          __syncthreads();
-        }
-        gemv_cols(a.x_out + ((size_t)ai * D + c0) * D, D, cbuf, lay.cw, 0, D, yl, part);
-        push(cl, pbuf2 + (size_t)r * D, yl, D, cs);
-        cl.sync();
-        const float gate = tanhf(__ldg(a.x_gate + ai));
-        for (int i = tid; i < D; i += nt) {
+      // text cross-attention, sliced like the channels
+      const int ai = li / a.freq;
+      AR_PHASE(9);
+      norm_from(h, ss, a.x_nq + (size_t)ai * D, hn, D, red);
+      gemv_stream(rg, lay.cw, D, hn, yl, part);
+      AR_PHASE(10);
+      push(cl, q + c0, yl, lay.cw, cs);  // q columns [c0, c0 + cw) -> everyone
+      cl.sync();
+      AR_PHASE(11);
+      for (int hh = c0 / hd; hh <= (c0 + lay.cw - 1) / hd; ++hh) {
+        const float* kk = a.kv_k + (((size_t)ai * a.B + b) * a.H + hh) * L * hd;
+        const float* vv = a.kv_v + (((size_t)ai * a.B + b) * a.H + hh) * L * hd;
+        const float* qh = q + hh * hd;
+        const int sub = tid & 7;  // eight lanes per key row
+        for (int l0 = 0; l0 < L; l0 += nt / 8) {
+          const int l = l0 + (tid >> 3);
           float s = 0.f;
-          for (int rr = 0; rr < cs; ++rr) s += pbuf2[(size_t)rr * D + i];
-          h[i] += gate * s;
+          if (l < L)
+            for (int d4 = sub; d4 < hd / 4; d4 += 8) {
+              const float4 kv = __ldg(reinterpret_cast<const float4*>(kk + (size_t)l * hd) + d4);
+              const float4 qv = *reinterpret_cast<const float4*>(qh + 4 * d4);
+              s = fmaf(qv.x, kv.x, s);
+              s = fmaf(qv.y, kv.y, s);
+              s = fmaf(qv.z, kv.z, s);
+              s = fmaf(qv.w, kv.w, s);
+            }
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          s += __shfl_xor_sync(0xffffffffu, s, 4);
+          if (l < L && sub == 0) {
+            const bool keep = a.mask[(size_t)b * L + l] != 0 || (l == 0 && st[NONE_VALID]);
+            att[l] = keep ? s * scale_att : -INFINITY;
+          }
+        }
+        __syncthreads();
+        float mloc = -INFINITY;
+        for (int l = tid; l < L; l += nt) mloc = fmaxf(mloc, att[l]);
+        const float m = block_reduce(mloc, 1, red);
+        float sloc = 0.f;
+        for (int l = tid; l < L; l += nt) {
+          const float e = expf(att[l] - m);
+          att[l] = e;
+          sloc += e;
+        }
+        const float ssum = block_reduce(sloc, 0, red);
+        // the attention output for my channels of head hh: (dim, key chunk) threads
+        const int e0 = max(c0, hh * hd) - hh * hd, e1 = min(c0 + lay.cw, (hh + 1) * hd) - hh * hd;
+        const int nd = e1 - e0, nsplit = max(1, nt / nd);
+        for (int idx = tid; idx < nd * nsplit; idx += nt) {
+          const int sidx = idx / nd, d = e0 + idx - sidx * nd;
+          float s = 0.f;
+#pragma unroll 4
+          for (int l = sidx; l < L; l += nsplit) s = fmaf(att[l] / ssum, __ldg(vv + (size_t)l * hd + d), s);
+          part[idx] = s;
+        }
+        __syncthreads();
+        for (int i = tid; i < nd; i += nt) {
+          float s = 0.f;
+          for (int sidx = 0; sidx < nsplit; ++sidx) s += part[sidx * nd + i];
+          cbuf[hh * hd + e0 + i - c0] = isfinite(s) ? s : 0.f;  // NaN scrub
         }
         __syncthreads();
       }
+      AR_PHASE(12);
+      gemv_stream(rg, D, lay.cw, cbuf, yl, part);
+      AR_PHASE(13);
+      push(cl, pbuf + (size_t)r * D, yl, D, cs);
+      cl.sync();
+      const float gate = tanhf(__ldg(a.x_gate + ai));
+      ss = 0.f;
+      for (int i = tid; i < D; i += nt) {
+        float s = 0.f;
+        for (int rr = 0; rr < cs; ++rr) s += pbuf[(size_t)rr * D + i];
+        const float v = h[i] + gate * s;
+        h[i] = v;
+        ss += v * v;
+      }
+      AR_PHASE(last ? 14 : 1);
+      norm_from(h, ss, next_norm, hn, D, red);
     }
 
-    // ---- head: my logits, pushed to every block ----
-    rmsnorm(h, a.out_norm, hn, D, red);
-    gemv_cols(a.head_w, a.Vp, hn, D, v0, v1 - v0, loc, part);
+    // ---- head (hn is the output norm of h): my logits, pushed to every block ----
+    gemv_stream(rg, lay.vw, D, hn, loc, part);
     if constexpr (kLogitsOnly) {  // K5: my real logit columns out, the ring head on
       for (int c = tid; c < v1r - v0; c += nt)
         a.logits[(size_t)b * V + v0 + c] = loc[c] + __ldg(a.head_b + v0 + c);
@@ -520,10 +714,12 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
     }
     for (int c = tid; c < v1r - v0; c += nt) loc[c] += __ldg(a.head_b + v0 + c);
     __syncthreads();
+    AR_PHASE(15);
     push(cl, lg + v0, loc, max(0, v1r - v0), cs);
     cl.sync();
 
     // ---- anti-loop settings ----
+    AR_PHASE(16);
     if (tid == 0) {
       int rec = 0;
       if (a.anti_loop) {
@@ -560,13 +756,14 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
       vmin = fminf(vmin, v);
       vmax = fmaxf(vmax, v);
     }
+    AR_PHASE(18);
     float lo = block_reduce(vmin, 2, red) - 1.f;
     float hi = block_reduce(vmax, 1, red);
-    for (int it = 0; it < kBisect; ++it) {
+    for (int it = 0; it < kBisect; ++it) {  // top-k; the counts are exact in float32
       const float mid = 0.5f * (lo + hi);
-      int c = 0;
-      for (int i = tid; i < V; i += nt) c += xp[i] >= mid;
-      const bool over = block_reduce_i(c, 0, red) > a.top_k;
+      float c = 0.f;
+      for (int i = tid; i < V; i += nt) c += xp[i] >= mid ? 1.f : 0.f;
+      const bool over = block_reduce(c, 0, red) > (float)a.top_k;
       lo = over ? mid : lo;
       hi = over ? hi : mid;
     }
@@ -586,9 +783,10 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
     const float z = fmaxf(block_reduce(zs, 0, red), 1e-30f);
     for (int i = tid; i < V; i += nt) p[i] = p[i] / z;
     __syncthreads();
+    AR_PHASE(19);
     lo = 0.f;
     hi = 1.f;
-    for (int it = 0; it < kBisect; ++it) {
+    for (int it = 0; it < kBisect; ++it) {  // top-p
       const float mid = 0.5f * (lo + hi);
       float s = 0.f;
       for (int i = tid; i < V; i += nt) s += p[i] > mid ? p[i] : 0.f;
@@ -596,6 +794,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
       lo = over ? mid : lo;
       hi = over ? hi : mid;
     }
+    AR_PHASE(20);
     float cmin = INFINITY;
     for (int i = tid; i < V; i += nt) cmin = fminf(cmin, (xp[i] >= thr && p[i] > lo) ? p[i] : INFINITY);
     const float cthr = block_reduce(cmin, 2, red);
@@ -624,6 +823,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
     const int tok = degenerate ? tok_g : tok_s;
 
     // ---- bookkeeping (ar_single_step semantics; the row is active) ----
+    AR_PHASE(17);
     if (tid == 0) {
       const int hl = a.hist_len;
       const int expiring = hist[0];
@@ -644,6 +844,8 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
     }
     __syncthreads();
   }
+  AR_PHASE(30);
+  ring_drain(rg);
 
   // ---- exit: tokens of skipped steps, state out, my ring columns ----
   if (!kLogitsOnly && r == 0) {
@@ -669,67 +871,120 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
   cl.sync();  // no block leaves while a peer could still address its shared memory
 }
 
-// Launches `kernel` for a.B rows, one thread-block cluster per row: the
-// largest cluster (16, 8, ...) whose shared memory fits and that the card
-// schedules. Returns cudaGetLastError() after the launch (or an error code
-// for unsupported shapes). `cluster_out` (nullable) receives the cluster size.
+constexpr size_t kMaxSmem = 232448;
+
+// The launch of `kernel` at cluster size cs, one cluster per row: false
+// (cfg untouched) where cs does not divide D, its conv products do not fit
+// `part`, a stream slice is not a multiple of 4 floats wide, or the card
+// cannot schedule the cluster; an error where the shared memory does not fit.
 template <bool kLogitsOnly>
-int launch(const ArLoopArgs& a, int* cluster_out, void* stream) {
-  if (a.B <= 0 || a.N <= 0 || a.N > kMaxLayers || a.H <= 0 || a.D % a.H != 0 || a.V <= 0 ||
-      a.Vp < a.V || a.Vp % 4 != 0 ||
+cudaError_t configure(const ArLoopArgs& a, int cs, cudaLaunchConfig_t& cfg,
+                      cudaLaunchAttribute* attr, bool& ok) {
+  ok = false;
+  if (a.D % cs != 0) return cudaSuccess;
+  const Layout lay = layout(a, cs);
+  if (lay.cw * a.K > 4 * kThreads || ((lay.cw | lay.fw | lay.vw | a.D) & 3) != 0 ||
+      lay.vw > kStage || a.D > kStage || lay.fw > kStage || lay.vw > 4 * kThreads ||
+      lay.fw > 4 * kThreads || a.D > 4 * kThreads || (cs * a.D < a.V && a.V > 4 * kThreads))
+    return cudaSuccess;
+  const int nchunk = stream_schedule(a, lay, nullptr, nullptr);
+  const size_t smem = (smem_floats(a, lay) + smem_ints(a, nchunk)) * 4;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = ar_loop_kernel<kLogitsOnly>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  cfg.gridDim = dim3((unsigned)(a.B * cs));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess || clusters <= 0) {
+    (void)cudaGetLastError();  // clear the refusal: the caller tries a smaller cluster
+    return cudaSuccess;
+  }
+  ok = true;
+  return cudaSuccess;
+}
+
+template <bool kLogitsOnly>
+int check_args(const ArLoopArgs& a) {
+  if (a.B <= 0 || a.N <= 0 || a.N > kMaxLayers || a.H <= 0 || a.D % a.H != 0 ||
+      (a.D / a.H) % 4 != 0 || a.V <= 0 || a.Vp < a.V || a.Vp % 4 != 0 ||
       a.L <= 0 || a.S <= 0 || a.freq <= 0 || a.CTX <= 0 || a.hist_len < 32 || a.hist_len > 64)
     return (int)cudaErrorInvalidValue;
   for (int li = 0; li < a.N; ++li)
     if ((a.K - 1) * a.dils[li] + 1 > a.CTX) return (int)cudaErrorInvalidValue;
-  auto kernel = ar_loop_kernel<kLogitsOnly>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e = cudaFuncSetAttribute(ar_loop_kernel<kLogitsOnly>,
+                                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return (int)e;
+}
+
+// The cluster size a launch takes: the largest of 16, 8, ... that qualifies
+// (see `configure`) and that the card schedules.
+template <bool kLogitsOnly>
+int choose_cluster(const ArLoopArgs& a, int* cs_out) {
+  int rc = check_args<kLogitsOnly>(a);
+  if (rc != 0) return rc;
   for (int cs = 16; cs >= 1; cs /= 2) {
-    if (a.D % cs != 0) continue;
-    const Layout lay = layout(a, cs);
-    if (lay.cw * a.K > 4 * kThreads) continue;  // conv products must fit `part`
-    const size_t ints = (size_t)a.V + a.hist_len + 64 + 16;
-    const size_t smem = (smem_floats(a, lay) + ints) * 4;
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(a.B * cs));
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = (cudaStream_t)stream;
     cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cs;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess ||
-        clusters <= 0) {
-      (void)cudaGetLastError();  // clear the refusal and try a smaller cluster
-      continue;
-    }
-    if (cluster_out != nullptr) *cluster_out = cs;
-    e = cudaLaunchKernelEx(&cfg, kernel, a);
+    bool ok = false;
+    cudaError_t e = configure<kLogitsOnly>(a, cs, cfg, attr, ok);
     if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
+    if (ok) {
+      *cs_out = cs;
+      return 0;
+    }
   }
   return (int)cudaErrorInvalidConfiguration;
 }
 
+// Launches `kernel` for a.B rows, one cluster of a.cs blocks per row (the
+// size a.wstream was packed for). Returns cudaGetLastError() after the
+// launch, or an error code for unsupported shapes.
+template <bool kLogitsOnly>
+int launch(const ArLoopArgs& a, void* stream) {
+  int rc = check_args<kLogitsOnly>(a);
+  if (rc != 0) return rc;
+  if (a.cs <= 0 || a.cs > 16 || a.wstream == nullptr) return (int)cudaErrorInvalidValue;
+  int len = 0;
+  stream_schedule(a, layout(a, a.cs), nullptr, &len);
+  if (len != a.stream_len) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  bool ok = false;
+  cudaError_t e = configure<kLogitsOnly>(a, a.cs, cfg, attr, ok);
+  if (e != cudaSuccess) return (int)e;
+  if (!ok) return (int)cudaErrorInvalidConfiguration;
+  cfg.stream = (cudaStream_t)stream;
+  e = cudaLaunchKernelEx(&cfg, ar_loop_kernel<kLogitsOnly>, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// The cluster size K1 (logits_only = 0) or K5 (1) takes for these args
+// (the weight stream is then packed for it). Returns 0 or an error code.
+extern "C" int sopro_ar_cluster(const ArLoopArgs* args, int logits_only, int* cs_out) {
+  return logits_only ? choose_cluster<true>(*args, cs_out) : choose_cluster<false>(*args, cs_out);
+}
+
 // K1: runs a.n_steps decode steps for a.B rows.
-extern "C" int sopro_ar_loop(const ArLoopArgs* args, int* cluster_out, void* stream) {
-  return launch<false>(*args, cluster_out, stream);
+extern "C" int sopro_ar_loop(const ArLoopArgs* args, void* stream) {
+  return launch<false>(*args, stream);
 }
 
 // K5: one step for a.B rows, a.x_in [B, D] and a.bufs_in -> a.logits [B, V]
 // and a.bufs_out; the sampler and state fields are not read.
-extern "C" int sopro_ar_step(const ArLoopArgs* args, int* cluster_out, void* stream) {
+extern "C" int sopro_ar_step(const ArLoopArgs* args, void* stream) {
   ArLoopArgs a = *args;
   if (a.x_in == nullptr || a.logits == nullptr) return (int)cudaErrorInvalidValue;
   a.n_steps = 1;
-  return launch<true>(a, cluster_out, stream);
+  return launch<true>(a, stream);
 }

@@ -40,19 +40,31 @@
 // cores' truncation put K3's output ~20x further from the float32 plain
 // version (bench_ablation.py on the H100).
 //
-// K4 (`sopro_seanet_conv_valid`, one streaming chunk whose input starts
-// with `halo` real frames of left context) keeps the per-conv float32 kernel
-// of its first port: valid mode, so output row t reads input row skip + t +
-// j*dil with no padding, each conv's output shrinks by its receptive field;
-// a residual adds the block input from row `res_off` on, and the final
-// one-channel conv skips the leading rows so that only the chunk's own
-// samples are written. By the valid-region argument (the stack's receptive
-// field is `halo` frames) those samples equal a full causal decode of the
-// stream. Early in a stream the history holds fewer than `halo` real frames;
-// the rows before the stream's start then play the causal zero padding of
-// every conv: the wrapper passes, per batch row, the first row of each
-// conv's input at or after the start (`start`, stride `start_stride`), and
-// rows before it read as zero.
+// K4 (one streaming chunk whose input starts with `halo` real frames of left
+// context) runs the same two kernels and the same launch list in valid mode.
+// Both kernels take T_in input rows and T_out output rows per batch row, and
+// output row t is the causal result at input row a0 + t, a0 = T_in - T_out:
+// K3 has a0 = 0; in K4 every conv's output shrinks by its receptive field
+// (a0 = (taps-1)*dil), a residual adds the block input's last rows, and the
+// last launch keeps only the chunk's own samples. By the valid-region
+// argument (the stack's receptive field is `halo` frames) those samples equal
+// a full causal decode of the stream. Early in a stream the history holds
+// fewer than `halo` real frames; the rows before the stream's start then play
+// the causal zero padding of every conv: the wrapper passes, per batch row,
+// the first row of each launch's input at or after the start (`start`,
+// stride `start_stride`), and rows before it read as zero (K3: row 0). In a
+// fused residual block that masks the block input, and the final conv's
+// input rows before the same start; the hidden rows before it only feed
+// block-output rows that the next launch masks.
+//
+// A chunk of 6 AR frames has 13-20 rows in its first convs (k7: M = 14, N =
+// 1,024, K = 3,584): 8 column tiles of one row tile. So the conv kernel takes
+// 16-row tiles where T_out < 128 and splits the Cin chunks over the blocks
+// of a thread-block cluster (grid z, up to 16), as many as it takes to give
+// every SM a block in one wave; the partial tiles meet through distributed
+// shared memory, each rank summing its share of the tile over the ranks in
+// rank order (no atomics: a repeated call is bit-identical). K3 passes
+// max_splits = 1.
 //
 // What bounds it on the H100: K3 is 132 GFLOP for 32 s of audio (802
 // frames at 25 Hz -> 769,920 samples), 0.80 ms at the 3-pass TF32 rate
@@ -62,98 +74,150 @@
 // it, synchronises and only then runs its MMAs, so loads, splits and MMAs
 // overlap only across the two blocks of an SM (built without the MMAs the
 // launches keep ~60 % of their time, without the conv weight loads ~80 %);
-// producer warps feeding `wgmma` consumers through mbarriers are the fix. A streaming chunk of 6 AR frames (ext [1, 20, 512] ->
-// 11,520 samples) is ~2.1 GFLOP over 14 small launches: bound by launch
-// latency and by filling 132 SMs. K4's kernel: 64x64 output tiles, K in
-// chunks of 16, a 4x4 register tile per thread, padding and dilation in the
-// A-tile gather, a transpose conv as `phases` two-tap convs (grid z).
+// producer warps feeding `wgmma` consumers through mbarriers are the fix. A
+// streaming chunk of 6 AR frames (ext [1, 20, 512] -> 11,520 samples) is
+// ~2.1 GFLOP, 0.013 ms at the 3-pass rate, but ~120 MB of hi/lo weights
+// (more than L2 holds, so read from HBM every chunk, ~0.035 ms): K4 is bound
+// by those bytes and by the latency of its 11 dependent launches.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "tf32x3.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 __device__ __forceinline__ float elu(float v) { return v > 0.f ? v : expm1f(v); }
 
 constexpr int kMaxSmem = 232448;
+constexpr int kMaxSplits = 16;
+
+// Per kernel instantiation and device, what a launch asks of the CUDA runtime,
+// asked once: the dynamic shared memory allowed so far, the SM count, the
+// blocks of one kind that fit an SM, and the clusters of 2, 4, 8 and 16
+// blocks that can be resident at once (at `cluster_smem` bytes). A chunk of
+// K4 is 11 launches of a few microseconds each.
+struct LaunchCache {
+  int smem = 0, sms = 0, per_sm = -1, cluster_smem = -1;
+  int clusters[5] = {-1, -1, -1, -1, -1};  // index log2(splits)
+};
+constexpr int kMaxDevices = 16;
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, LaunchCache* caches, size_t smem, LaunchCache*& c) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  c = caches + dev;
+  if ((int)smem > c->smem) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    c->smem = (int)smem;
+  }
+  if (c->sms == 0) e = cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
+__device__ __forceinline__ int row_start(const int* __restrict__ start, int stride, int b) {
+  return start != nullptr ? __ldg(start + (size_t)b * stride) : 0;
+}
 
 // ---------------------------------------------------------------------------
-// K3 (a): causal conv on the tensor cores
+// K3 / K4 (a): one conv on the tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int kTcBN = 128, kTcLDB = kTcBN + 8;
+constexpr int kTcLDR = kTcBN + 4;  // split-K partial tile row stride (float4 rows)
 
-// A warp owns 32 rows x 32 columns; BM / 32 x 4 warps per block.
+// A warp owns WM = min(BM, 32) rows x 32 columns; BM / WM x 4 warps per block.
 template <int BM, int BKC>
 struct ConvTile {
-  static constexpr int WGM = BM / 32, WGN = kTcBN / 32;
+  static constexpr int WM = BM < 32 ? BM : 32, WN = 32;
+  static constexpr int WGM = BM / WM, WGN = kTcBN / WN;
   static constexpr int THREADS = 32 * WGM * WGN;
-  static constexpr int WM = 32, WN = 32;
   static constexpr int MT = WM / 16, NT = WN / 8;
   static constexpr int LDA = BKC + 4;  // A fragments on 32 banks
+};
+
+// One conv launch. Output row t of batch row b is the causal conv at input
+// row a0 + t (a0 = T_in - T_out): tap j reads input row a0 + t - (taps-1-j)*dil,
+// and input rows before row_start(start, start_stride, b) or past T_in read
+// as zero. The residual (nullable) adds row t + res_T - T_out of [B, res_T, N].
+struct ConvArgs {
+  const float *x, *whi, *wlo, *bias, *residual;
+  float* y;
+  const int* start;
+  int start_stride, B, T_in, T_out, res_T, Cin, cinp, N, np, dil, elu_in;
+  int splits;  // blocks of a cluster (grid z) sharing the Cin chunks of one tile
 };
 
 template <int BM, int BKC, int STAGES, int TAPS>
 size_t conv_tc_smem(int halo) {
   const size_t rows = BM + halo;
-  return sizeof(float) * (STAGES * (rows * BKC + 2 * (size_t)TAPS * BKC * kTcLDB) +
-                          2 * rows * ConvTile<BM, BKC>::LDA);
+  const size_t ring = sizeof(float) * (STAGES * (rows * BKC + 2 * (size_t)TAPS * BKC * kTcLDB) +
+                                       2 * rows * ConvTile<BM, BKC>::LDA);
+  const size_t red = sizeof(float) * BM * kTcLDR;  // the split-K partial tile, after the ring
+  return ring > red ? ring : red;
 }
 
-// y[b, t, n] = bias[n] (+ residual[b, t, n]) +
-//   sum_{j, ci} act(x[b, t - (taps-1-j)*dil, ci]) * w[j, ci, n]
-// whi / wlo [taps, cinp, np]: the TF32 split of w, zero-padded.
+// y[b, t, n] = bias[n] (+ residual) + sum_{j, ci} act(x[b, a0 + t - (taps-1-j)*dil, ci]) * w[j, ci, n]
+// whi / wlo [taps, cinp, np]: the TF32 split of w, zero-padded. Grid: (B *
+// row tiles, np / 128, splits); the blocks of one cluster (grid z) take
+// consecutive ranges of the Cin chunks.
 template <int BM, int BKC, int STAGES, int MINB, int TAPS>
-__global__ void __launch_bounds__(ConvTile<BM, BKC>::THREADS, MINB) conv_tc_kernel(
-    const float* __restrict__ x, const float* __restrict__ whi, const float* __restrict__ wlo,
-    const float* __restrict__ bias, const float* __restrict__ residual, float* __restrict__ y,
-    int T, int Cin, int cinp, int N, int np, int dil, int elu_in) {
+__global__ void __launch_bounds__(ConvTile<BM, BKC>::THREADS, MINB) conv_tc_kernel(const ConvArgs a) {
   using Tl = ConvTile<BM, BKC>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int halo = (TAPS - 1) * dil, rows = BM + halo;
+  const int halo = (TAPS - 1) * a.dil, rows = BM + halo;
   float* araw = smem;                                // [S][rows][BKC]
   float* wring = araw + STAGES * rows * BKC;         // [S][hi, lo][TAPS*BKC][kTcLDB]
   float* a_hi = wring + STAGES * 2 * TAPS * BKC * kTcLDB;  // [rows][LDA]
   float* a_lo = a_hi + rows * Tl::LDA;
 
-  const int tiles = (T + BM - 1) / BM;
+  const int tiles = (a.T_out + BM - 1) / BM;
   const int b = blockIdx.x / tiles, t0 = (blockIdx.x - b * tiles) * BM;
   const int n0 = blockIdx.y * kTcBN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const int wm = warp / Tl::WGN, wn = warp % Tl::WGN;
-  const float* xb = x + (size_t)b * T * Cin;
+  const int Cin = a.Cin, np = a.np, cinp = a.cinp;
+  const float* xb = a.x + (size_t)b * a.T_in * Cin;
+  const int r0 = a.T_in - a.T_out + t0 - halo;        // input row of tile row 0
+  const int lo = row_start(a.start, a.start_stride, b);
   const bool vec = (Cin & 3) == 0;
-  const int nc = cinp / BKC;
+  const int nc = cinp / BKC, split = blockIdx.z;
+  const int c0 = split * nc / a.splits, nloc = (split + 1) * nc / a.splits - c0;
   constexpr int wrows = TAPS * BKC;
 
-  auto load = [&](int c, int slot) {
-    if (c < nc) {
-      const int ci0 = c * BKC;
+  auto load = [&](int i, int slot) {  // chunk c0 + i of this block's range
+    if (i < nloc) {
+      const int ci0 = (c0 + i) * BKC;
       float* ad = araw + slot * rows * BKC;
       if (vec) {
-        for (int i = tid; i < rows * (BKC / 4); i += Tl::THREADS) {
-          const int r = i / (BKC / 4), c4 = (i - r * (BKC / 4)) * 4;
-          const int t = t0 - halo + r, ci = ci0 + c4;
-          const bool ok = t >= 0 && t < T && ci < Cin;
-          tf32x3::cp_async16(ad + r * BKC + c4, ok ? xb + (size_t)t * Cin + ci : x, ok);
+        for (int e = tid; e < rows * (BKC / 4); e += Tl::THREADS) {
+          const int r = e / (BKC / 4), c4 = (e - r * (BKC / 4)) * 4;
+          const int t = r0 + r, ci = ci0 + c4;
+          const bool ok = t >= lo && t < a.T_in && ci < Cin;
+          tf32x3::cp_async16(ad + r * BKC + c4, ok ? xb + (size_t)t * Cin + ci : a.x, ok);
         }
       } else {
-        for (int i = tid; i < rows * BKC; i += Tl::THREADS) {
-          const int r = i / BKC, k = i - r * BKC;
-          const int t = t0 - halo + r, ci = ci0 + k;
-          const bool ok = t >= 0 && t < T && ci < Cin;
-          tf32x3::cp_async4(ad + i, ok ? xb + (size_t)t * Cin + ci : x, ok);
+        for (int e = tid; e < rows * BKC; e += Tl::THREADS) {
+          const int r = e / BKC, k = e - r * BKC;
+          const int t = r0 + r, ci = ci0 + k;
+          const bool ok = t >= lo && t < a.T_in && ci < Cin;
+          tf32x3::cp_async4(ad + e, ok ? xb + (size_t)t * Cin + ci : a.x, ok);
         }
       }
       float* wd = wring + slot * 2 * wrows * kTcLDB;
-      for (int i = tid; i < 2 * wrows * (kTcBN / 4); i += Tl::THREADS) {
-        const int half = i / (wrows * (kTcBN / 4)), rem = i - half * wrows * (kTcBN / 4);
+      for (int e = tid; e < 2 * wrows * (kTcBN / 4); e += Tl::THREADS) {
+        const int half = e / (wrows * (kTcBN / 4)), rem = e - half * wrows * (kTcBN / 4);
         const int kk = rem / (kTcBN / 4), c4 = (rem - kk * (kTcBN / 4)) * 4;
         const int j = kk / BKC, ci = ci0 + kk - j * BKC;
-        const float* src = (half ? wlo : whi) + ((size_t)j * cinp + ci) * np + n0 + c4;
+        const float* src = (half ? a.wlo : a.whi) + ((size_t)j * cinp + ci) * np + n0 + c4;
         tf32x3::cp_async16(wd + (half * wrows + kk) * kTcLDB + c4, src, true);
       }
     }
@@ -165,26 +229,26 @@ __global__ void __launch_bounds__(ConvTile<BM, BKC>::THREADS, MINB) conv_tc_kern
 
   float acc[Tl::MT][Tl::NT][4];
   tf32x3::zero(acc);
-  for (int c = 0; c < nc; ++c) {
-    const int slot = c % STAGES;
+  for (int i = 0; i < nloc; ++i) {
+    const int slot = i % STAGES;
     tf32x3::cp_async_wait<STAGES - 2>();
-    __syncthreads();  // chunk c landed; every warp is done with chunk c-1
+    __syncthreads();  // chunk i landed; every warp is done with chunk i-1
     const float* ad = araw + slot * rows * BKC;
 #pragma unroll 4
-    for (int i = tid; i < rows * BKC; i += Tl::THREADS) {
-      const int r = i / BKC, k = i - r * BKC;
-      float v = ad[i];
-      if (elu_in) v = elu(v);
+    for (int e = tid; e < rows * BKC; e += Tl::THREADS) {
+      const int r = e / BKC, k = e - r * BKC;
+      float v = ad[e];
+      if (a.elu_in) v = elu(v);
       tf32x3::split(v, a_hi[r * Tl::LDA + k], a_lo[r * Tl::LDA + k]);
     }
     __syncthreads();
-    load(c + STAGES - 1, (c + STAGES - 1) % STAGES);
+    load(i + STAGES - 1, (i + STAGES - 1) % STAGES);
     const float* wh = wring + slot * 2 * wrows * kTcLDB + wn * Tl::WN;
     float part[Tl::MT][Tl::NT][4];
     tf32x3::zero(part);
 #pragma unroll
     for (int j = 0; j < TAPS; ++j) {
-      const int ao = (wm * Tl::WM + j * dil) * Tl::LDA;
+      const int ao = (wm * Tl::WM + j * a.dil) * Tl::LDA;
       tf32x3::mma3_tile<Tl::MT, Tl::NT>(part, a_hi + ao, a_lo + ao, Tl::LDA,
                                         wh + j * BKC * kTcLDB, wh + (wrows + j * BKC) * kTcLDB,
                                         kTcLDB, BKC / 8);
@@ -192,46 +256,124 @@ __global__ void __launch_bounds__(ConvTile<BM, BKC>::THREADS, MINB) conv_tc_kern
     tf32x3::add(acc, part);
   }
 
+  const int res_off = a.res_T - a.T_out;
+  auto store = [&](int r, int n, float v) {  // tile row r, column n: bias, residual, y
+    const int t = t0 + r;
+    if (t >= a.T_out || n >= a.N) return;
+    v += __ldg(a.bias + n);
+    if (a.residual != nullptr) v += __ldg(a.residual + ((size_t)b * a.res_T + t + res_off) * a.N + n);
+    a.y[((size_t)b * a.T_out + t) * a.N + n] = v;
+  };
+  if (a.splits == 1) {
+#pragma unroll
+    for (int mt = 0; mt < Tl::MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int nt = 0; nt < Tl::NT; ++nt)
+          store(wm * Tl::WM + mt * 16 + (e >> 1) * 8 + g, n0 + wn * Tl::WN + nt * 8 + 2 * q + (e & 1),
+                acc[mt][nt][e]);
+    return;
+  }
+
+  // split-K: every rank's partial tile into its own shared memory, then rank
+  // z sums rows [z*BM/S, (z+1)*BM/S) of the tile over ranks 0..S-1 in order
+  cg::cluster_group cl = cg::this_cluster();
+  tf32x3::cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+  float* red = smem;  // [BM][kTcLDR]
 #pragma unroll
   for (int mt = 0; mt < Tl::MT; ++mt)
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int t = t0 + wm * Tl::WM + mt * 16 + hh * 8 + g;
-      if (t >= T) continue;
-      const size_t row = ((size_t)b * T + t) * N;
+    for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-      for (int nt = 0; nt < Tl::NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn * Tl::WN + nt * 8 + 2 * q + e;
-          if (n >= N) continue;
-          float v = acc[mt][nt][hh * 2 + e] + __ldg(bias + n);
-          if (residual != nullptr) v += __ldg(residual + row + n);
-          y[row + n] = v;
-        }
+      for (int nt = 0; nt < Tl::NT; ++nt) {
+        const int r = wm * Tl::WM + mt * 16 + hh * 8 + g, c = wn * Tl::WN + nt * 8 + 2 * q;
+        *reinterpret_cast<float2*>(red + r * kTcLDR + c) =
+            make_float2(acc[mt][nt][hh * 2], acc[mt][nt][hh * 2 + 1]);
+      }
+  cl.sync();
+  const int rank = (int)cl.block_rank();
+  const int e0 = rank * BM / a.splits * (kTcBN / 4), e1 = (rank + 1) * BM / a.splits * (kTcBN / 4);
+  for (int e = e0 + tid; e < e1; e += Tl::THREADS) {
+    const int r = e / (kTcBN / 4), c = (e - r * (kTcBN / 4)) * 4;
+    float4 s = *reinterpret_cast<const float4*>(cl.map_shared_rank(red, 0) + r * kTcLDR + c);
+    for (int src = 1; src < a.splits; ++src) {
+      const float4 p = *reinterpret_cast<const float4*>(cl.map_shared_rank(red, src) + r * kTcLDR + c);
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
     }
+    store(r, n0 + c, s.x);
+    store(r, n0 + c + 1, s.y);
+    store(r, n0 + c + 2, s.z);
+    store(r, n0 + c + 3, s.w);
+  }
+  cl.sync();  // no block leaves while a peer still reads its tile
 }
 
+// The launch: 16-row tiles where T_out < 128, else BM; the fewest splits (a
+// power of two up to max_splits, at least one Cin chunk each) that give
+// every SM a block, fewer where that many clusters cannot all be resident.
 template <int BM, int BKC, int STAGES, int MINB, int TAPS>
-int launch_conv_tc(const float* x, const float* whi, const float* wlo, const float* bias,
-                   const float* residual, float* y, int B, int T, int Cin, int cinp, int N,
-                   int np, int dil, int elu_in, cudaStream_t s) {
-  const size_t smem = conv_tc_smem<BM, BKC, STAGES, TAPS>((TAPS - 1) * dil);
-  if (smem > kMaxSmem || cinp % BKC != 0) return (int)cudaErrorInvalidValue;
+int launch_conv_tc(ConvArgs a, int max_splits, cudaStream_t s) {
+  const size_t smem = conv_tc_smem<BM, BKC, STAGES, TAPS>((TAPS - 1) * a.dil);
+  if (smem > kMaxSmem || a.cinp % BKC != 0) return (int)cudaErrorInvalidValue;
   auto kernel = conv_tc_kernel<BM, BKC, STAGES, MINB, TAPS>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  static LaunchCache caches[kMaxDevices];
+  LaunchCache* cache = nullptr;
+  cudaError_t e = prepare(kernel, caches, smem, cache);
   if (e != cudaSuccess) return (int)e;
-  const long long gx = (long long)B * ((T + BM - 1) / BM);
-  if (gx > 2147483647LL || np / kTcBN > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)gx, (unsigned)(np / kTcBN));
-  kernel<<<grid, ConvTile<BM, BKC>::THREADS, smem, s>>>(x, whi, wlo, bias, residual, y, T, Cin, cinp, N, np, dil,
-                                        elu_in);
+  const long long gx = (long long)a.B * ((a.T_out + BM - 1) / BM), gy = a.np / kTcBN;
+  if (gx > 2147483647LL || gy > 65535) return (int)cudaErrorInvalidValue;
+  int splits = 1, lg = 0;
+  while (2 * splits <= max_splits && 2 * splits <= a.cinp / BKC && gx * gy * splits < cache->sms) {
+    splits *= 2;
+    ++lg;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(ConvTile<BM, BKC>::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cache->cluster_smem != (int)smem) {  // the cluster counts below are for this size
+    for (int& c : cache->clusters) c = -1;
+    cache->cluster_smem = (int)smem;
+  }
+  for (; splits > 1; splits /= 2, --lg) {  // every cluster resident at once
+    cfg.gridDim = dim3((unsigned)gx, (unsigned)gy, (unsigned)splits);
+    attr[0].val.clusterDim.z = splits;
+    if (cache->clusters[lg] < 0) {
+      if (splits > 8 &&
+          (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != cudaSuccess)
+        return (int)e;
+      int clusters = 0;
+      if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) {
+        (void)cudaGetLastError();  // clear the refusal: no cluster of this size
+        clusters = 0;
+      }
+      cache->clusters[lg] = clusters;
+    }
+    if (cache->clusters[lg] >= gx * gy) break;
+  }
+  a.splits = splits;
+  if (splits == 1) {
+    kernel<<<dim3((unsigned)gx, (unsigned)gy), ConvTile<BM, BKC>::THREADS, smem, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// K3 (b): fused residual block (and, for the last one, the final conv)
+// K3 / K4 (b): fused residual block (and, for the last one, the final conv)
 // ---------------------------------------------------------------------------
 
 constexpr int kRbBK = 16;
@@ -265,18 +407,31 @@ struct ResTile {
   static_assert(THREADS / 4 >= BMO, "the final conv takes four threads per output row");
 };
 
-// x [B, T, C] -> y = x + conv1(elu(conv3(elu(x)))) [B, T, C], or with kFinal
-// wav [B, T] = final3(elu(y)). w1hi / w1lo [3*C, C/2] (row j*C + ci: tap j),
-// b1 [C/2], w2hi / w2lo [C/2, C], b2 [C], wf [3*C], bf [1]. Tile i of batch
-// row b holds times t0 = i * BMO.. of row b; its input window starts at
-// t0 - HF - 2.
+// x [B, T_in, C] -> y = x + conv1(elu(conv3(elu(x)))) [B, T_out, C], or with
+// kFinal wav [B, T_out] = final3(elu(y)). w1hi / w1lo [3*C, C/2] (row j*C +
+// ci: tap j), b1 [C/2], w2hi / w2lo [C/2, C], b2 [C], wf [3*C], bf [1].
+// Output row t of batch row b is the causal result at input row a0 + t,
+// a0 = T_in - T_out; input rows before row_start(start, start_stride, b) read
+// as zero, and so do the final conv's input rows before it. Tile i of batch
+// row b holds output rows t0 = i * BMO..; its input window starts at input
+// row a0 + t0 - HF - 2.
+struct ResArgs {
+  const float *x, *w1hi, *w1lo, *b1, *w2hi, *w2lo, *b2, *wf, *bf;
+  float* y;
+  const int* start;
+  int start_stride, B, T_in, T_out;
+};
+
 template <int C, bool kFinal>
-__global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal>::MINB) resblock_kernel(
-    const float* __restrict__ x, const float* __restrict__ w1hi, const float* __restrict__ w1lo,
-    const float* __restrict__ b1, const float* __restrict__ w2hi, const float* __restrict__ w2lo,
-    const float* __restrict__ b2, const float* __restrict__ wf, const float* __restrict__ bf,
-    float* __restrict__ y, int B, int T) {
+__global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal>::MINB)
+    resblock_kernel(const ResArgs a) {
   using R = ResTile<C, kFinal>;
+  const float* __restrict__ x = a.x;
+  const float* __restrict__ b1 = a.b1;
+  const float* __restrict__ b2 = a.b2;
+  const float* __restrict__ wf = a.wf;
+  float* __restrict__ y = a.y;
+  const int a0 = a.T_in - a.T_out;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* xbuf = smem;                               // [XBUF][RX][LDX] block input windows
@@ -286,7 +441,7 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
   float* h_lo = h_hi + R::BM * R::LDH;
   float* ring = h_lo + R::BM * R::LDH;              // [SLOTS][hi, lo][kRbBK][LDW]
 
-  const int tiles = (T + R::BMO - 1) / R::BMO, ntiles = B * tiles;
+  const int tiles = (a.T_out + R::BMO - 1) / R::BMO, ntiles = a.B * tiles;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const int wm = warp / R::WGN, wn = warp % R::WGN;
 
@@ -294,8 +449,8 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
     if (c < R::N1 + R::N2) {
       const bool first = c < R::N1;
       const int width = first ? R::CH : C, k0 = (first ? c : c - R::N1) * kRbBK;
-      const float* hi = first ? w1hi : w2hi;
-      const float* lo = first ? w1lo : w2lo;
+      const float* hi = first ? a.w1hi : a.w2hi;
+      const float* lo = first ? a.w1lo : a.w2lo;
       float* d = ring + slot * 2 * kRbBK * R::LDW;
       const int per_half = kRbBK * (width / 4);
       for (int i = tid; i < 2 * per_half; i += R::THREADS) {
@@ -306,13 +461,14 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
       }
     }
   };
-  auto load_x = [&](int tile, float* dst) {  // tile's input window; rows outside [0, T) zero
+  auto load_x = [&](int tile, float* dst) {  // tile's input window; rows outside [start, T_in) zero
     if (tile < ntiles) {
-      const int b = tile / tiles, tx0 = (tile - b * tiles) * R::BMO - R::HF - 2;
-      const float* xb = x + (size_t)b * T * C;
+      const int b = tile / tiles, tx0 = a0 + (tile - b * tiles) * R::BMO - R::HF - 2;
+      const int lo = row_start(a.start, a.start_stride, b);
+      const float* xb = x + (size_t)b * a.T_in * C;
       for (int i = tid; i < R::RX * (C / 4); i += R::THREADS) {
         const int r = i / (C / 4), c4 = (i - r * (C / 4)) * 4, t = tx0 + r;
-        const bool ok = t >= 0 && t < T;
+        const bool ok = t >= lo && t < a.T_in;
         tf32x3::cp_async16(dst + r * R::LDX + c4, ok ? xb + (size_t)t * C + c4 : x, ok);
       }
     }
@@ -343,7 +499,7 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
     }
     __syncthreads();
 #pragma unroll 4
-    for (int i = tid; i < R::RX * C; i += R::THREADS) {  // rows before t = 0 are zero: elu(0) = 0
+    for (int i = tid; i < R::RX * C; i += R::THREADS) {  // rows before the start are zero: elu(0) = 0
       const int r = i / C, k = i - r * C;
       tf32x3::split(elu(xraw[r * R::LDX + k]), ex_hi[r * R::LDX + k], ex_lo[r * R::LDX + k]);
     }
@@ -389,8 +545,10 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
       }
     }
 
-    // block output row i (time t0 - HF + i) = acc2 + b2 + x[window row i + 2]
+    // block output row i (output row t0 - HF + i, input row a0 + t0 - HF + i)
+    // = acc2 + b2 + x[window row i + 2]
     float* outb = ex_hi;  // [BM][LDO]: elu(block output), the final conv's input
+    const int lo = row_start(a.start, a.start_stride, b);
 #pragma unroll
     for (int mt = 0; mt < R::MT; ++mt)
 #pragma unroll
@@ -402,9 +560,9 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
           const float v = acc2[mt][nt][e] + __ldg(b2 + n) + xraw[(i + 2) * R::LDX + n];
           const int t = t0 - R::HF + i;
           if (kFinal) {
-            outb[i * R::LDO + n] = t >= 0 ? elu(v) : 0.f;  // causal zero padding
-          } else if (t < T) {
-            y[((size_t)b * T + t) * C + n] = v;
+            outb[i * R::LDO + n] = a0 + t >= lo ? elu(v) : 0.f;  // causal zero padding
+          } else if (t < a.T_out) {
+            y[((size_t)b * a.T_out + t) * C + n] = v;
           }
         }
     if (kFinal) {  // output row o (time t0 + o): four threads, each a quarter of the 3C terms
@@ -420,241 +578,94 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
       }
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (sub == 0 && o < R::BMO && t0 + o < T) y[(size_t)b * T + t0 + o] = s + __ldg(bf);
+      if (sub == 0 && o < R::BMO && t0 + o < a.T_out) y[(size_t)b * a.T_out + t0 + o] = s + __ldg(a.bf);
     }
     __syncthreads();  // the tile's buffers are free for the next one
   }
 }
 
 template <int C, bool kFinal>
-int launch_resblock(const float* x, const float* w1hi, const float* w1lo, const float* b1,
-                    const float* w2hi, const float* w2lo, const float* b2, const float* wf,
-                    const float* bf, float* y, int B, int T, cudaStream_t s) {
+int launch_resblock(const ResArgs& a, cudaStream_t s) {
   using R = ResTile<C, kFinal>;
   static_assert(R::SMEM <= kMaxSmem, "resblock tile exceeds shared memory");
   auto kernel = resblock_kernel<C, kFinal>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)R::SMEM);
+  static LaunchCache caches[kMaxDevices];
+  LaunchCache* cache = nullptr;
+  cudaError_t e = prepare(kernel, caches, R::SMEM, cache);
   if (e != cudaSuccess) return (int)e;
-  const long long ntiles = (long long)B * ((T + R::BMO - 1) / R::BMO);
+  const long long ntiles = (long long)a.B * ((a.T_out + R::BMO - 1) / R::BMO);
   if (ntiles > 2147483647LL) return (int)cudaErrorInvalidValue;
   long long grid = ntiles;
   if (R::RESIDENT) {  // as many blocks as fit at once; each walks tiles grid-stride
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, R::THREADS,
+    if (cache->per_sm < 0 &&
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cache->per_sm, kernel, R::THREADS,
                                                            R::SMEM)) != cudaSuccess)
       return (int)e;
-    grid = ntiles < (long long)sms * per_sm ? ntiles : (long long)sms * per_sm;
+    const long long fit = (long long)cache->sms * cache->per_sm;
+    grid = ntiles < fit ? ntiles : fit;
     if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
   }
-  kernel<<<(unsigned)grid, R::THREADS, R::SMEM, s>>>(x, w1hi, w1lo, b1, w2hi, w2lo, b2, wf, bf, y,
-                                                     B, T);
+  kernel<<<(unsigned)grid, R::THREADS, R::SMEM, s>>>(a);
   return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K4: valid-mode per-conv kernel, float32 on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 64, kBN = 64, kBK = 16, kThreads = 256;
-
-// Input row read by computed row c, tap `tap`, or -1 when that row is
-// before the row's stream start `lo`.
-__device__ __forceinline__ int src_row(int c, int tap, int dil, int lo) {
-  const int ts = c + tap * dil;
-  return ts >= lo ? ts : -1;
-}
-
-__device__ __forceinline__ int row_start(const int* __restrict__ start, int stride, int b) {
-  return start != nullptr ? __ldg(start + (size_t)b * stride) : 0;
-}
-
-// y[b, t*phases + r, n] = bias[n] (+ residual[b, t + res_off, n]) +
-//   sum_{tap, ci} act(x[b, src_row(skip + t, tap), ci]) * w[r][tap, ci, n]
-__global__ void __launch_bounds__(kThreads) conv_gemm_kernel(
-    const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
-    const float* __restrict__ residual, float* __restrict__ y, int B, int Tin, int Tout, int skip,
-    int Cin, int Cout, int taps, int dil, int elu_in, int phases, int res_T, int res_off,
-    const int* __restrict__ start, int start_stride) {
-  __shared__ float As[kBK][kBM + 1];
-  __shared__ float Bs[kBK][kBN];
-  const int r = blockIdx.z;
-  const float* wr = w + (size_t)r * taps * Cin * Cout;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int M = B * Tout, K = taps * Cin;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
-      const int mm = i / kBK, kk = i - mm * kBK;  // consecutive threads: consecutive channels
-      const int m = m0 + mm, k = k0 + kk;
-      float v = 0.f;
-      if (m < M && k < K) {
-        const int tap = k / Cin, ci = k - tap * Cin;
-        const int b = m / Tout, t = m - b * Tout;
-        const int lo = row_start(start, start_stride, b);
-        const int ts = src_row(skip + t, tap, dil, lo);
-        if (ts >= 0) {
-          v = __ldg(x + ((size_t)b * Tin + ts) * Cin + ci);
-          if (elu_in) v = elu(v);
-        }
-      }
-      As[kk][mm] = v;
-    }
-    for (int i = threadIdx.x; i < kBK * kBN; i += kThreads) {
-      const int kk = i / kBN, nn = i - kk * kBN;
-      const int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < Cout) ? __ldg(wr + (size_t)k * Cout + n) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-    const int b = m / Tout, t = m - b * Tout;
-    const size_t row = (size_t)b * Tout * phases + (size_t)t * phases + r;
-    const size_t res_row = (size_t)b * res_T + t + res_off;  // residual only with phases == 1
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= Cout) continue;
-      float v = acc[i][j] + __ldg(bias + n);
-      if (residual != nullptr) v += __ldg(residual + res_row * Cout + n);
-      y[row * Cout + n] = v;
-    }
-  }
-}
-
-// One output channel: one thread per output row.
-__global__ void conv_out1_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                                 const float* __restrict__ bias, float* __restrict__ y, int B,
-                                 int Tin, int Tout, int skip, int Cin, int taps, int dil,
-                                 int elu_in, const int* __restrict__ start, int start_stride) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= B * Tout) return;
-  const int b = m / Tout, t = m - b * Tout;
-  const int lo = row_start(start, start_stride, b);
-  float acc = 0.f;
-  for (int tap = 0; tap < taps; ++tap) {
-    const int ts = src_row(skip + t, tap, dil, lo);
-    if (ts < 0) continue;
-    const float* xr = x + ((size_t)b * Tin + ts) * Cin;
-    const float* wr = w + (size_t)tap * Cin;
-    for (int ci = 0; ci < Cin; ++ci) {
-      float v = __ldg(xr + ci);
-      if (elu_in) v = elu(v);
-      acc = fmaf(v, __ldg(wr + ci), acc);
-    }
-  }
-  y[m] = acc + __ldg(bias);
-}
-
-bool shape_ok(int B, int T, int Cin, int Cout, int taps, int dil, int phases) {
-  return B > 0 && T > 0 && Cin > 0 && Cout > 0 && taps > 0 && dil > 0 && phases > 0 &&
-         phases <= 65535;
 }
 
 }  // namespace
 
-// K3 (a): one causal conv. x [B, T, Cin]; whi / wlo [taps, cinp, np] (the
-// TF32 split of w [taps, Cin, N], zero-padded: cinp a multiple of 32, np of
-// 128); bias [N]; residual (nullable) and y [B, T, N]; all float32
-// contiguous. Returns cudaGetLastError() after the launch.
+// K3 / K4 (a): one conv, output row t the causal conv at input row
+// T_in - T_out + t. x [B, T_in, Cin]; whi / wlo [taps, cinp, np] (the TF32
+// split of w [taps, Cin, N], zero-padded: cinp a multiple of 32, np of
+// 128); bias [N]; residual (nullable) [B, res_T, N], row t + res_T - T_out
+// added to output row t; y [B, T_out, N]; start (nullable) int32, input rows
+// of batch row b before start[b * start_stride] read as zero; the Cin chunks
+// split over up to max_splits blocks of a cluster. All float32 contiguous.
+// Returns cudaGetLastError() after the launch.
 extern "C" int sopro_seanet_conv_tc(const float* x, const float* whi, const float* wlo,
                                     const float* bias, const float* residual, float* y, int B,
-                                    int T, int Cin, int cinp, int N, int np, int taps, int dil,
-                                    int elu_in, void* stream) {
-  if (B <= 0 || T <= 0 || Cin <= 0 || N <= 0 || taps <= 0 || dil <= 0 || cinp < Cin ||
-      cinp % 32 != 0 || np < N || np % kTcBN != 0)
+                                    int T_in, int T_out, int res_T, int Cin, int cinp, int N,
+                                    int np, int taps, int dil, int elu_in, const int* start,
+                                    int start_stride, int max_splits, void* stream) {
+  if (B <= 0 || T_out <= 0 || T_out > T_in || Cin <= 0 || N <= 0 || taps <= 0 || dil <= 0 ||
+      cinp < Cin || cinp % 32 != 0 || np < N || np % kTcBN != 0 || max_splits < 1 ||
+      max_splits > kMaxSplits || (residual != nullptr && res_T < T_out))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  // 64-row tiles, taps * BKC weight rows per ring stage (32, 32, 24, 56 for
-  // 1, 2, 3, 7 taps); two blocks per SM where the ring fits in half the
-  // shared memory, so one block's loads and splits overlap the other's MMAs
+  const ConvArgs a = {x, whi, wlo, bias, residual, y, start, start_stride, B, T_in, T_out,
+                      res_T, Cin, cinp, N, np, dil, elu_in, 1};
+  // taps * BKC weight rows per ring stage (32, 32, 24, 56 for 1, 2, 3, 7
+  // taps); two blocks per SM where the ring fits in half the shared memory,
+  // so one block's loads and splits overlap the other's MMAs
+  const bool small = T_out < 128;
   if (taps == 1)
-    return launch_conv_tc<64, 32, 2, 2, 1>(x, whi, wlo, bias, residual, y, B, T, Cin, cinp, N,
-                                           np, dil, elu_in, s);
+    return small ? launch_conv_tc<16, 32, 2, 2, 1>(a, max_splits, s)
+                 : launch_conv_tc<64, 32, 2, 2, 1>(a, max_splits, s);
   if (taps == 2)
-    return launch_conv_tc<64, 16, 2, 2, 2>(x, whi, wlo, bias, residual, y, B, T, Cin, cinp, N,
-                                           np, dil, elu_in, s);
+    return small ? launch_conv_tc<16, 16, 2, 2, 2>(a, max_splits, s)
+                 : launch_conv_tc<64, 16, 2, 2, 2>(a, max_splits, s);
   if (taps == 3)
-    return launch_conv_tc<64, 8, 3, 2, 3>(x, whi, wlo, bias, residual, y, B, T, Cin, cinp, N,
-                                          np, dil, elu_in, s);
+    return small ? launch_conv_tc<16, 8, 3, 2, 3>(a, max_splits, s)
+                 : launch_conv_tc<64, 8, 3, 2, 3>(a, max_splits, s);
   if (taps == 7)
-    return launch_conv_tc<64, 8, 3, 1, 7>(x, whi, wlo, bias, residual, y, B, T, Cin, cinp, N,
-                                          np, dil, elu_in, s);
+    return small ? launch_conv_tc<16, 8, 3, 1, 7>(a, max_splits, s)
+                 : launch_conv_tc<64, 8, 3, 1, 7>(a, max_splits, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// K3 (b): one residual block of C = 128 or 64 channels, causal, k3 conv
-// dilation 1. final = 0: y [B, T, C]; final = 1: also the final k3 conv to
-// one channel, y [B, T]. Weights as in resblock_kernel. Returns
-// cudaGetLastError() after the launch.
+// K3 / K4 (b): one residual block of C = 128 or 64 channels, k3 conv
+// dilation 1, output row t the causal result at input row T_in - T_out + t.
+// x [B, T_in, C]; final = 0: y [B, T_out, C]; final = 1: also the final k3
+// conv to one channel, y [B, T_out]; start (nullable) as for the conv.
+// Weights as in resblock_kernel. Returns cudaGetLastError() after the launch.
 extern "C" int sopro_seanet_resblock(const float* x, const float* w1hi, const float* w1lo,
                                      const float* b1, const float* w2hi, const float* w2lo,
                                      const float* b2, const float* wf, const float* bf, float* y,
-                                     int B, int T, int C, int final, void* stream) {
-  if (B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+                                     int B, int T_in, int T_out, int C, int final,
+                                     const int* start, int start_stride, void* stream) {
+  if (B <= 0 || T_out <= 0 || T_out > T_in) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (C == 128 && !final) return launch_resblock<128, false>(x, w1hi, w1lo, b1, w2hi, w2lo, b2, wf, bf, y, B, T, s);
-  if (C == 128 && final) return launch_resblock<128, true>(x, w1hi, w1lo, b1, w2hi, w2lo, b2, wf, bf, y, B, T, s);
-  if (C == 64 && !final) return launch_resblock<64, false>(x, w1hi, w1lo, b1, w2hi, w2lo, b2, wf, bf, y, B, T, s);
-  if (C == 64 && final) return launch_resblock<64, true>(x, w1hi, w1lo, b1, w2hi, w2lo, b2, wf, bf, y, B, T, s);
+  const ResArgs a = {x, w1hi, w1lo, b1, w2hi, w2lo, b2, wf, bf, y, start, start_stride, B, T_in, T_out};
+  if (C == 128 && !final) return launch_resblock<128, false>(a, s);
+  if (C == 128 && final) return launch_resblock<128, true>(a, s);
+  if (C == 64 && !final) return launch_resblock<64, false>(a, s);
+  if (C == 64 && final) return launch_resblock<64, true>(a, s);
   return (int)cudaErrorInvalidValue;
-}
-
-// K4: one valid-mode conv of the decoder plan. x [B, T_in, Cin]; w [phases,
-// taps, Cin, Cout]; bias [Cout]; y [B, T_out*phases, Cout], output row t
-// reading input rows skip + t + j*dil for taps j; residual (nullable)
-// [B, res_T, Cout], added from row res_off + t; start (nullable) int32,
-// start[b * start_stride] the first input row of batch row b that is not
-// padding. All float32 contiguous. Returns cudaGetLastError() after the
-// launch.
-extern "C" int sopro_seanet_conv_valid(const float* x, const float* w, const float* bias,
-                                       const float* residual, float* y, int B, int T_in,
-                                       int T_out, int skip, int Cin, int Cout, int taps, int dil,
-                                       int elu_in, int phases, int res_T, int res_off,
-                                       const int* start, int start_stride, void* stream) {
-  if (!shape_ok(B, T_out, Cin, Cout, taps, dil, phases) || skip < 0 ||
-      (long long)skip + T_out + (long long)(taps - 1) * dil > T_in)
-    return (int)cudaErrorInvalidValue;
-  if (residual != nullptr && (phases != 1 || res_off < 0 || res_off + T_out > res_T))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const long long M = (long long)B * T_out;
-  if (Cout == 1 && phases == 1 && residual == nullptr) {
-    const int threads = 256;
-    conv_out1_kernel<<<(unsigned)((M + threads - 1) / threads), threads, 0, s>>>(
-        x, w, bias, y, B, T_in, T_out, skip, Cin, taps, dil, elu_in, start, start_stride);
-  } else {
-    const long long gx = (M + kBM - 1) / kBM, gy = (Cout + kBN - 1) / kBN;
-    if (gx > 2147483647LL || gy > 65535) return (int)cudaErrorInvalidValue;
-    dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)phases);
-    conv_gemm_kernel<<<grid, kThreads, 0, s>>>(x, w, bias, residual, y, B, T_in, T_out, skip, Cin,
-                                               Cout, taps, dil, elu_in, phases, res_T, res_off,
-                                               start, start_stride);
-  }
-  return (int)cudaGetLastError();
 }

@@ -115,6 +115,16 @@ def lib(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+def entry(source: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """C entry point `name` of `source`'s library, its argument types bound
+    once (ctypes keeps the function object on the library)."""
+    fn = getattr(lib(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")

@@ -85,10 +85,22 @@ class ARGenerator(ParamModule):
         super().__init__(tree)
         self.cfg = cfg
         self._stacked = None
+        self._streams: Dict[int, Dict] = {}
 
     def _apply(self, fn, *args, **kwargs):
         self._stacked = None
+        self._streams = {}
         return super()._apply(fn, *args, **kwargs)
+
+    def stream(self, cs: int) -> Dict:
+        """The stacked weights packed per rank in the order kernels K1 and K5
+        read them at cluster size cs (`ops.ar_loop.pack_ar_stream`; built
+        once per device and cluster size)."""
+        if cs not in self._streams:
+            from sopro_tpu_torch.ops.ar_loop import pack_ar_stream
+
+            self._streams[cs] = pack_ar_stream(self.stacked(), self.cfg, cs)
+        return self._streams[cs]
 
     def stacked(self) -> Dict[str, torch.Tensor]:
         """Per-block weights stacked on a leading layer/attn axis, contiguous

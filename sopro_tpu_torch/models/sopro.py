@@ -204,9 +204,10 @@ def ar_context(
     """Text KV caches + the compact previous-token table for the loop (K1 on
     CUDA, the plain per-step loop on the CPU)."""
     kv = G.build_text_kv_caches(m.ar.p, m.cfg, txt_seq, text_mask)
-    stacked = m.ar.stacked() if txt_seq.device.type == "cuda" else None
-    return ARLoopContext(cfg=m.cfg, p_ar=m.ar.p, stacked=stacked, kv=kv,
-                         mask=text_mask, emb=_prev_token_table(m))
+    cuda = txt_seq.device.type == "cuda"
+    return ARLoopContext(cfg=m.cfg, p_ar=m.ar.p, stacked=m.ar.stacked() if cuda else None, kv=kv,
+                         mask=text_mask, emb=_prev_token_table(m),
+                         stream=m.ar.stream if cuda else None)
 
 
 def ar_step_context(
@@ -221,6 +222,7 @@ def ar_step_context(
         kv_k=torch.stack([c["k"] for c in kv]).contiguous(),
         kv_v=torch.stack([c["v"] for c in kv]).contiguous(),
         mask=text_mask, emb=_prev_token_table(m),
+        stream=m.ar.stream if txt_seq.device.type == "cuda" else None,
     )
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,9 +38,9 @@ REP_PENALTY = 1.1
 @dataclass
 class ARLoopContext:
     """What every step reads besides the state: the AR parameter tree and
-    its stacked kernel view, the fixed text KV, and the compact
-    previous-token table [V+1, D] (rows 0..V-1: codebook-1 embeddings,
-    row V: BOS)."""
+    its stacked kernel view, the fixed text KV, the compact previous-token
+    table [V+1, D] (rows 0..V-1: codebook-1 embeddings, row V: BOS), and on
+    CUDA the kernel's packed weight stream per cluster size."""
 
     cfg: SoproTTSConfig
     p_ar: Dict
@@ -48,6 +48,7 @@ class ARLoopContext:
     kv: List[Optional[Dict]]
     mask: torch.Tensor  # [B, L] bool
     emb: torch.Tensor  # [V+1, D]
+    stream: Optional[Callable[[int], Dict]] = None  # cluster size -> packed weights (CUDA)
 
     def step(self, x: torch.Tensor, bufs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The block stack of one step as plain PyTorch ops."""
@@ -148,28 +149,107 @@ def ar_loop(
 # --------------------------------------------------------------------------
 
 MAX_LAYERS = 16
-THREADS = 1024  # kThreads in csrc/ar_loop.cu
+THREADS = 512  # kThreads in csrc/ar_loop.cu
+RING, STAGE = 3, 8192  # kRing, kStage: the weight ring's stages, floats per stage
 SMEM_PER_BLOCK = 232448  # 227 KB: the most shared memory a Hopper block can have
+
+
+def _layout(cfg: SoproTTSConfig, cs: int) -> Tuple[int, int, int]:
+    """(cw, fw, vw): channels, FFN columns and logits of one rank."""
+    d, v = int(cfg.d_model), int(cfg.ar_vocab)
+    vp = v + (-v) % 4
+    return d // cs, 4 * d // cs, ((vp + cs - 1) // cs + 3) // 4 * 4
+
+
+def _qualifies(cfg: SoproTTSConfig, cs: int) -> bool:
+    """csrc/ar_loop.cu `configure`: cs divides D, the conv products fit the
+    partial-sum buffer, every stream slice is a multiple of 4 floats wide and
+    fits a ring stage and the gemv's threads, and a buffer idle during the
+    sampler holds the penalized logits."""
+    d, k, v = int(cfg.d_model), int(cfg.ar_kernel), int(cfg.ar_vocab)
+    if d % cs:
+        return False
+    cw, fw, vw = _layout(cfg, cs)
+    return (cw * k <= 4 * THREADS and not (cw | fw | vw | d) & 3
+            and max(d, fw, vw) <= min(STAGE, 4 * THREADS) and (cs * d >= v or v <= 4 * THREADS))
+
+
+def stream_slices(cfg: SoproTTSConfig, cs: int) -> List[Tuple[str, int, int, int]]:
+    """(name, layer or attention index, rows, width) of the weight slices a
+    rank reads in one step, in order (csrc/ar_loop.cu `stream_schedule`):
+    per layer its GLU columns (a then b), ff1 columns and ff2 rows, after
+    every freq-th layer its x_q columns and x_out rows; then its head
+    columns (zero past Vp)."""
+    d, n, freq = int(cfg.d_model), int(cfg.n_layers_ar), int(cfg.ar_text_attn_freq)
+    cw, fw, vw = _layout(cfg, cs)
+    out = []
+    for li in range(n):
+        out += [("glu_w", li, d, 2 * cw), ("ff1_w", li, d, fw), ("ff2_w", li, fw, d)]
+        if (li + 1) % freq == 0:
+            out += [("x_q", li // freq, d, cw), ("x_out", li // freq, cw, d)]
+    return out + [("head_w", 0, d, vw)]
+
+
+def stream_schedule(cfg: SoproTTSConfig, cs: int) -> Tuple[List[Tuple[int, int]], int]:
+    """([(offset, floats)] per ring chunk of a step, floats per rank): each
+    slice in chunks of STAGE // width whole rows."""
+    chunks, off = [], 0
+    for _, _, rows, width in stream_slices(cfg, cs):
+        rpc = STAGE // width
+        for r0 in range(0, rows, rpc):
+            n = min(rpc, rows - r0) * width
+            chunks.append((off, n))
+            off += n
+    return chunks, off
+
+
+def _rank_slice(w: Dict[str, torch.Tensor], name: str, i: int, r: int, cfg, cs: int):
+    d = int(cfg.d_model)
+    cw, fw, vw = _layout(cfg, cs)
+    c0, f0 = r * cw, r * fw
+    if name == "glu_w":
+        return torch.cat([w[name][i][:, c0:c0 + cw], w[name][i][:, d + c0:d + c0 + cw]], 1)
+    if name == "ff1_w":
+        return w[name][i][:, f0:f0 + fw]
+    if name == "ff2_w":
+        return w[name][i][f0:f0 + fw]
+    if name == "x_q":
+        return w[name][i][:, c0:c0 + cw]
+    if name == "x_out":
+        return w[name][i][c0:c0 + cw]
+    head = w["head_w"]  # [D, Vp]
+    v0 = min(head.shape[1], r * vw)
+    cols = head[:, v0:v0 + vw]
+    return torch.nn.functional.pad(cols, (0, vw - cols.shape[1]))
+
+
+def pack_ar_stream(w: Dict[str, torch.Tensor], cfg: SoproTTSConfig, cs: int) -> Dict:
+    """The stacked weights (`ARGenerator.stacked()`) as K1/K5 stream them at
+    cluster size cs: {"w": [cs, len] float32, rank r's slices back to back
+    in `stream_slices` order, row-major; "len"; "cs"}."""
+    slices = stream_slices(cfg, cs)
+    ranks = [torch.cat([_rank_slice(w, name, i, r, cfg, cs).reshape(-1)
+                        for name, i, _, _ in slices]) for r in range(cs)]
+    return {"w": torch.stack(ranks).contiguous(), "len": int(ranks[0].numel()), "cs": cs}
 
 
 def smem_bytes(cfg: SoproTTSConfig, text_len: int) -> Optional[int]:
     """Shared memory per block that csrc/ar_loop.cu asks for at text length
-    `text_len`: a host mirror of its `smem_floats` and of the first cluster
-    size its launch loop tries (16, 8, ... dividing D, with the conv products
-    fitting the partial-sum buffer). None when no cluster size qualifies.
-    K1 and K5 take the same amount; the batch size and step count do not
-    enter (one cluster per row, the steps loop inside)."""
+    `text_len`: a host mirror of its `smem_floats` / `smem_ints` at the
+    first cluster size its launch tries (16, 8, ... that `_qualifies`).
+    None when no cluster size qualifies. K1 and K5 take the same amount; the
+    batch size and step count do not enter (one cluster per row, the steps
+    loop inside)."""
     d, n, k, v = int(cfg.d_model), int(cfg.n_layers_ar), int(cfg.ar_kernel), int(cfg.ar_vocab)
-    vp = v + (-v) % 4
     ctx = conv_ctx(cfg)
     for cs in (16, 8, 4, 2, 1):
-        cw, fw = d // cs, 4 * d // cs
-        if d % cs or cw * k > 4 * THREADS:
+        if not _qualifies(cfg, cs):
             continue
-        vw = ((vp + cs - 1) // cs + 3) // 4 * 4
+        cw, fw, vw = _layout(cfg, cs)
         mine = n * (ctx + 3 + k) * cw + n * fw
-        floats = 7 * d + max(fw, vw) + 2 * cs * d + int(text_len) + 3 * v + 4 * THREADS + 64 + mine
-        ints = v + S.HIST_LEN + 64 + 16
+        floats = (32 + RING * STAGE + 7 * d + max(fw, vw) + cs * d + int(text_len) + 2 * v
+                  + 4 * THREADS + mine + 64)
+        ints = v + S.HIST_LEN + 64 + 16 + 2 * len(stream_schedule(cfg, cs)[0])
         return 4 * (floats + ints)
     return None
 
@@ -191,8 +271,9 @@ class _Args(ctypes.Structure):
             "ff1_b", "ff2_w", "ff2_b", "x_nq", "x_q", "x_out", "x_gate",
             "kv_k", "kv_v", "mask", "out_norm", "head_w", "head_b",
             "tokens", "t_out", "last_out", "streak_out", "stopped_out",
-            "feos_out", "key_out", "hist_out", "bufs_out", "x_in", "logits",
+            "feos_out", "key_out", "hist_out", "bufs_out", "x_in", "logits", "wstream",
         )]
+        + [("stream_len", ctypes.c_int), ("cs", ctypes.c_int)]
     )
 
 
@@ -263,17 +344,42 @@ def block_args(
     return args
 
 
-def launch(kernel: str, entry: str, args: _Args, device) -> None:
-    """Call C entry point `entry` of csrc/ar_loop.cu on the current stream,
-    raise on a refused launch, count it under `kernel`."""
-    fn = getattr(kernels.lib("ar_loop"), entry)
-    fn.argtypes = [ctypes.POINTER(_Args), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    cluster = ctypes.c_int(0)
-    rc = fn(ctypes.byref(args), ctypes.byref(cluster), kernels.stream_ptr(device))
-    kernels.check(rc, kernel)
+_ARGTYPES = {
+    "sopro_ar_cluster": [ctypes.POINTER(_Args), ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+    "sopro_ar_loop": [ctypes.POINTER(_Args), ctypes.c_void_p],
+    "sopro_ar_step": [ctypes.POINTER(_Args), ctypes.c_void_p],
+}
+_CLUSTER: Dict[tuple, int] = {}
+
+
+def cluster_size(args: _Args, logits_only: bool) -> int:
+    """The cluster size csrc/ar_loop.cu takes for these shapes (asked once
+    per library and shape): the weight stream is packed for it."""
+    lib = kernels.lib("ar_loop")
+    key = (id(lib), logits_only) + tuple(getattr(args, f) for f in
+                                         ("L", "D", "N", "K", "CTX", "H", "V", "freq", "hist_len"))
+    if key not in _CLUSTER:
+        cs = ctypes.c_int(0)
+        fn = kernels.entry("ar_loop", "sopro_ar_cluster", _ARGTYPES["sopro_ar_cluster"])
+        kernels.check(fn(ctypes.byref(args), int(logits_only), ctypes.byref(cs)), "ar_loop cluster")
+        _CLUSTER[key] = cs.value
+    return _CLUSTER[key]
+
+
+def launch(kernel: str, entry: str, args: _Args, device, stream) -> None:
+    """Call C entry point `entry` of csrc/ar_loop.cu on the current stream
+    with the weight stream packed for its cluster size (`stream(cs)`,
+    `ARGenerator.stream`), raise on a refused launch, count it under
+    `kernel`."""
+    if stream is None:
+        raise ValueError(f"{kernel}: the context carries no weight stream (built on the CPU?)")
+    cs = cluster_size(args, entry == "sopro_ar_step")
+    pack = stream(cs)
+    args.wstream, args.stream_len, args.cs = pack["w"].data_ptr(), pack["len"], cs
+    fn = kernels.entry("ar_loop", entry, _ARGTYPES[entry])
+    kernels.check(fn(ctypes.byref(args), kernels.stream_ptr(device)), kernel)
     kernels.LAUNCHES[kernel] += 1
-    kernels.LAUNCH_INFO[kernel] = {"cluster_blocks_per_row": cluster.value}
+    kernels.LAUNCH_INFO[kernel] = {"cluster_blocks_per_row": cs}
 
 
 def _ar_loop_cuda(ctx, cond, state, settings, n_steps, anti_loop):
@@ -316,5 +422,5 @@ def _ar_loop_cuda(ctx, cond, state, settings, n_steps, anti_loop):
     }
     for name, t in bind.items():
         setattr(args, name, t.data_ptr())
-    launch("ar_loop", "sopro_ar_loop", args, dev)
+    launch("ar_loop", "sopro_ar_loop", args, dev, ctx.stream)
     return tokens, out

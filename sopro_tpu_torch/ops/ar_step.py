@@ -16,7 +16,7 @@ x: f32 [B, D]; bufs: f32 [N, B, CTX, D] oldest-first. Returns (logits f32
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -30,8 +30,9 @@ class ARStepContext:
     """What every K5 step reads besides x and the buffers: the AR parameter
     tree and its stacked kernel view (`ARGenerator.stacked()`, None on the
     CPU), the text KV of the attention layers stacked as [A, B, H, L, hd],
-    the text mask, and the previous-token table [V+1, D] of the loop around
-    it (`ar_loop_step`)."""
+    the text mask, the previous-token table [V+1, D] of the loop around it
+    (`ar_loop_step`), and on CUDA the kernel's packed weight stream per
+    cluster size (`ARGenerator.stream`)."""
 
     cfg: SoproTTSConfig
     p_ar: Dict
@@ -40,6 +41,7 @@ class ARStepContext:
     kv_v: torch.Tensor
     mask: torch.Tensor  # [B, L] bool
     emb: torch.Tensor  # [V+1, D]
+    stream: Optional[Callable[[int], Dict]] = None  # cluster size -> packed weights (CUDA)
 
     def step(self, x: torch.Tensor, bufs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return ar_step(self, x, bufs)
@@ -75,5 +77,5 @@ def _ar_step_cuda(ctx, x, bufs):
     bufs_out = torch.empty_like(bufs)
     args.S = args.n_steps = 1
     args.x_in, args.logits, args.bufs_out = x.data_ptr(), logits.data_ptr(), bufs_out.data_ptr()
-    launch("ar_step", "sopro_ar_step", args, x.device)
+    launch("ar_step", "sopro_ar_step", args, x.device, ctx.stream)
     return logits, bufs_out

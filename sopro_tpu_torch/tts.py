@@ -102,10 +102,11 @@ class SoproTTS:
         seed: int = 0,
         mimi_cfg: Optional[MimiConfig] = None,
         runtime: Optional[RuntimeConfig] = None,
-        device,
+        device="cuda",
     ) -> "SoproTTS":
         """Random-weight instance drawn from a numpy seed, built directly on
-        `device` ("cuda" raises when no GPU is present)."""
+        `device`: the card unless the caller asks for "cpu" ("cuda" raises
+        when no GPU is present)."""
         dev = _resolve_device(device)
         cfg = cfg or SoproTTSConfig()
         mimi_cfg = mimi_cfg or MimiConfig()

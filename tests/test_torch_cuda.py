@@ -200,6 +200,75 @@ def test_seanet_chunk_kernel_matches_plain(cuda, b, m25, hist):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,m25,hist", [(1, 12, None), (2, 32, (0, 5))])
+def test_seanet_chunk_kernel_is_deterministic_full_width(cuda, b, m25, hist):
+    """K4 at full Mimi width (chunks of 6 and 16 AR frames), where its convs
+    split Cin over a cluster and sum the partials in rank order: two calls
+    are bit-identical, and within 1e-4 of peak of the plain version."""
+    from sopro_tpu_torch.codec.mimi_config import required_halo
+    from sopro_tpu_torch.codec.vocoder import (
+        pack_seanet_decoder, seanet_decode_chunk, seanet_decode_chunk_plain,
+    )
+
+    mcfg = MimiConfig()
+    mtree = W.init_mimi_params(3, mcfg)
+    W.fill_zero_inits(None, mtree, 4)
+    dec = W.to_torch(mtree["decoder"], cuda)
+    packed = pack_seanet_decoder(dec, mcfg)
+    g = torch.Generator().manual_seed(b + m25)
+    ext = torch.randn(b, required_halo(mcfg) + m25, mcfg.hidden_size, generator=g).to(cuda)
+    n_hist = None if hist is None else torch.tensor(hist, dtype=torch.int32, device=cuda)
+    first = seanet_decode_chunk(packed, mcfg, ext, n_hist)
+    again = seanet_decode_chunk(packed, mcfg, ext, n_hist)
+    assert torch.equal(first, again)
+    want = seanet_decode_chunk_plain(dec, mcfg, ext, n_hist)
+    assert float((first - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_ar_loop_kernel_at_the_largest_text_bucket(cuda):
+    """K1 at full Sopro width with a 1,450-character prompt (text bucket
+    2,048, the most shared memory K1 takes): it launches on a 16-block
+    cluster and 24 near-greedy steps equal ar_loop_plain's tokens and
+    state."""
+    from sopro_tpu_torch.codec.mimi import MimiCodec
+    from sopro_tpu_torch.engine import Engine
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.ops.ar_loop import SMEM_PER_BLOCK, ar_loop, ar_loop_plain, smem_bytes
+    from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
+
+    cfg = SoproTTSConfig()
+    tree = W.init_sopro_params(0, cfg, TEXT_VOCAB)
+    W.fill_zero_inits(tree, None, 1)
+    eng = Engine(W.sopro_params_from_jax(tree, cfg, cuda), MimiCodec({}, None))
+    text = " ".join(f"Sentence number {i} of a long prompt that fills the largest text bucket."
+                    for i in range(20))
+    ref = eng.prepare_reference(np.random.default_rng(0).integers(
+        0, cfg.codebook_size, (150, cfg.num_codebooks)).astype(np.int32))
+    with torch.inference_mode():
+        prep = eng.prepare_conditioning(np.asarray(SimpleCharTokenizer().encode(text), np.int32),
+                                        ref, max_frames=40, style_strength=1.0)
+        assert prep["text_mask"].shape[1] == 2048
+        assert smem_bytes(cfg, 2048) <= SMEM_PER_BLOCK
+        ctx = M.ar_context(eng.model, prep["txt_seq"], prep["text_mask"])
+        cond = prep["cond_ar"]
+
+        def fresh():
+            c = M.init_ar_carry(cfg, 1, cond.shape[1], 7, cuda)
+            return {k: getattr(c, k) for k in ("t", "last", "streak", "stopped", "first_eos",
+                                               "key", "hist", "bufs")}
+
+        sett = M.ARSettings(temperature=1e-4, anti_loop=False).per_row(1, cuda)
+        got, gs = ar_loop(ctx, cond, fresh(), sett, 24, False)
+        assert kernels.LAUNCH_INFO["ar_loop"]["cluster_blocks_per_row"] == 16
+        want, ws = ar_loop_plain(ctx, cond, fresh(), sett, 24, False)
+    assert torch.equal(got, want)
+    for k in ("t", "last", "streak", "stopped", "first_eos", "key", "hist"):
+        assert torch.equal(gs[k], ws[k]), k
+    assert float((gs["bufs"] - ws["bufs"]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
 def test_ar_loop_kernel_matches_plain_and_chunks(cuda):
     from sopro_tpu_torch.models import sopro as M
     from sopro_tpu_torch.ops.ar_loop import ar_loop, ar_loop_plain

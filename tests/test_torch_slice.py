@@ -13,10 +13,13 @@ from sopro_tpu.tokenizer import SimpleCharTokenizer as JTok
 from sopro_tpu.tts import SoproTTS as JTTS
 
 from sopro_tpu_torch import weights as W
+from sopro_tpu_torch.codec.mimi_config import MimiConfig
+from sopro_tpu_torch.config import SoproTTSConfig
 from sopro_tpu_torch.engine import Engine
 from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
 from sopro_tpu_torch.tts import SoproTTS
 
+from tests.test_torch_cuda import CFG, SMALL_MIMI
 from tests.test_torch_ops import make_trees, to_jax
 
 torch.set_num_threads(1)
@@ -72,3 +75,16 @@ def test_from_random_cuda_raises_without_gpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
         SoproTTS.from_random(device="cuda")
+
+
+def test_from_random_defaults_to_cuda():
+    """Called as the JAX package's `SoproTTS.from_random(cfg)` is, the port
+    builds on the card: here, with no GPU, that is the RuntimeError of an
+    explicit device="cuda"; device="cpu" still builds on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        SoproTTS.from_random(SoproTTSConfig(**CFG), mimi_cfg=MimiConfig(**SMALL_MIMI))
+    tts = SoproTTS.from_random(SoproTTSConfig(**CFG), mimi_cfg=MimiConfig(**SMALL_MIMI),
+                               device="cpu")
+    assert tts.engine.device.type == "cpu"
