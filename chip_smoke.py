@@ -12,7 +12,8 @@ Phases (each raises, so the script exits non-zero, on failure):
    main paths' shapes (full Sopro v1.5 and Mimi widths, random weights from
    a seed with the zero-initialised leaves filled, TF32 off) and time both
    with CUDA events; K4 at chunks of 6 and 16 AR frames (12 and 32 25 Hz
-   rows; B = 1, and B = 2 with partial histories) and 802 rows, against
+   rows; B = 1, B = 2 with partial histories, and B = 8 at chunk 16 as the
+   serving tick runs it) and 802 rows, against
    float64 too and repeated bit-identically;
    K5 at B = 1 and 2, text buckets 64 and 2048, and 401 chained near-greedy
    steps of the K5 route token-identical to K1; µs per step of K5, of the
@@ -41,14 +42,39 @@ Phases (each raises, so the script exits non-zero, on failure):
    stream launch K5 and never K1; a B = 3 batch raises ValueError; a
    near-greedy request equals the K1 route within 1e-4 of its peak; print
    request seconds against the K1 route's.
+9. checkpoint: `save_pretrained` of phase 4's model, a Mimi snapshot in
+   `transformers.MimiModel` names written from the same seed's tree
+   (`mimi_checkpoint_state_dict`, the inverse of the port's converter), both
+   loaded again by `from_pretrained(..., on_unconsumed="raise")`: two
+   400-frame `synthesize` requests equal phase 4's bit for bit; where
+   `transformers` imports, a WordLevel tokenizer in the snapshot goes through
+   `from_pretrained`'s `TextTokenizer` (the route taken is printed);
+10. serve: `ContinuousBatcher` at 8 slots, text bucket 256, max_frames 400.
+   Pass A (chunk 16, ramp 4, pcm16, after `warmup` and `reset_stats`): an
+   8-way burst, then 4 sessions mid-flight (12 on 8 slots; counters zeroed
+   before, read after: K1, K2, K4 launched, K3 and K5 not, one K1 launch per
+   tick counted by `stats`); each session's first chunk is 4 frames and its
+   inner chunks 16, its frame count that of `generate_tokens`; three
+   sessions (one a mid-flight join) run again alone in a fresh batcher
+   within 1 int16 LSB; tick and TTFA percentiles, each session's TTFA and
+   steady chunk gap, seconds of audio per second. Pass B (ramp off, float):
+   8 sessions each within 1e-4 of its peak of its solo `tts.stream`, their
+   AR tokens equal to `generate_tokens`; on that state K1's µs per step and
+   co-resident clusters at B = 1, 4, 7, 8, K1 at 7 and 8 rows (each at its
+   own age, per-row settings) against the plain loop, and K2 on the tick's
+   window gathered across 8 slots (8 x 197 rows, tail 8 x 16) against its
+   plain version. HTTP: `server_stdlib` on 127.0.0.1 answers the reference
+   cache, a SPRO stream, a WAV and the stats with 200.
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}. Per kernel the record holds its
-launches in its path's counted run and per request of that run, its time,
+launches in its path's counted run and per request of that run (K1, K2 and
+K4 also in the serve run, per session), its time,
 its plain version's, the library's (K2: einsum + argmax; K3 and K4: the
 stack as cuDNN convs, `bench_kernels.seanet_library`; K1 and K5: none), and
 its bound (`bench_kernels.bound`: bytes over HBM's rate, or operations over
 the 3-pass TF32 rate for the tensor-core kernels K2, K3 and K4 and the fp32
-rate for K1 and K5); K2 also at 6, 187, 401 and 1,604 rows, K3 also at
+rate for K1 and K5); K2 also at 6, 187, 401 and 1,604 rows and at the
+serve tick's window, K1 also at 1, 4, 7 and 8 serving rows, K3 also at
 B = 4, K4 also at chunk 16, with errors against float64 plain versions.
 """
 
@@ -57,6 +83,7 @@ from __future__ import annotations
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -80,6 +107,8 @@ KERNELS = {
     "seanet_chunk": ("sopro_tpu_torch/csrc/seanet.cu", "sopro_tpu/codec/pallas_vocoder.py:383"),
 }
 CHUNK = 6  # stream() default chunk, AR frames
+# K4 as the serving tick runs it: 8 rows, chunk 16 (32 rows at 25 Hz), rows at different ages
+SERVE_K4 = (8, 32, (0, 2, 4, 6, 8, 8, 8, 8))
 # K2's row counts per stage: stream stage E, a stream window, one request, a B = 4 batch
 NAR_ROWS = (6, 187, MAX_FRAMES + 1, 4 * (MAX_FRAMES + 1))
 STREAM_REQUESTS = (
@@ -256,7 +285,7 @@ def check_seanet_chunk(mimi, dev, rng):
     out = {}
     with torch.inference_mode():
         for b, m25, hist in ((1, 2 * CHUNK, None), (2, 2 * CHUNK, (0, 5)), (1, 32, None),
-                             (2, 32, (3, halo)), (1, 2 * (MAX_FRAMES + 1), None)):
+                             (2, 32, (3, halo)), SERVE_K4, (1, 2 * (MAX_FRAMES + 1), None)):
             frames = -(-(halo + m25) // 2)  # 12.5 Hz frames -> 2 embedding rows each
             codes = torch.from_numpy(
                 rng.integers(0, cfg.codebook_size, (b, frames, cfg.num_quantizers))
@@ -298,8 +327,8 @@ def check_seanet_chunk(mimi, dev, rng):
                 f"(plain){extra}")
             out[(b, m25, hist)] = row
     worst = max(v["max_abs_err"] for v in out.values())
-    return dict(out[(1, 2 * CHUNK, None)], max_abs_err=worst,
-                chunk16=out[(1, 32, None)], err_f64_worst=max(v["err_f64"] for v in out.values()))
+    return dict(out[(1, 2 * CHUNK, None)], max_abs_err=worst, chunk16=out[(1, 32, None)],
+                serve_b8=out[SERVE_K4], err_f64_worst=max(v["err_f64"] for v in out.values()))
 
 
 def check_ar_loop(model, mimi, dev, rng):
@@ -694,6 +723,523 @@ def drive_reference_audio(tts, ref):
     log(f"  stream from the audio reference: {frames} frames, TTFA {ttfa * 1e3:.2f} ms")
 
 
+def mimi_checkpoint_state_dict(tree, cfg):
+    """The inverse of `codec.convert.convert_mimi_state_dict`: a Mimi tree
+    (with the quantizer's output projections, as `weights.init_mimi_params`
+    keeps them) -> the state dict under `transformers.MimiModel`'s names.
+    Codebooks go in as embed_sum with unit cluster usage, so the converter
+    divides them back exactly."""
+    from sopro_tpu_torch.codec.convert import ACOUSTIC, SEMANTIC
+    from sopro_tpu_torch.codec.mimi_config import (
+        CONV, CONVT, RESNET, decoder_plan, encoder_plan, upsample_spec,
+    )
+
+    sd = {}
+    c = np.ascontiguousarray
+
+    def conv(name, p):  # HIO [k, in/g, out] -> [out, in/g, k]
+        sd[f"{name}.weight"] = c(np.transpose(p["w"], (2, 1, 0)))
+        if "b" in p:
+            sd[f"{name}.bias"] = p["b"]
+
+    def convt(name, p, groups):  # flipped HIO [k, in/g, g*og] -> [in, og, k]
+        k, ig, out = p["w"].shape
+        w = np.transpose(p["w"].reshape(k, ig, groups, out // groups), (2, 1, 3, 0))[..., ::-1]
+        sd[f"{name}.weight"] = c(w.reshape(groups * ig, out // groups, k))
+        if "b" in p:
+            sd[f"{name}.bias"] = p["b"]
+
+    def seanet(prefix, params, plan):
+        for i, (p, (kind, spec)) in enumerate(zip(params, plan)):
+            if kind == CONV:
+                conv(f"{prefix}.layers.{i}.conv", p)
+            elif kind == CONVT:
+                convt(f"{prefix}.layers.{i}.conv", p, int(spec.get("groups", 1)))
+            elif kind == RESNET:
+                conv(f"{prefix}.layers.{i}.block.1.conv", p["convs"][0])
+                conv(f"{prefix}.layers.{i}.block.3.conv", p["convs"][1])
+
+    def transformer(prefix, tf):
+        for i, lp in enumerate(tf["layers"]):
+            n = f"{prefix}.layers.{i}"
+            for key, name in (("ln1", "input_layernorm"), ("ln2", "post_attention_layernorm")):
+                sd[f"{n}.{name}.weight"], sd[f"{n}.{name}.bias"] = lp[key]["scale"], lp[key]["bias"]
+            for key, name in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                              ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
+                              ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+                sd[f"{n}.{name}.weight"] = c(lp[key]["w"].T)
+            sd[f"{n}.self_attn_layer_scale.scale"] = lp["scale_attn"]
+            sd[f"{n}.mlp_layer_scale.scale"] = lp["scale_mlp"]
+
+    seanet("encoder", tree["encoder"], encoder_plan(cfg))
+    seanet("decoder", tree["decoder"], decoder_plan(cfg))
+    transformer("encoder_transformer", tree["enc_tf"])
+    transformer("decoder_transformer", tree["dec_tf"])
+    sd["downsample.conv.weight"] = c(np.transpose(tree["downsample"]["w"], (2, 1, 0)))
+    convt("upsample.conv", tree["upsample"], int(upsample_spec(cfg)["groups"]))
+    q, ns = tree["quantizer"], cfg.num_semantic_quantizers
+    for prefix, rows, proj_in, proj_out in ((SEMANTIC, range(ns), "in_proj_sem", "out_sem"),
+                                            (ACOUSTIC, range(ns, cfg.num_quantizers),
+                                             "in_proj_ac", "out_ac")):
+        for j, qi in enumerate(rows):
+            sd[f"{prefix}.layers.{j}.codebook.embed_sum"] = q["embed"][qi]
+            sd[f"{prefix}.layers.{j}.codebook.cluster_usage"] = np.ones(cfg.codebook_size, np.float32)
+        sd[f"{prefix}.input_proj.weight"] = c(q[proj_in].T[..., None])
+        sd[f"{prefix}.output_proj.weight"] = c(q[proj_out].T[..., None])
+    return sd
+
+
+def write_word_tokenizer(path):
+    """A WordLevel tokenizer (BOS 1, EOS 2, PAD 0) saved where
+    `transformers.AutoTokenizer` finds it."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+
+    vocab = {"<|pad|>": 0, "<s>": 1, "</s>": 2, "<unk>": 3}
+    vocab.update({w: 4 + i for i, w in enumerate(("hello", "world", "voice", "test", "card"))})
+    tok = Tokenizer(WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = Whitespace()
+    tok.save(os.path.join(path, "tokenizer.json"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<s>",
+                   "eos_token": "</s>", "pad_token": "<|pad|>", "unk_token": "<unk>"}, f)
+
+
+def drive_checkpoint(tts, ref, ref_tokens, dev, mcfg):
+    """save_pretrained of the phase-4 model, a Mimi snapshot in HF names
+    from the same seed's tree, both loaded again with every tensor consumed:
+    synthesize equal bit for bit; then, where transformers imports, the
+    snapshot's BPE tokenizer through from_pretrained."""
+    import dataclasses
+
+    from sopro_tpu_torch import hub as H
+    from sopro_tpu_torch import weights as W
+    from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
+    from sopro_tpu_torch.tts import SoproTTS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sdir, mdir = os.path.join(tmp, "sopro"), os.path.join(tmp, "mimi")
+        os.makedirs(mdir)
+        t0 = time.perf_counter()
+        tts.save_pretrained(sdir)
+        H.write_safetensors(os.path.join(mdir, "model.safetensors"),
+                            mimi_checkpoint_state_dict(W.init_mimi_params(SEED, mcfg), mcfg))
+        with open(os.path.join(mdir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(mcfg), f)
+        sizes = {d: sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d)) for d in (sdir, mdir)}
+        t1 = time.perf_counter()
+        loaded = SoproTTS.from_pretrained(sdir, mimi_repo_id=mdir, device=dev,
+                                          tokenizer=SimpleCharTokenizer(), on_unconsumed="raise")
+        t2 = time.perf_counter()
+        log(f"  save_pretrained + Mimi snapshot: {sizes[sdir] / 1e6:.1f} + {sizes[mdir] / 1e6:.1f} MB "
+            f"in {t1 - t0:.2f} s; from_pretrained (on_unconsumed='raise') {t2 - t1:.2f} s")
+        for text, seed in REQUESTS[:2]:
+            want = tts.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=seed)
+            got = loaded.synthesize(text, ref=loaded.prepare_reference(ref_tokens_tq=ref_tokens),
+                                    max_frames=MAX_FRAMES, seed=seed)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"checkpoint: the reloaded model's synthesize (seed={seed}) "
+                                     "differs from from_random's")
+            log(f"  reloaded synthesize seed={seed}: {got.shape[1]} samples, bit-identical")
+        try:
+            import transformers  # noqa: F401
+        except ImportError:
+            log("  tokenizer route: transformers does not import here; SimpleCharTokenizer only")
+            return
+        write_word_tokenizer(sdir)
+        bpe = SoproTTS.from_pretrained(sdir, mimi_repo_id=mdir, device=dev, on_unconsumed="raise")
+        text = "hello world voice test card"
+        ids = bpe.encode_text(text)
+        if ids[0] != bpe.tokenizer.bos_id or ids[-1] != bpe.tokenizer.eos_id or len(ids) != 7:
+            raise AssertionError(f"BPE tokenizer ids {ids}")
+        got = bpe.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=5)
+        same_ids = SoproTTS(loaded.engine, loaded.cfg, bpe.tokenizer)
+        if not np.array_equal(got, same_ids.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=5)):
+            raise AssertionError("checkpoint: the BPE route differs from the reloaded model")
+        log(f"  tokenizer route: transformers AutoTokenizer (TextTokenizer), ids {ids}; "
+            f"synthesize {got.shape[1]} samples, equal to the reloaded model fed the same ids")
+
+
+SERVE_TEXTS = [f"Session number {i} speaks on a shared card, each with its own seed." for i in range(12)]
+# the burst's caps: the short ones finish early, so the later four join mid-flight
+SERVE_MAX = (400, 400, 400, 400, 96, 144, 192, 240, 400, 400, 400, 400)
+SERVE_SEEDS = tuple(100 + i for i in range(12))
+SERVE_TEXT_BUCKET = 256  # the server's default bucket
+
+
+def collect(handle):
+    """Drain a session in a thread -> (list of (perf_counter, chunk), thread)."""
+    import threading
+
+    got = []
+
+    def run():
+        for c in handle.chunks():
+            got.append((time.perf_counter(), c))
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return got, th
+
+
+def run_batcher_alone(tts, ref, i, **kw):
+    """Session i alone in a fresh batcher -> its chunks."""
+    from sopro_tpu_torch.serve import ContinuousBatcher
+
+    b = ContinuousBatcher(tts, **kw)
+    try:
+        h = b.submit(SERVE_TEXTS[i], ref, seed=SERVE_SEEDS[i], max_frames=SERVE_MAX[i])
+        return list(h.chunks())
+    finally:
+        b.stop()
+
+
+# K1's rows held against the plain loop: each at its own age (t), one stopped (a free slot)
+SERVE_AGES = (0, 3, 17, 40, 1, 120, 250, 380)
+SERVE_STOPPED = 5
+
+
+def serve_rows_state(cfg, b, s, dev, rng):
+    """A K1 state of b serving rows at SERVE_AGES: the row's last token and
+    a history of earlier tokens where t > 0, a random conv state, row
+    SERVE_STOPPED stopped."""
+    from sopro_tpu_torch.models import sopro as M
+
+    c = M.init_ar_carry(cfg, b, s, 7, dev)
+    st = {k: getattr(c, k) for k in ("t", "last", "streak", "stopped", "first_eos", "key", "hist",
+                                     "bufs")}
+    ages = np.asarray(SERVE_AGES[:b], np.int32)
+    st["t"] = torch.from_numpy(ages).to(dev)
+    toks = rng.integers(0, cfg.codebook_size, (b, st["hist"].shape[1] + 1)).astype(np.int32)
+    st["last"] = torch.from_numpy(np.where(ages > 0, toks[:, -1], 0)).to(dev)
+    hist = np.where(np.arange(st["hist"].shape[1])[None] >= st["hist"].shape[1] - ages[:, None],
+                    toks[:, :-1], -1)
+    st["hist"] = torch.from_numpy(hist.astype(np.int32)).to(dev)
+    st["bufs"] = torch.from_numpy(
+        rng.standard_normal(tuple(st["bufs"].shape)).astype(np.float32) * 0.3).to(dev)
+    if b > SERVE_STOPPED:
+        st["stopped"][SERVE_STOPPED] = 1
+    return st
+
+
+def check_ar_loop_rows(tts, st, dev, rng):
+    """K1 at 1, 4, 7 and 8 rows of the serving state (text bucket 256,
+    S = 401, the stacked text KV the batcher keeps): µs per step over 64
+    steps, and the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters). At 7 and 8 rows also held against
+    ar_loop_plain over the 64 steps from `serve_rows_state`, with per-row
+    near-greedy settings and min_gen, anti-loop on with recovery = the
+    normal settings (a session with anti_loop off, as the tick runs it):
+    tokens and state equal, the conv state within 1e-4 of its peak."""
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.ops.ar_loop import active_clusters, ar_loop, ar_loop_plain
+
+    out = {}
+    steps = 64
+    with torch.inference_mode():
+        for b in (1, 4, 7, 8):
+            ctx = M.ar_context_from_kv(tts.engine.model, st.kv_k[:, :b].contiguous(),
+                                       st.kv_v[:, :b].contiguous(), st.text_mask[:b].clone())
+            cond = st.cond[:b].contiguous()
+
+            def fresh():
+                c = M.init_ar_carry(tts.cfg, b, cond.shape[1], 7, dev)
+                return {k: getattr(c, k) for k in ("t", "last", "streak", "stopped", "first_eos",
+                                                   "key", "hist", "bufs")}
+
+            per_row = M.ARSettings().per_row(b, dev)
+            ms = cuda_ms(lambda: ar_loop(ctx, cond, fresh(), per_row, steps, True), 5)
+            _, state = ar_loop(ctx, cond, fresh(), per_row, steps, True)
+            done = int(state["t"].min())
+            cs, clusters = active_clusters(ctx, cond, fresh(), per_row)
+            out[b] = {"us_per_step": ms * 1e3 / steps, "steps": done, "cluster": cs,
+                      "co_resident_clusters": clusters}
+            log(f"  K1 at B={b} (text bucket {ctx.mask.shape[1]}): "
+                f"{ms * 1e3 / steps:.1f} µs per step over {steps} steps (every row ran {done}); "
+                f"cluster {cs} blocks, {clusters} clusters co-resident")
+            if b < 7:
+                continue
+            greedy = torch.tensor([1e-4 * (1 + i) for i in range(b)], device=dev)
+            top_p = torch.tensor([(0.9, 0.5, 0.95, 0.7)[i % 4] for i in range(b)], device=dev)
+            sett = M.ARSettings(top_p=top_p, temperature=greedy, recovery_top_p=top_p,
+                                recovery_temp=greedy,
+                                min_gen_frames=torch.tensor([1 + 7 * i for i in range(b)]))
+            per_row = sett.per_row(b, dev)
+            start = serve_rows_state(tts.cfg, b, cond.shape[1], dev, rng)
+            tk, sk = ar_loop(ctx, cond, dict(start), per_row, steps, True)
+            tp, sp = ar_loop_plain(ctx, cond, dict(start), per_row, steps, True)
+            torch.cuda.synchronize()
+            what = f"K1 at B={b}, rows at t={SERVE_AGES[:b]}, near-greedy per row"
+            if not torch.equal(tk, tp):
+                rows = sorted(set((tk != tp).nonzero()[:, 0].tolist()))
+                raise AssertionError(f"{what}: tokens differ from ar_loop_plain in rows {rows}")
+            for k in ("t", "last", "streak", "stopped", "first_eos", "key", "hist"):
+                if not torch.equal(sk[k], sp[k]):
+                    raise AssertionError(f"{what}: state {k} differs from ar_loop_plain")
+            err, peak = float((sk["bufs"] - sp["bufs"]).abs().max()), float(sp["bufs"].abs().max())
+            if not err <= 1e-4 * peak:
+                raise AssertionError(f"{what}: conv state max|err| {err} > 1e-4 * peak {peak}")
+            out[b].update(plain_max_abs_err=err, plain_t=sp["t"].tolist())
+            log(f"  {what}: tokens and state equal to ar_loop_plain over {steps} steps (t after: "
+                f"{sp['t'].tolist()}), conv-state max|err| {err:.3e}, peak {peak:.3e}")
+    return out
+
+
+# the serve tick's NAR window at 8 slots, each row at its own age: frames emitted so far
+SERVE_EMITTED = (0, 16, 48, 100, 181, 250, 384, 400)
+
+
+def check_nar_tick(tts, st, dev):
+    """K2 as the serve tick runs it, on pass B's state: the window that
+    `engine.serve_window` gathers across 8 slots at SERVE_EMITTED (8 x 197
+    rows per stage, the last stage's heads on the 8 x 16 tail rows). The
+    gather equals per-row slices zero-padded as the stream cuts them; per
+    stage, ids equal to the plain version's wherever the top-2 margin is
+    above 1e-5, and the stages' ids equal to `nar_refine`'s; kernel and
+    plain version timed per stage."""
+    import torch.nn.functional as F
+
+    from sopro_tpu_torch.bench_kernels import bound, nar_cost
+    from sopro_tpu_torch.engine import serve_window
+    from sopro_tpu_torch.models import nar as N
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax, nar_heads_argmax_plain
+
+    model, cfg = tts.engine.model, tts.cfg
+    cf, ctx_frames = 16, int(cfg.rf_nar())
+    w, c, s = cf + ctx_frames, st.carry, st.cond.shape[1]
+    out = {"ms": 0.0, "plain_ms": 0.0, "rows": [], "mismatches": 0, "max_abs_err": 0.0}
+    flop = nbytes = 0.0
+    with torch.inference_mode():
+        emitted = torch.tensor(SERVE_EMITTED, dtype=torch.int32, device=dev)
+        valid = torch.minimum(torch.minimum(c.first_eos, c.t), st.rows["max_frames"] + 1)
+        win, rvq, mask = serve_window(st.cond, c.tokens, emitted, valid, cf, ctx_frames)
+        for i, e in enumerate(SERVE_EMITTED):
+            lo, hi = e - ctx_frames, e + cf
+            pad = (max(0, -lo), max(0, hi - s))
+            if not (torch.equal(win[i], F.pad(st.cond[i, max(lo, 0): min(hi, s)], (0, 0) + pad))
+                    and torch.equal(rvq[i], F.pad(c.tokens[i, max(lo, 0): min(hi, s)], pad))):
+                raise AssertionError(f"serve window row {i} (emitted {e}): the gather differs "
+                                     "from the row's own slice")
+        path = M.nar_refine(model, win, rvq, mask=mask, head_tail=cf)
+        shared, stages, idx = model.shared.p, cfg.stage_order(), cfg.stage_indices()
+        prev_tokens, prev_cbs = rvq[..., None].to(torch.int32), [0]
+        for stage in stages:
+            tail = cf if stage == stages[-1] else None
+            prev_emb = N.cb_sum_embed_subset(shared["cb_embed"], M.cb_spec(cfg), prev_tokens,
+                                             prev_cbs, cb_weights=shared["nar_prev_cb_weights"])
+            z = N._stage_hidden(model.nar.p, cfg, stage, win, prev_emb, mask, tail).contiguous()
+            hid, wst, bst, packed = model.nar.head_stacks()[stage]
+            got = nar_heads_argmax(z, hid, wst, bst, packed)
+            want = nar_heads_argmax_plain(z, hid, wst, bst)
+            logits = torch.einsum("bthd,hdv->bthv", (z[:, :, None, :] + hid[None, None]).double(),
+                                  wst.double()) + bst[None, None].double()
+            top2 = torch.topk(logits, 2, dim=-1).values
+            differ = got != want
+            bad = int((differ & (top2[..., 0] - top2[..., 1] > 1e-5)).sum())
+            if bad:
+                raise AssertionError(f"nar_heads at the serve tick, stage {stage}: {bad} ids "
+                                     "differ at a clear margin")
+            if not torch.equal(got, path[:, w - got.shape[1]:, idx[stage]]):
+                raise AssertionError(f"nar_heads at the serve tick, stage {stage}: the ids differ "
+                                     "from nar_refine's")
+            gl = torch.gather(logits, -1, got.long()[..., None])[..., 0]
+            out["max_abs_err"] = max(out["max_abs_err"], float((top2[..., 0] - gl).max()))
+            out["mismatches"] += int(differ.sum())
+            out["ms"] += cuda_ms(lambda: nar_heads_argmax(z, hid, wst, bst, packed), 20)
+            out["plain_ms"] += cuda_ms(lambda: nar_heads_argmax_plain(z, hid, wst, bst), 20)
+            rows = z.shape[0] * z.shape[1]
+            out["rows"].append(rows)
+            f, n = nar_cost(rows, *wst.shape)
+            flop, nbytes = flop + f, nbytes + n
+            if stage != stages[-1]:
+                prev_tokens = torch.cat([prev_tokens, got], dim=-1)
+                prev_cbs = prev_cbs + list(idx[stage])
+    out.update(bound(flop, nbytes, tf32x3=True), library_ms=out["plain_ms"])
+    log(f"  nar_heads at the serve tick (rows per stage {out['rows']}, emitted {SERVE_EMITTED}): "
+        f"gather equal to per-row slices, ids equal to nar_refine's and to plain's but "
+        f"{out['mismatches']} near-ties (worst float64 logit gap {out['max_abs_err']:.3e}); "
+        f"{out['ms']:.3f} ms (kernel) vs {out['plain_ms']:.3f} ms (plain = einsum + argmax); "
+        f"bound {out['bound_ms']:.4f} ms ({out['bound_rate']})")
+    return out
+
+
+def drive_serve(tts, ref, dev, rng):
+    """Phase 10: pass A (production defaults, 12 sessions on 8 slots),
+    sessions again alone, pass B (ramp off, against tts.stream), HTTP."""
+    import socket
+    import urllib.request
+
+    from sopro_tpu_torch import kernels
+    from sopro_tpu_torch.serve import ContinuousBatcher
+    from sopro_tpu_torch.serve import server as core
+    from sopro_tpu_torch.serve import server_stdlib as srv
+
+    hop, sr = tts.engine.mimi_cfg.hop_length, tts.engine.mimi_cfg.sampling_rate
+    prod = dict(slots=8, chunk_frames=16, ramp_frames=4, text_bucket=SERVE_TEXT_BUCKET, max_frames=MAX_FRAMES,
+                pcm16=True)
+    serve_b = b = ContinuousBatcher(tts, **prod)  # serves the HTTP requests at the end too
+    t0 = time.perf_counter()
+    b.warmup()
+    torch.cuda.synchronize()
+    log(f"  warmup over ref buckets {tts.engine.rt.ref_buckets}: {time.perf_counter() - t0:.2f} s")
+
+    b.reset_stats()  # stats() below count pass A's traffic only
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    handles = [b.submit(SERVE_TEXTS[i], ref, seed=SERVE_SEEDS[i], max_frames=SERVE_MAX[i])
+               for i in range(8)]
+    runs = [collect(h) for h in handles]
+    while len(runs[0][0]) < 3:  # the burst is decoding
+        time.sleep(0.005)
+    handles += [b.submit(SERVE_TEXTS[i], ref, seed=SERVE_SEEDS[i], max_frames=SERVE_MAX[i])
+                for i in range(8, 12)]
+    runs += [collect(h) for h in handles[8:]]
+    for _, th in runs:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("serve pass A: a session did not finish")
+    wall = time.perf_counter() - t0
+    launches = launched("serve", ("ar_loop", "nar_heads", "seanet_chunk"))
+    if launches["seanet"] or launches["ar_step"]:
+        raise AssertionError(f"serve pass A launched K3 or K5: {launches}")
+    stats = b.stats()
+    if stats["ticks"] != launches["ar_loop"] or stats["sessions_done"] != 12:
+        raise AssertionError(f"serve pass A: stats count {stats['ticks']} ticks and "
+                             f"{stats['sessions_done']} sessions; K1 launched "
+                             f"{launches['ar_loop']} times for 12 sessions")
+    ttfa = [h.first_chunk_s * 1e3 for h in handles]
+    audio_s = 0.0
+    gaps = []
+    for i, (got, _) in enumerate(runs):
+        chunks = [c for _, c in got]
+        frames = sum(c.shape[1] for c in chunks) // hop
+        if chunks[0].shape[1] != 4 * hop or any(c.shape[1] != 16 * hop for c in chunks[1:-1]):
+            raise AssertionError(f"serve session {i}: chunk grid {[c.shape[1] // hop for c in chunks]}")
+        if any(c.dtype != np.int16 for c in chunks):
+            raise AssertionError(f"serve session {i}: not int16 PCM")
+        want = tts.generate_tokens(SERVE_TEXTS[i], ref, max_frames=SERVE_MAX[i],
+                                   seed=SERVE_SEEDS[i]).shape[0]
+        if frames != want:
+            raise AssertionError(f"serve session {i}: {frames} frames, generate_tokens gives {want}")
+        stamps = [t for t, _ in got]
+        gaps.append(float(np.mean(np.diff(stamps[1:]))) * 1e3 if len(stamps) > 2 else float("nan"))
+        audio_s += frames * hop / sr
+    log(f"  pass A: 12 sessions on 8 slots, {audio_s:.2f} s of audio in {wall:.3f} s = "
+        f"{audio_s / wall:.1f} s of audio per second; ticks {stats['ticks']} (ramp "
+        f"{stats['ramp_ticks']}), admit groups {stats['admit_groups']}")
+    log(f"  pass A: tick dispatch p50 {stats['tick_dispatch_ms_p50']} ms, read p50 "
+        f"{stats['tick_read_ms_p50']} ms; TTFA p50 {stats['ttfa_p50_ms']} ms = prep "
+        f"{stats['ttfa_prep_p50_ms']} + queue {stats['ttfa_queue_p50_ms']} + admit->tick "
+        f"{stats['ttfa_admit_tick_p50_ms']} + tick->chunk {stats['ttfa_tick_chunk_p50_ms']} ms")
+    log(f"  pass A: TTFA per session, ms: {[round(x, 2) for x in ttfa]}; the 8-way burst's p50 "
+        f"{statistics.median(ttfa[:8]):.2f} ms, the 4 joiners' {statistics.median(ttfa[8:]):.2f} ms")
+    log(f"  pass A: steady chunk gap per session, ms: {[round(g, 2) for g in gaps]}")
+    for i in (0, 4, 9):  # a full burst session, a short one, a mid-flight joiner
+        alone = np.concatenate(run_batcher_alone(tts, ref, i, **prod), axis=1)
+        mixed = np.concatenate([c for _, c in runs[i][0]], axis=1)
+        diff = int(np.abs(alone.astype(np.int32) - mixed.astype(np.int32)).max(initial=0))
+        log(f"  session {i} alone in a fresh batcher: {alone.shape[1] // hop} frames, max "
+            f"|PCM difference| {diff} LSB")
+        if alone.shape != mixed.shape or diff > 1:
+            raise AssertionError(f"serve session {i}: alone differs from co-resident by {diff} LSB")
+    result = dict(stats=stats, launches=launches, sessions=12, audio_s_per_s=audio_s / wall,
+                  gaps_ms=gaps, ttfa_ms=ttfa)
+
+    log("  pass B: ramp off, 8 sessions against tts.stream (chunk 16)")
+    b = ContinuousBatcher(tts, **dict(prod, ramp_frames=16, pcm16=False))
+    try:
+        hs = [b.submit(SERVE_TEXTS[i], ref, seed=SERVE_SEEDS[i], max_frames=SERVE_MAX[i])
+              for i in range(8)]
+        outs = [np.concatenate(list(h.chunks()), axis=1) for h in hs]
+    finally:
+        b.stop()
+    ar_tokens = b.state.carry.tokens.cpu().numpy()  # session i joined slot i
+    result["k1_rows"] = check_ar_loop_rows(tts, b.state, dev, rng)
+    result["k2_tick"] = check_nar_tick(tts, b.state, dev)
+    bad = []
+    for i, out in enumerate(outs):
+        solo = np.concatenate(list(tts.stream(SERVE_TEXTS[i], ref=ref, max_frames=SERVE_MAX[i],
+                                              chunk_frames=16, seed=SERVE_SEEDS[i])), axis=1)
+        if out.shape != solo.shape:
+            raise AssertionError(f"serve pass B session {i}: {out.shape} vs {solo.shape}")
+        diff, peak = np.abs(out - solo)[0], float(np.abs(solo).max())
+        frames = sorted(set((np.nonzero(diff > 1e-4 * peak)[0] // hop).tolist()))
+        want = tts.generate_tokens(SERVE_TEXTS[i], ref, max_frames=SERVE_MAX[i], seed=SERVE_SEEDS[i])
+        same_ar = np.array_equal(ar_tokens[i, : want.shape[0]], want[:, 0])
+        log(f"  pass B session {i}: {out.shape[1] // hop} frames, AR tokens "
+            f"{'equal to' if same_ar else 'DIFFER from'} generate_tokens', max|err| / peak "
+            f"{float(diff.max()) / peak:.2e}" + (f", frames past 1e-4: {frames}" if frames else ""))
+        bad += [i] if frames else []
+        if not same_ar:
+            raise AssertionError(f"serve pass B session {i}: AR tokens differ from generate_tokens")
+    if bad:
+        raise AssertionError(f"serve pass B: sessions {bad} differ from their solo streams")
+
+    log("  HTTP: server_stdlib on 127.0.0.1 over pass A's model and batcher")
+    core._tts, core._batcher = tts, serve_b
+    done = serve_b.stats()["sessions_done"]
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    httpd = srv.serve("127.0.0.1", port)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            core.CFG.ref_cache_dir = tmp
+            clip = tts.synthesize(REQUESTS[1][0], ref=ref, max_frames=MAX_FRAMES, seed=2)[:, : 10 * sr]
+            wav_bytes = core.wav_bytes_from_float(clip * (0.5 / max(float(np.abs(clip).max()), 1e-12)), sr)
+            boundary = "smokeboundary"
+
+            def post(path, fields, files=None):
+                parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'
+                         .encode() for k, v in fields.items()]
+                parts += [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"; filename="{fn}"'
+                          f"\r\nContent-Type: application/octet-stream\r\n\r\n".encode() + d + b"\r\n"
+                          for k, (fn, d) in (files or {}).items()]
+                req = urllib.request.Request(
+                    base + path, data=b"".join(parts) + f"--{boundary}--\r\n".encode(),
+                    headers={"Content-Type": f"multipart/form-data; boundary={boundary}"},
+                    method="POST")
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    return r.status, dict(r.headers), r.read()
+
+            t1 = time.perf_counter()
+            code, _, body = post("/v1/reference/cache", {}, {"ref_audio": ("ref.wav", wav_bytes)})
+            rid = json.loads(body)["ref_id"]
+            log(f"  POST /v1/reference/cache (10 s WAV): {code}, {time.perf_counter() - t1:.3f} s")
+            t1 = time.perf_counter()
+            code2, _, data = post("/v1/audio/speech", {"input": SERVE_TEXTS[0], "ref_id": rid,
+                                                       "stream": "true", "max_frames": "64"})
+            if data[:4] != b"SPRO" or struct.unpack("<II", data[4:12]) != (sr, 1):
+                raise AssertionError("HTTP stream: bad SPRO header")
+            off, total = 12, 0
+            while off < len(data):
+                (n,) = struct.unpack("<I", data[off: off + 4])
+                off, total = off + 4 + n, total + n
+            want = (min(64, MAX_FRAMES) + 1) * hop * 2  # random weights run to the cap
+            if off != len(data) or total != want:
+                raise AssertionError(f"HTTP stream: {total} PCM bytes, want {want}")
+            log(f"  POST /v1/audio/speech stream=true: {code2}, {total // 2} samples in SPRO frames, "
+                f"{time.perf_counter() - t1:.3f} s")
+            code3, headers, body = post("/v1/audio/speech", {"input": SERVE_TEXTS[1], "ref_id": rid,
+                                                             "stream": "false", "max_frames": "64"})
+            if body[:4] != b"RIFF" or not headers["Content-Type"].startswith("audio/wav"):
+                raise AssertionError("HTTP: stream=false did not answer a WAV")
+            log(f"  POST /v1/audio/speech stream=false: {code3}, {len(body)} bytes of WAV")
+            with urllib.request.urlopen(base + "/v1/stats", timeout=60) as r:
+                code4, st = r.status, json.loads(r.read())
+            log(f"  GET /v1/stats: {code4}, sessions_done {st['sessions_done']}")
+            if (code, code2, code3, code4) != (200, 200, 200, 200) or st["sessions_done"] != done + 2:
+                raise AssertionError(f"HTTP: answers {(code, code2, code3, code4)}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        serve_b.stop()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -741,6 +1287,10 @@ def main() -> int:
     _, stats["seanet"]["B4"] = drive_batch_path(tts, ref, dev, rng)
     log("[8] per-step route: RuntimeConfig(use_pallas_resident=False)")
     step_launches = drive_per_step_route(cfg, mcfg, dev, ref_tokens, tts, ref)
+    log("[9] checkpoint: save_pretrained, a Mimi snapshot in HF names, from_pretrained")
+    drive_checkpoint(tts, ref, ref_tokens, dev, mcfg)
+    log("[10] serve: ContinuousBatcher on the card, 8 slots, text bucket 256")
+    serve = drive_serve(tts, ref, dev, rng)
 
     # each kernel's count from the path it belongs to (K4: the stream, K5: the per-step
     # route), and per request of that path's counted run
@@ -750,7 +1300,13 @@ def main() -> int:
                     seanet_chunk=len(STREAM_REQUESTS), ar_step=PER_STEP_REQUESTS)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("bound_rate", "fp32_bound_ms", "err_f64", "plain_err_f64", "by_rows", "B4",
-             "chunk16", "err_f64_worst", "us_per_step", "first_diff_production")
+             "chunk16", "serve_b8", "err_f64_worst", "us_per_step", "first_diff_production")
+    for name in ("ar_loop", "nar_heads", "seanet_chunk"):
+        n = serve["launches"][name]
+        stats[name].update(serve_launches=n, serve_launches_per_session=n / serve["sessions"])
+    stats["ar_loop"]["serve_rows"] = serve["k1_rows"]
+    stats["nar_heads"]["serve_tick"] = serve["k2_tick"]
+    extra += ("serve_launches", "serve_launches_per_session", "serve_rows", "serve_tick")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "launches_per_request": launches[name] / requests[name],

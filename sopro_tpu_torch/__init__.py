@@ -1,16 +1,21 @@
 """sopro_tpu_torch: the Sopro TTS inference path in PyTorch for NVIDIA Hopper.
 
 A port of `sopro_tpu` (JAX) that imports neither JAX nor `sopro_tpu`. Plain
-tensor code is PyTorch; the four kernels on the synthesize and stream paths
-(AR decode loop, NAR heads+argmax, SEANet vocoder for whole utterances and
-for stream chunks) are CUDA C++ under `csrc/`, built with nvcc at first use
-and bound through ctypes (`kernels.py`).
+tensor code is PyTorch; the five kernels (the AR decode loop K1 and its
+one-step form K5, NAR heads+argmax K2, the SEANet vocoder for whole
+utterances K3 and for stream chunks K4) are CUDA C++ under `csrc/`, built
+with nvcc at first use and bound through ctypes (`kernels.py`).
 
-Import `sopro_tpu_torch.tts` for the `SoproTTS` facade; this package module
-itself imports nothing heavy.
+`SoproTTS` (from_pretrained / from_random, synthesize, stream, batch) is
+imported on first access; importing this package loads only the
+configuration classes. Serving is `sopro_tpu_torch.serve`.
 """
 
-__all__ = ["SoproTTS"]
+from sopro_tpu_torch.config import RuntimeConfig, SoproTTSConfig
+
+__version__ = "1.5.0"
+
+__all__ = ["SoproTTS", "SoproTTSConfig", "RuntimeConfig", "__version__"]
 
 
 def __getattr__(name):

@@ -6,6 +6,7 @@ sopro_tpu/codec/pallas_vocoder.py::required_halo).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
@@ -63,6 +64,16 @@ class MimiConfig:
     def tokens_per_frame(self) -> int:
         """Transformer tokens per codec frame (2: 12.5 Hz frames -> 25 Hz)."""
         return int(self.encodec_frame_rate / self.frame_rate)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "MimiConfig":
+        """A Mimi `config.json`: unknown keys are dropped, lists become
+        tuples, and a missing head_dim is hidden_size / heads."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        init = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items() if k in names}
+        if "head_dim" not in init and "hidden_size" in init:
+            init["head_dim"] = init["hidden_size"] // init.get("num_attention_heads", 8)
+        return cls(**init)
 
 
 def _resnet_plan(cfg: MimiConfig, dim: int, dilations: Tuple[int, int]) -> Tuple[str, Dict]:

@@ -1,10 +1,11 @@
 """Model hyper-parameter configuration (counterpart: sopro_tpu/config.py).
 
 `SoproTTSConfig` keeps the checkpoint's exact field set and defaults, so a
-`cfg` JSON deserializes unchanged. `RuntimeConfig` keeps only the knobs the
-port reads: the padding buckets, which must match the JAX package's so both
-compute on the same padded shapes, the batch grouping and the choice of AR
-kernel.
+`cfg` JSON deserializes unchanged. `RuntimeConfig` takes the JAX package's
+fields: the padding buckets, which must match the JAX package's so both
+compute on the same padded shapes, the batch grouping, the choice of AR
+kernel and of SEANet kernel, and the dtypes (float32 only, until a bf16
+path lands).
 """
 
 from __future__ import annotations
@@ -121,9 +122,17 @@ def _cycle_to(cycle: Tuple[int, ...], n: int) -> Tuple[int, ...]:
 @dataclass(frozen=True)
 class RuntimeConfig:
     """Execution knobs; not part of the checkpoint contract, names and
-    defaults as in the JAX package. The port computes in float32 only
-    (every tolerance it is held to assumes it)."""
+    defaults as in the JAX package.
 
+    Four fields are accepted for the JAX API's sake and select nothing:
+    `compute_dtype` and `param_dtype` (the port computes in float32 only,
+    and every tolerance it is held to assumes it: another value raises
+    ValueError), `ar_chunk` (read by no code) and `use_pallas_vocoder`
+    (the kernels are the only SEANet route on the card: False raises
+    there)."""
+
+    compute_dtype: str = "float32"
+    param_dtype: str = "float32"
     # Pad text-token sequences to these bucket lengths (same rule as the
     # JAX package, so both packages compute on identical padded shapes).
     text_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -132,6 +141,8 @@ class RuntimeConfig:
     # The adaptive plan's NAR + Mimi decode run over the generated length
     # rounded up to a multiple of this.
     nar_pad_multiple: int = 64
+    # The JAX package's AR scan chunk; read by neither package.
+    ar_chunk: int = 8
     # synthesize_batch sub-batch size (0: one batch); every group is
     # enqueued before the first is copied to the host.
     batch_pipeline_group: int = 0
@@ -142,6 +153,18 @@ class RuntimeConfig:
     # shared memory fits (`Engine.resident_eligible`). None: on for a CUDA
     # device. On CUDA, a call that neither knob selects raises.
     use_pallas_resident: "bool | None" = None
+    # The SEANet kernels K3 and K4 (`codec/vocoder.py`). None or True: the
+    # kernels on a CUDA device; False raises there (the port has no other
+    # SEANet route on the card). CPU tensors take the plain version either way.
+    use_pallas_vocoder: "bool | None" = None
+
+    def __post_init__(self):
+        for name in ("compute_dtype", "param_dtype"):
+            if getattr(self, name) != "float32":
+                raise ValueError(
+                    f"RuntimeConfig({name}={getattr(self, name)!r}): the port computes in "
+                    "float32 only"
+                )
 
 
 def pick_bucket(n: int, buckets: Tuple[int, ...]) -> int:

@@ -967,7 +967,28 @@ int launch(const ArLoopArgs& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// How many clusters of a.cs blocks the card holds at once for this launch:
+// a cluster must fit inside one GPC, so rows past the count run in waves.
+template <bool kLogitsOnly>
+int active_clusters(const ArLoopArgs& a, int* out) {
+  int rc = check_args<kLogitsOnly>(a);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  bool ok = false;
+  cudaError_t e = configure<kLogitsOnly>(a, a.cs, cfg, attr, ok);
+  if (e != cudaSuccess) return (int)e;
+  if (!ok) return (int)cudaErrorInvalidConfiguration;
+  return (int)cudaOccupancyMaxActiveClusters(out, ar_loop_kernel<kLogitsOnly>, &cfg);
+}
+
 }  // namespace
+
+// cudaOccupancyMaxActiveClusters for K1 (logits_only = 0) or K5 (1) at
+// cluster size a.cs and these shapes. Returns 0 or an error code.
+extern "C" int sopro_ar_active_clusters(const ArLoopArgs* args, int logits_only, int* out) {
+  return logits_only ? active_clusters<true>(*args, out) : active_clusters<false>(*args, out);
+}
 
 // The cluster size K1 (logits_only = 0) or K5 (1) takes for these args
 // (the weight stream is then packed for it). Returns 0 or an error code.

@@ -20,6 +20,13 @@ copy:
   context, cond, MimiStreamState) stays on the device between calls; the
   host gets the chunk's samples with the valid frame count and the done
   flag packed behind them;
+- the serving plan (`ContinuousBatcher`, serve/scheduler.py): a
+  `ServeState` of B slots on the device, each a session at its own age with
+  its own settings and seed; `serve_join` conditions a group of sessions
+  and scatters them into free slots, `serve_tick` advances every slot by one
+  chunk: an AR chunk for all B rows (K1), NAR per row over a window of
+  original frames (K2 on the last `cf`), a Mimi stream step masked to the
+  rows that emit (K4), packed into one device tensor for one copy;
 - `encode_audio`: Mimi encode of a reference waveform, padded to a ref
   bucket.
 
@@ -35,12 +42,15 @@ with a validity mask), so both packages compute on the same shapes. One
 difference: the stream's NAR window always covers original frames
 [emitted + cf - w, emitted + cf), zero-padded on both sides, where the JAX
 package clamps the window's start and shifts the last chunk of a
-max-length stream back by one frame.
+max-length stream back by one frame (the serving tick likewise).
+
+An engine built without a codec (`SoproTTS.from_random(with_codec=False)`)
+runs conditioning, AR decode and NAR refine; its codec calls raise.
 """
 
 from __future__ import annotations
 
-from dataclasses import replace
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -49,8 +59,11 @@ import torch.nn.functional as F
 
 from sopro_tpu_torch import sampling as S
 from sopro_tpu_torch.codec.mimi import MimiCodec, mimi_encode
-from sopro_tpu_torch.codec.streaming import MimiStreamState, init_mimi_stream_state, mimi_decode_step
+from sopro_tpu_torch.codec.streaming import (
+    MimiStreamState, init_mimi_stream_state, mimi_decode_step, reset_stream_rows,
+)
 from sopro_tpu_torch.config import RuntimeConfig, SoproTTSConfig, pick_bucket
+from sopro_tpu_torch.models import generator as G
 from sopro_tpu_torch.models import sopro as M
 from sopro_tpu_torch.ops.ar_loop import SMEM_PER_BLOCK, ARLoopContext, smem_bytes
 from sopro_tpu_torch.ops.ar_step import ARStepContext
@@ -100,21 +113,36 @@ class Engine:
     def __init__(
         self,
         model: M.SoproModel,
-        mimi: MimiCodec,
+        mimi: Optional[MimiCodec],
         runtime: Optional[RuntimeConfig] = None,
     ):
         self.model = model
         self.cfg: SoproTTSConfig = model.cfg
         self.mimi = mimi
-        self.mimi_cfg = mimi.cfg
+        self.mimi_cfg = mimi.cfg if mimi is not None else None
         self.rt = runtime or RuntimeConfig()
         self.device = model.device()
         cuda = self.device.type == "cuda"
         if cuda:
             configure_cuda_numerics()
+            if self.rt.use_pallas_vocoder is False:
+                raise ValueError(
+                    "RuntimeConfig(use_pallas_vocoder=False): the SEANet kernels K3/K4 are the "
+                    "port's only SEANet route on a CUDA device"
+                )
         knob = lambda v: cuda if v is None else bool(v)  # None: on for a CUDA device
         self.use_pallas_ar = knob(self.rt.use_pallas_ar)
         self.use_pallas_resident = knob(self.rt.use_pallas_resident)
+
+    @property
+    def codec(self) -> MimiCodec:
+        """The Mimi codec; raises for an engine built without one."""
+        if self.mimi is None:
+            raise RuntimeError(
+                "this engine has no Mimi codec (built with with_codec=False): "
+                "decoding and reference audio need the codec"
+            )
+        return self.mimi
 
     def _padded(self, rows: Sequence[np.ndarray], buckets) -> Tuple[torch.Tensor, torch.Tensor]:
         """B rows of [T_i, ...] ints -> ([B, Tb, ...] int32, mask [B, Tb]) on
@@ -158,12 +186,13 @@ class Engine:
         """Mono wav [S] at the codec rate -> codes [T, Q], T = ceil(S / hop).
         The input is right-padded to a ref bucket of frames: every encoder
         stage is causal, so the first T frames are those of the exact input."""
-        hop = int(self.mimi_cfg.hop_length)
+        codec = self.codec
+        hop = int(codec.cfg.hop_length)
         s = int(wav.shape[-1])
         t = -(-s // hop)
         tb = pick_bucket(t, self.rt.ref_buckets)
         wav_p = _pad_axis(np.asarray(wav, np.float32), -1, tb * hop)
-        codes = mimi_encode(self.mimi.p, self.mimi_cfg, torch.from_numpy(wav_p)[None].to(self.device))
+        codes = mimi_encode(codec.p, codec.cfg, torch.from_numpy(wav_p)[None].to(self.device))
         return codes[0, :t].cpu().numpy()
 
     @torch.inference_mode()
@@ -227,7 +256,7 @@ class Engine:
         tb = min(self._frame_bucket(t), int(cond_ar.shape[1]))
         mask = torch.arange(tb, device=cond_ar.device)[None, :] < int(t)
         toks = M.nar_refine(self.model, cond_ar[:, :tb], tokens_dev[:, :tb], mask=mask)
-        wav = self.mimi(toks)
+        wav = self.codec(toks)
         wav = (_pcm16(wav) if pcm16 else wav).cpu().numpy()
         return wav[:, : t * int(self.mimi_cfg.hop_length)]
 
@@ -244,7 +273,7 @@ class Engine:
         """[T, Q] -> wav [1, T*hop], over the frame bucket of T."""
         t = int(tokens_tq.shape[0])
         toks = _pad_axis(np.asarray(tokens_tq, np.int32), 0, self._frame_bucket(t))[None]
-        wav = self.mimi(torch.from_numpy(toks).to(self.device))
+        wav = self.codec(torch.from_numpy(toks).to(self.device))
         return wav[:, : t * int(self.mimi_cfg.hop_length)].cpu().numpy()
 
     # -- the batch plan (the fused plan is its B = 1 case) -------------------
@@ -266,11 +295,15 @@ class Engine:
         lengths = torch.minimum(carry.first_eos, carry.t)
         frame_mask = torch.arange(s, device=self.device)[None, :] < lengths[:, None]
         toks = M.nar_refine(self.model, prep["cond_ar"], carry.tokens, mask=frame_mask)
-        return self.mimi(toks), lengths
+        return self.codec(toks), lengths
 
     def _row_keys(self, seeds: Sequence[int]) -> torch.Tensor:
-        """[B, 2]: row i's key is what init_ar_carry(batch=1) gives seed i."""
-        return torch.cat([S.split_rows(S.prng_key(int(sd), self.device), 1) for sd in seeds])
+        """[B, 2]: row i's key is what init_ar_carry(batch=1) gives seed i,
+        `split(PRNGKey(seed), 1)[0]`, the Threefry block at counters (0, 0)
+        under key (0, seed); drawn for all rows at once on the host."""
+        seeds = torch.tensor([int(sd) for sd in seeds], dtype=torch.int64)
+        a, b = S.threefry2x32(torch.zeros_like(seeds), seeds, 0, 0)
+        return torch.stack([a, b], dim=-1).to(self.device)
 
     @torch.inference_mode()
     def synthesize_fused(
@@ -381,9 +414,10 @@ class Engine:
         valid = torch.minimum(carry.first_eos, carry.t)
         frame_mask = torch.arange(cf, device=self.device)[None, :] < valid[:, None]
         toks = M.nar_refine(self.model, cond[:, :cf], carry.tokens[:, :cf], mask=frame_mask)
+        codec = self.codec
         wav, mstate = mimi_decode_step(
-            self.mimi.p, self.mimi_cfg, toks, init_mimi_stream_state(self.mimi_cfg, 1, self.device),
-            packed=self.mimi.packed_decoder(),
+            codec.p, codec.cfg, toks, init_mimi_stream_state(codec.cfg, 1, self.device),
+            packed=codec.packed_decoder(),
         )
         return (*self._chunk_out(wav, carry), carry, ctx, cond, mstate)
 
@@ -420,10 +454,188 @@ class Engine:
         orig = lo + torch.arange(w, device=self.device)
         mask = ((orig >= 0) & (orig < valid[0]))[None]
         toks = M.nar_refine(self.model, win, rvq, mask=mask, head_tail=cf)
+        codec = self.codec
         wav, mstate = mimi_decode_step(
-            self.mimi.p, self.mimi_cfg, toks[:, w - cf:], mstate, packed=self.mimi.packed_decoder()
+            codec.p, codec.cfg, toks[:, w - cf:], mstate, packed=codec.packed_decoder()
         )
         return (*self._chunk_out(wav, carry), carry, mstate)
+
+    # -- the serving plan: B slots, each a session at its own age -----------
+
+    @torch.inference_mode()
+    def serve_state(self, slots: int, text_bucket: int, max_frames: int) -> "ServeState":
+        """Every slot free: stopped rows (frozen by the per-row masks), zero
+        conditioning and text KV (every key valid, so no row attends to an
+        empty context), default settings, a fresh Mimi stream state."""
+        cfg, dev = self.cfg, self.device
+        b, s, l, d = int(slots), int(max_frames) + 1, int(text_bucket), int(cfg.d_model)
+        a = sum(xp is not None for xp in self.model.ar.p["xattn"])
+        carry = M.init_ar_carry(cfg, b, s, 0, dev)
+        carry.stopped.fill_(1)
+        kv = lambda: torch.zeros((a, b, G.TEXT_HEADS, l, d // G.TEXT_HEADS), device=dev)
+        f32 = lambda v: torch.full((b,), v, dtype=torch.float32, device=dev)
+        i32 = lambda v: torch.full((b,), v, dtype=torch.int32, device=dev)
+        st = ServeState(
+            carry=carry, cond=torch.zeros((b, s, d), device=dev), kv_k=kv(), kv_v=kv(),
+            text_mask=torch.ones((b, l), dtype=torch.bool, device=dev),
+            rows={"top_p": f32(0.9), "temperature": f32(1.05), "recovery_top_p": f32(0.85),
+                  "recovery_temp": f32(1.2), "min_gen": i32(cfg.min_gen_frames),
+                  "max_frames": i32(int(max_frames))},
+            mstate=init_mimi_stream_state(self.codec.cfg, b, dev),
+            emitted=torch.zeros((b,), dtype=torch.int32, device=dev), ctx=None,
+        )
+        route = ar_route(dev.type, b=b, resident=True, eligible=self.resident_eligible(b, l),
+                         use_step=self.use_pallas_ar)
+        st.ctx = M.ar_context_from_kv(self.model, st.kv_k, st.kv_v, st.text_mask,
+                                      step=route == "ar_step")
+        return st
+
+    @torch.inference_mode()
+    def serve_join(
+        self, st: "ServeState", slots: Sequence[int], ids: np.ndarray, mask: np.ndarray,
+        ref: M.PreparedReference, strength: Sequence[float], seeds: Sequence[int],
+        settings: Dict[str, Sequence],
+    ) -> None:
+        """Admit a group of G sessions into free `slots`, in place.
+
+        Conditioning runs batched, for the rows of each text bucket together:
+        ids / mask [G, L] (L the state's text bucket) are cut to the row's own
+        bucket (`pick_bucket` of its length, as the stream pads it), over
+        `ref` (batch G) with a style strength per row; the text KV is built
+        there and zero-padded to L (K1 reads masked keys as exact zeros, so a
+        session decodes as it would alone). Then the scatter into the slots:
+        conditioning, text KV and mask, a fresh AR carry row with the row's
+        key (`_row_keys`), the row's settings (`settings`: name -> G values,
+        names of `ServeState.rows`), a fresh Mimi stream row
+        (`reset_stream_rows`) and emitted = 0."""
+        dev, l_state = self.device, st.text_mask.shape[1]
+        mask = np.asarray(mask, bool)
+        buckets = [min(pick_bucket(int(n), self.rt.text_buckets), l_state) for n in mask.sum(1)]
+        for lb in sorted(set(buckets)):
+            rows = [i for i, x in enumerate(buckets) if x == lb]
+            part = torch.tensor(rows, dtype=torch.long)
+            sub = lambda x: x[part.to(x.device)].to(dev) if isinstance(x, torch.Tensor) else x
+            ref_part = M.PreparedReference(
+                sv_ref=sub(ref.sv_ref), ref_seq=sub(ref.ref_seq),
+                ref_kv=tuple({k: sub(v) for k, v in kv.items()} for kv in ref.ref_kv),
+            )
+            ids_t = torch.from_numpy(np.asarray(ids, np.int32)[rows, :lb]).to(dev)
+            mask_t = torch.from_numpy(mask[rows, :lb]).to(dev)
+            prep = M.prepare_conditioning(
+                self.model, ids_t, mask_t, ref_part, max_frames=st.cond.shape[1] - 1,
+                style_strength=torch.tensor([strength[i] for i in rows], dtype=torch.float32,
+                                            device=dev),
+            )
+            kv = [c for c in G.build_text_kv_caches(self.model.ar.p, self.cfg, prep["txt_seq"],
+                                                    mask_t) if c is not None]
+            pad = lambda x: F.pad(x, (0, 0, 0, l_state - lb))  # [A, g, H, lb, hd] -> L keys
+            idx = torch.tensor([slots[i] for i in rows], dtype=torch.long, device=dev)
+            st.cond[idx] = prep["cond_ar"]
+            st.kv_k[:, idx] = pad(torch.stack([c["k"] for c in kv]))
+            st.kv_v[:, idx] = pad(torch.stack([c["v"] for c in kv]))
+            st.text_mask[idx] = F.pad(mask_t, (0, l_state - lb))
+        idx = torch.tensor(list(slots), dtype=torch.long, device=dev)
+        c = st.carry
+        for leaf, fill in ((c.t, 0), (c.streak, 0), (c.last, 0), (c.tokens, 0), (c.stopped, 0),
+                           (c.first_eos, c.tokens.shape[1]), (c.hist, -1), (st.emitted, 0)):
+            leaf[idx] = fill
+        c.bufs[:, idx] = 0
+        c.key[idx] = self._row_keys(seeds)
+        for name, vals in settings.items():
+            st.rows[name][idx] = torch.tensor(list(vals), dtype=st.rows[name].dtype, device=dev)
+        joined = torch.zeros(st.emitted.shape, dtype=torch.bool, device=dev)
+        joined[idx] = True
+        st.mstate = reset_stream_rows(st.mstate, joined)
+
+    @torch.inference_mode()
+    def serve_stop(self, st: "ServeState", slots: Sequence[int]) -> None:
+        """Stop rows (a cancelled session): they decode no further."""
+        st.carry.stopped[torch.tensor(list(slots), dtype=torch.long, device=self.device)] = 1
+
+    @torch.inference_mode()
+    def serve_tick(
+        self, st: "ServeState", *, chunk: int, nar_ctx: int, first_only: bool = False,
+        pcm16: bool = False,
+    ) -> torch.Tensor:
+        """Advance every slot by one chunk of `chunk` frames, in place, and
+        return the packed [wav [B, chunk*hop] | t, first_eos, stopped, n_new
+        [4, B]] device tensor (float32, or int16 with `pcm16`).
+
+        - AR: one `ar_chunk` for all B rows with the per-row settings,
+          anti-loop on (a row with it off carries recovery = normal
+          settings); a row is stopped at its own max_frames + 1.
+        - NAR per row over original frames [emitted + chunk - w, emitted +
+          chunk), w = chunk + nar_ctx, sliced per row and zero-padded on both
+          sides (frames outside [0, S) or at or past the row's valid length
+          are masked), with the last stage's heads on the last `chunk`.
+        - A Mimi stream step of those `chunk` frames, masked to the rows with
+          n_new > 0 (the others keep their stream state; their output rows
+          are not shipped).
+
+        n_new = min(valid - emitted, chunk) per row; `first_only` (a ramp
+        tick) keeps it 0 for rows that already emitted, so every row keeps
+        its own chunk grid whatever ticks ran while it lived."""
+        cf, ctx_frames = int(chunk), int(nar_ctx)
+        w = cf + ctx_frames
+        rows = st.rows
+        settings = M.ARSettings(
+            top_p=rows["top_p"], temperature=rows["temperature"],
+            recovery_top_p=rows["recovery_top_p"], recovery_temp=rows["recovery_temp"],
+            min_gen_frames=rows["min_gen"], anti_loop=True,
+        )
+        carry = M.ar_chunk(st.carry, st.cond, st.ctx, settings, cf)
+        cap = rows["max_frames"] + 1
+        carry = replace(carry, stopped=torch.where(carry.t >= cap, torch.ones_like(carry.stopped),
+                                                   carry.stopped))
+        valid = torch.minimum(torch.minimum(carry.first_eos, carry.t), cap)
+        n_new = torch.clamp(torch.minimum(valid - st.emitted, torch.full_like(valid, cf)), min=0)
+        if first_only:
+            n_new = torch.where(st.emitted == 0, n_new, torch.zeros_like(n_new))
+        win, rvq, mask = serve_window(st.cond, carry.tokens, st.emitted, valid, cf, ctx_frames)
+        toks = M.nar_refine(self.model, win, rvq, mask=mask, head_tail=cf)
+        codec = self.codec
+        wav, st.mstate = mimi_decode_step(
+            codec.p, codec.cfg, toks[:, w - cf:], st.mstate, mask=n_new > 0,
+            packed=codec.packed_decoder(),
+        )
+        st.carry, st.emitted = carry, st.emitted + n_new
+        info = torch.stack([carry.t, carry.first_eos, carry.stopped, n_new])
+        if pcm16:
+            return torch.cat([_pcm16(wav).reshape(-1), info.to(torch.int16).reshape(-1)])
+        return torch.cat([wav.float().reshape(-1), info.float().reshape(-1)])
+
+
+@dataclass
+class ServeState:
+    """The serving plan's device state (`Engine.serve_state`): B slots, each
+    a session at its own age; a free slot is a stopped row."""
+
+    carry: M.ARCarry  # [B] rows, tokens [B, S]
+    cond: torch.Tensor  # [B, S, D]
+    kv_k: torch.Tensor  # [A, B, H, L, hd]: the text KV in the layout K1 reads
+    kv_v: torch.Tensor
+    text_mask: torch.Tensor  # [B, L] bool
+    rows: Dict[str, torch.Tensor]  # [B] each: top_p, temperature, recovery_top_p, recovery_temp, min_gen, max_frames
+    mstate: MimiStreamState
+    emitted: torch.Tensor  # [B] int32: frames shipped per row
+    ctx: Optional[ARContext]  # the AR context over kv_k / kv_v / text_mask (views)
+
+
+def serve_window(
+    cond: torch.Tensor, tokens: torch.Tensor, emitted: torch.Tensor, valid: torch.Tensor,
+    cf: int, nar_ctx: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The serve tick's NAR input: per row the original frames [emitted + cf
+    - w, emitted + cf), w = cf + nar_ctx, of cond [B, S, D] and tokens [B,
+    S], gathered across rows with zeros outside [0, S) -> (win [B, w, D],
+    rvq [B, w], mask [B, w]: in [0, valid))."""
+    b, w = tokens.shape[0], int(cf) + int(nar_ctx)
+    lo = emitted - int(nar_ctx)  # = emitted + cf - w, per row
+    orig = lo[:, None] + torch.arange(w, device=cond.device)[None]  # [B, w]
+    pos = (orig + w).long()  # into arrays padded with w frames before 0 and cf after S-1
+    win = F.pad(cond, (0, 0, w, int(cf)))[torch.arange(b, device=cond.device)[:, None], pos]
+    rvq = torch.gather(F.pad(tokens, (w, int(cf))), 1, pos)
+    return win, rvq, (orig >= 0) & (orig < valid[:, None])
 
 
 def _settings(top_p: float, temperature: float, anti_loop: bool, min_gen: int) -> M.ARSettings:

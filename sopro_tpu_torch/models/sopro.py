@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, replace
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -113,9 +113,10 @@ def prepare_conditioning(
     ref: PreparedReference,
     *,
     max_frames: int,
-    style_strength: float,
+    style_strength: Union[float, torch.Tensor],
 ) -> Dict[str, torch.Tensor]:
-    """Per-frame conditioning for every output frame at once."""
+    """Per-frame conditioning for every output frame at once (`style_strength`
+    one value, or [B] per row)."""
     cfg, p = m.cfg, m.shared.p
     txt_seq, txt_pool = m.text_enc(text_ids, text_mask)
     tar = int(max_frames) + 1
@@ -155,20 +156,29 @@ class ARCarry:
 
 @dataclass(frozen=True)
 class ARSettings:
-    top_p: float = 0.9
-    temperature: float = 1.05
-    recovery_top_p: float = 0.85
-    recovery_temp: float = 1.2
-    min_gen_frames: int = 12
+    """Sampling settings of an AR call: each numeric field is one value for
+    every row, or a tensor [B] with one per row (the serving tick's rows
+    each carry their own). `anti_loop` is one flag per call."""
+
+    top_p: Union[float, torch.Tensor] = 0.9
+    temperature: Union[float, torch.Tensor] = 1.05
+    recovery_top_p: Union[float, torch.Tensor] = 0.85
+    recovery_temp: Union[float, torch.Tensor] = 1.2
+    min_gen_frames: Union[int, torch.Tensor] = 12
     anti_loop: bool = True
 
     def per_row(self, b: int, device) -> Dict[str, torch.Tensor]:
-        f = lambda v: torch.full((b,), float(v), dtype=torch.float32, device=device)
+        def f(v, dtype):
+            if isinstance(v, torch.Tensor):
+                return v.to(device=device, dtype=dtype).expand(b).contiguous()
+            return torch.full((b,), v, dtype=dtype, device=device)
+
+        f32 = torch.float32
         return {
-            "top_p": f(self.top_p), "temperature": f(self.temperature),
-            "recovery_top_p": f(self.recovery_top_p),
-            "recovery_temp": f(self.recovery_temp),
-            "min_gen": torch.full((b,), int(self.min_gen_frames), dtype=torch.int32, device=device),
+            "top_p": f(self.top_p, f32), "temperature": f(self.temperature, f32),
+            "recovery_top_p": f(self.recovery_top_p, f32),
+            "recovery_temp": f(self.recovery_temp, f32),
+            "min_gen": f(self.min_gen_frames, torch.int32),
         }
 
 
@@ -208,6 +218,28 @@ def ar_context(
     return ARLoopContext(cfg=m.cfg, p_ar=m.ar.p, stacked=m.ar.stacked() if cuda else None, kv=kv,
                          mask=text_mask, emb=_prev_token_table(m),
                          stream=m.ar.stream if cuda else None)
+
+
+def ar_context_from_kv(
+    m: SoproModel, kv_k: torch.Tensor, kv_v: torch.Tensor, text_mask: torch.Tensor,
+    step: bool = False,
+):
+    """The AR context over a text KV already stacked [A, B, H, L, hd] (the
+    serving state keeps it so and scatters joins into it): an ARLoopContext
+    whose per-layer caches are views of it, or with `step` an
+    ARStepContext (K5 steps)."""
+    cuda = kv_k.device.type == "cuda"
+    stacked = m.ar.stacked() if cuda else None
+    stream = m.ar.stream if cuda else None
+    if step:
+        return ARStepContext(cfg=m.cfg, p_ar=m.ar.p, stacked=stacked, kv_k=kv_k, kv_v=kv_v,
+                             mask=text_mask, emb=_prev_token_table(m), stream=stream)
+    kv, a = [], 0
+    for xp in m.ar.p["xattn"]:
+        kv.append(None if xp is None else {"k": kv_k[a], "v": kv_v[a], "mask": text_mask})
+        a += xp is not None
+    return ARLoopContext(cfg=m.cfg, p_ar=m.ar.p, stacked=stacked, kv=kv, mask=text_mask,
+                         emb=_prev_token_table(m), stream=stream, kv_k=kv_k, kv_v=kv_v)
 
 
 def ar_step_context(

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -44,13 +44,18 @@ def token2sv(
 
 
 def speaker_film(
-    p: Params, base_btd: torch.Tensor, spk_bd: torch.Tensor, strength: float = 1.0
+    p: Params, base_btd: torch.Tensor, spk_bd: torch.Tensor,
+    strength: Union[float, torch.Tensor] = 1.0,
 ) -> torch.Tensor:
-    """norm(x) * (1 + s*tanh(gamma)) + s*tanh(beta)."""
+    """norm(x) * (1 + s*tanh(gamma)) + s*tanh(beta); `strength` is one value
+    or a tensor [B] with one per row."""
     film = linear(p["mlp2"], gelu(linear(p["mlp1"], spk_bd)))
     gamma, beta = torch.chunk(film, 2, dim=-1)
     x = layernorm(p["norm"], base_btd)
-    s = float(strength)
+    if isinstance(strength, torch.Tensor):
+        s = strength.to(device=x.device, dtype=x.dtype)[:, None, None]
+    else:
+        s = float(strength)
     return x * (1 + s * torch.tanh(gamma)[:, None, :]) + s * torch.tanh(beta)[:, None, :]
 
 
@@ -64,5 +69,6 @@ class Token2SV(ParamModule):
 
 
 class SpeakerFiLM(ParamModule):
-    def forward(self, base_btd: torch.Tensor, spk_bd: torch.Tensor, strength: float = 1.0):
+    def forward(self, base_btd: torch.Tensor, spk_bd: torch.Tensor,
+                strength: Union[float, torch.Tensor] = 1.0):
         return speaker_film(self.p, base_btd, spk_bd, strength)

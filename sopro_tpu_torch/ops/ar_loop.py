@@ -40,7 +40,10 @@ class ARLoopContext:
     """What every step reads besides the state: the AR parameter tree and
     its stacked kernel view, the fixed text KV, the compact previous-token
     table [V+1, D] (rows 0..V-1: codebook-1 embeddings, row V: BOS), and on
-    CUDA the kernel's packed weight stream per cluster size."""
+    CUDA the kernel's packed weight stream per cluster size. `kv_k` / `kv_v`
+    [A, B, H, L, hd], when given, are the text KV already stacked as the
+    kernel reads it (`kv` then holds views of them); else each launch
+    stacks `kv`."""
 
     cfg: SoproTTSConfig
     p_ar: Dict
@@ -49,6 +52,8 @@ class ARLoopContext:
     mask: torch.Tensor  # [B, L] bool
     emb: torch.Tensor  # [V+1, D]
     stream: Optional[Callable[[int], Dict]] = None  # cluster size -> packed weights (CUDA)
+    kv_k: Optional[torch.Tensor] = None
+    kv_v: Optional[torch.Tensor] = None
 
     def step(self, x: torch.Tensor, bufs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The block stack of one step as plain PyTorch ops."""
@@ -346,6 +351,8 @@ def block_args(
 
 _ARGTYPES = {
     "sopro_ar_cluster": [ctypes.POINTER(_Args), ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+    "sopro_ar_active_clusters": [ctypes.POINTER(_Args), ctypes.c_int,
+                                 ctypes.POINTER(ctypes.c_int)],
     "sopro_ar_loop": [ctypes.POINTER(_Args), ctypes.c_void_p],
     "sopro_ar_step": [ctypes.POINTER(_Args), ctypes.c_void_p],
 }
@@ -382,12 +389,18 @@ def launch(kernel: str, entry: str, args: _Args, device, stream) -> None:
     kernels.LAUNCH_INFO[kernel] = {"cluster_blocks_per_row": cs}
 
 
-def _ar_loop_cuda(ctx, cond, state, settings, n_steps, anti_loop):
+def _loop_args(ctx, cond, state, settings, n_steps, anti_loop):
+    """K1's checked arguments, its outputs (tokens [B, n_steps], the new
+    state), allocated, and the temporaries the arguments point to (hold
+    them until the launch is enqueued)."""
     dev = cond.device
     b, s_max, d = cond.shape
     v = int(ctx.cfg.ar_vocab)
-    kv_k = torch.stack([c["k"] for c in ctx.kv if c is not None]).contiguous()
-    kv_v = torch.stack([c["v"] for c in ctx.kv if c is not None]).contiguous()
+    if ctx.kv_k is not None:
+        kv_k, kv_v = ctx.kv_k, ctx.kv_v
+    else:
+        kv_k = torch.stack([c["k"] for c in ctx.kv if c is not None]).contiguous()
+        kv_v = torch.stack([c["v"] for c in ctx.kv if c is not None]).contiguous()
     mask = ctx.mask.to(torch.int32).contiguous()
     args = block_args("ar_loop", ctx.cfg, ctx.stacked, kv_k, kv_v, mask, state["bufs"])
 
@@ -422,5 +435,22 @@ def _ar_loop_cuda(ctx, cond, state, settings, n_steps, anti_loop):
     }
     for name, t in bind.items():
         setattr(args, name, t.data_ptr())
-    launch("ar_loop", "sopro_ar_loop", args, dev, ctx.stream)
+    return args, tokens, out, (kv_k, kv_v, mask)
+
+
+def _ar_loop_cuda(ctx, cond, state, settings, n_steps, anti_loop):
+    args, tokens, out, _keep = _loop_args(ctx, cond, state, settings, n_steps, anti_loop)
+    launch("ar_loop", "sopro_ar_loop", args, cond.device, ctx.stream)
     return tokens, out
+
+
+def active_clusters(ctx: ARLoopContext, cond, state, settings) -> Tuple[int, int]:
+    """(cluster size, clusters the card holds at once) of K1's launch for
+    these shapes (`cudaOccupancyMaxActiveClusters`): a cluster must fit in
+    one GPC, so rows past the count run in later waves. Launches nothing."""
+    args, _, _, _keep = _loop_args(ctx, cond, state, settings, 1, True)
+    cs = cluster_size(args, False)
+    args.cs, n = cs, ctypes.c_int(0)
+    fn = kernels.entry("ar_loop", "sopro_ar_active_clusters", _ARGTYPES["sopro_ar_active_clusters"])
+    kernels.check(fn(ctypes.byref(args), 0, ctypes.byref(n)), "ar_loop active clusters")
+    return cs, n.value

@@ -70,7 +70,7 @@ class SoproTTSStreamer:
         style = float(style_strength if style_strength is not None else tts.cfg.style_strength)
         min_gen = int(min_gen_frames or tts.cfg.min_gen_frames)
         sampling = dict(top_p=top_p, temperature=temperature, anti_loop=anti_loop, min_gen=min_gen)
-        hop = int(eng.mimi_cfg.hop_length)
+        hop = int(eng.codec.cfg.hop_length)
 
         wav, valid, done, carry, ctx, cond, mstate = eng.stream_start_fused(
             tts.encode_text(text), ref, max_frames=max_frames, chunk=cf,

@@ -10,6 +10,11 @@ runs them as one batch; `stream` yields chunks from the stream plan
 (streaming.py). A reference voice comes as Mimi tokens (`ref_tokens_tq`) or
 as a WAV file (`ref_audio_path`: VAD trim, resample to 24 kHz, centre crop,
 Mimi encode).
+
+`from_pretrained` loads a local snapshot directory (model.safetensors with
+its cfg, the BPE tokenizer, and a Mimi snapshot directory with
+model.safetensors and config.json); `save_pretrained` writes the Sopro
+weights back in the same format; `from_random` draws weights from a seed.
 """
 
 from __future__ import annotations
@@ -23,13 +28,14 @@ import numpy as np
 import torch
 
 from sopro_tpu_torch import audio as A
+from sopro_tpu_torch import hub as H
+from sopro_tpu_torch import weights as W
 from sopro_tpu_torch.codec.mimi_config import MimiConfig
 from sopro_tpu_torch.config import RuntimeConfig, SoproTTSConfig
-from sopro_tpu_torch.constants import TARGET_SR
+from sopro_tpu_torch.constants import DEFAULT_MIMI_ID, TARGET_SR
 from sopro_tpu_torch.engine import Engine
 from sopro_tpu_torch.models.sopro import PreparedReference, tile_reference
-from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
-from sopro_tpu_torch import weights as W
+from sopro_tpu_torch.tokenizer import SimpleCharTokenizer, TextTokenizer
 
 
 def center_crop_tokens(tokens_tq: np.ndarray, win: int) -> np.ndarray:
@@ -95,26 +101,66 @@ class SoproTTS:
         self.rt = runtime or RuntimeConfig()
 
     @classmethod
+    def from_pretrained(
+        cls,
+        repo_id: str,
+        *,
+        mimi_repo_id: str = DEFAULT_MIMI_ID,
+        runtime: Optional[RuntimeConfig] = None,
+        device="cuda",
+        tokenizer=None,
+        on_unconsumed: str = "warn",
+    ) -> "SoproTTS":
+        """Load local snapshot directories: `repo_id` holds model.safetensors
+        (its cfg in the metadata) and the tokenizer files, `mimi_repo_id`
+        the Mimi model.safetensors and config.json. A name that is not a
+        directory raises FileNotFoundError (nothing is downloaded). The
+        tokenizer is the snapshot's BPE `TextTokenizer` unless `tokenizer`
+        is given (e.g. SimpleCharTokenizer() for a snapshot of random
+        weights); `on_unconsumed` says what a tensor that no converter reads
+        does ("warn", "raise", "ignore"). Built on `device`, the card unless
+        the caller asks for "cpu"."""
+        dev = _resolve_device(device)
+        local = H.local_dir(repo_id)
+        model_path = os.path.join(local, "model.safetensors")
+        if not os.path.exists(model_path):
+            raise FileNotFoundError(f"Expected {model_path} in repo snapshot.")
+        cfg, params = H.load_sopro_checkpoint(model_path, on_unconsumed=on_unconsumed)
+        mimi_local = H.local_dir(mimi_repo_id)
+        mimi_cfg, mimi_params = H.load_mimi_checkpoint(
+            os.path.join(mimi_local, "model.safetensors"),
+            cfg_json=os.path.join(mimi_local, "config.json"), on_unconsumed=on_unconsumed,
+        )
+        tokenizer = tokenizer if tokenizer is not None else TextTokenizer(model_name=local)
+        model = W.sopro_params_from_jax(params, cfg, dev)
+        mimi = W.mimi_params_from_jax(mimi_params, mimi_cfg, dev)
+        return cls(Engine(model, mimi, runtime), cfg, tokenizer, runtime)
+
+    @classmethod
     def from_random(
         cls,
         cfg: Optional[SoproTTSConfig] = None,
         *,
         seed: int = 0,
+        with_codec: bool = True,
         mimi_cfg: Optional[MimiConfig] = None,
         runtime: Optional[RuntimeConfig] = None,
         device="cuda",
     ) -> "SoproTTS":
         """Random-weight instance drawn from a numpy seed, built directly on
         `device`: the card unless the caller asks for "cpu" ("cuda" raises
-        when no GPU is present)."""
+        when no GPU is present). With `with_codec=False` there is no Mimi
+        codec: AR decode and NAR refine run, decoding raises."""
         dev = _resolve_device(device)
         cfg = cfg or SoproTTSConfig()
-        mimi_cfg = mimi_cfg or MimiConfig()
         tokenizer = SimpleCharTokenizer()
         model = W.sopro_params_from_jax(
             W.init_sopro_params(seed, cfg, tokenizer.vocab_size), cfg, dev
         )
-        mimi = W.mimi_params_from_jax(W.init_mimi_params(seed, mimi_cfg), mimi_cfg, dev)
+        mimi = None
+        if with_codec:
+            mimi_cfg = mimi_cfg or MimiConfig()
+            mimi = W.mimi_params_from_jax(W.init_mimi_params(seed, mimi_cfg), mimi_cfg, dev)
         return cls(Engine(model, mimi, runtime), cfg, tokenizer, runtime)
 
     def encode_text(self, text: str) -> np.ndarray:
@@ -140,7 +186,7 @@ class SoproTTS:
                 ref = center_crop_tokens(ref, win)
             return ref
         # load -> VAD trim -> resample -> crop -> whole frames -> Mimi encode
-        mcfg = self.engine.mimi_cfg
+        mcfg = self.engine.codec.cfg
         wav, sr = A.load_audio_file(ref_audio_path)
         wav = A.trim_silence_energy(wav, sr)
         sr_t = int(mcfg.sampling_rate)
@@ -293,7 +339,7 @@ class SoproTTS:
         seeds = list(seeds) if seeds is not None else list(range(b))
         g = int(pipeline_group or self.rt.batch_pipeline_group or b) or b
         ids_rows = [self.encode_text(t) for t in texts]
-        hop = int(self.engine.mimi_cfg.hop_length)
+        hop = int(self.engine.codec.cfg.hop_length)
         packed = [
             self.engine.synthesize_batch_dispatch(
                 ids_rows[lo: lo + g], tile_reference(ref, len(ids_rows[lo: lo + g])),
@@ -364,6 +410,18 @@ class SoproTTS:
             f.setsampwidth(2)
             f.setframerate(TARGET_SR)
             f.writeframes(to_pcm16(wav).tobytes())
+
+    def save_pretrained(self, out_dir: str) -> str:
+        """Write `out_dir/model.safetensors` (reference names and layouts,
+        float32, the cfg embedded as metadata) and the tokenizer files where
+        the tokenizer has them; returns the model file's path."""
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, "model.safetensors")
+        H.save_sopro_checkpoint(path, W.sopro_tree(self.engine.model), self.cfg)
+        tok = getattr(self.tokenizer, "tok", None)
+        if tok is not None and hasattr(tok, "save_pretrained"):
+            tok.save_pretrained(out_dir)
+        return path
 
 
 def to_pcm16(wav: np.ndarray) -> np.ndarray:

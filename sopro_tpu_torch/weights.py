@@ -46,6 +46,15 @@ def sopro_params_from_jax(tree: Tree, cfg: SoproTTSConfig, device) -> SoproModel
     return SoproModel(to_torch(tree, device), cfg)
 
 
+def sopro_tree(model: SoproModel) -> Tree:
+    """The model's parameter tree (the layout `sopro_params_from_jax`
+    takes) as numpy arrays on the host."""
+    tree = dict(model.shared.p)
+    for name in ("text_enc", "token2sv", "spk_film", "ar", "nar"):
+        tree[name] = getattr(model, name).p
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
 def mimi_params_from_jax(tree: Tree, cfg: MimiConfig, device) -> MimiCodec:
     """The encoder half (SEANet encoder, encoder transformer, downsample,
     quantizer `embed` and input projections) and the decoder half (quantizer
@@ -163,7 +172,9 @@ def init_mimi_params(seed: int, cfg: MimiConfig) -> Tree:
     """Random Mimi tree (encoder and decoder halves) with the shapes and
     scales of `sopro_tpu.codec.convert.init_mimi_params` (N(0, 0.02)
     weights, zero conv biases, unit codebooks folded through the output
-    projections for decode)."""
+    projections for decode). The quantizer also keeps those projections
+    (`out_sem`, `out_ac` [cb_dim, hidden]), which the codec never reads, so
+    the tree can be written back under the checkpoint's names."""
     ini = _Init(seed)
     g = lambda *shape, scale=0.02: ini.normal(shape, scale)
 
@@ -213,6 +224,8 @@ def init_mimi_params(seed: int, cfg: MimiConfig) -> Tree:
             "dec_embed": dec_embed.astype(np.float32),
             "in_proj_sem": g(d, cfg.codebook_dim),
             "in_proj_ac": g(d, cfg.codebook_dim),
+            "out_sem": out_sem,
+            "out_ac": out_ac,
         },
         "upsample": upsample,
         "dec_tf": dec_tf,

@@ -446,3 +446,116 @@ def test_synthesize_batch_on_cuda_matches_cpu(cuda):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, atol=1e-4 * float(np.abs(w).max()), rtol=0)
     np.testing.assert_array_equal(got[0], got[2])
+
+
+@pytest.mark.cuda
+def test_use_pallas_vocoder_off_raises_on_cuda(cuda):
+    """RuntimeConfig(use_pallas_vocoder=False) has no SEANet route on the
+    card: building the engine there raises."""
+    from sopro_tpu_torch.config import RuntimeConfig
+    from sopro_tpu_torch.tts import SoproTTS
+
+    with pytest.raises(ValueError, match="use_pallas_vocoder"):
+        SoproTTS.from_random(SoproTTSConfig(**CFG), mimi_cfg=MimiConfig(**SMALL_MIMI), device=cuda,
+                             runtime=RuntimeConfig(use_pallas_vocoder=False))
+
+
+@pytest.mark.cuda
+def test_serve_tick_at_8_slots_matches_plain(cuda):
+    """The serving tick at 8 slots on the card (K1, K2, K4) against the
+    same ticks on the CPU (the plain versions): six sessions of different
+    seeds joined in two groups, ramp and full ticks, two slots left free
+    and a masked Mimi step every tick; tokens and scalars exact, emitted
+    waveform rows within 1e-4 of their peak."""
+    from sopro_tpu_torch.models import sopro as M
+
+    nar_ctx = SoproTTSConfig(**CFG).rf_nar()
+    ref_tokens = np.random.default_rng(2).integers(0, 32, (10, 8)).astype(np.int32)
+    outs = []
+    for tts in _tts_pair(cuda):
+        eng = tts.engine
+        st = eng.serve_state(8, 16, CFG["max_frames"])
+        ref = eng.prepare_reference(ref_tokens)
+
+        def join(slots, seeds):
+            g = len(slots)
+            ids, mask = np.zeros((g, 16), np.int32), np.zeros((g, 16), bool)
+            for i, s in enumerate(seeds):
+                enc = tts.encode_text(f"row {s}")
+                ids[i, : len(enc)], mask[i, : len(enc)] = enc, True
+            settings = {"top_p": [0.9] * g, "temperature": [1.05] * g,
+                        "recovery_top_p": [0.85] * g, "recovery_temp": [1.2] * g,
+                        "min_gen": [3] * g, "max_frames": [CFG["max_frames"]] * g}
+            eng.serve_join(st, slots, ids, mask, M.tile_reference(ref, g), [1.0] * g, seeds,
+                           settings)
+
+        kernels.reset_launches()
+        join([0, 2, 3, 5], [1, 2, 3, 4])
+        ticks = [eng.serve_tick(st, chunk=2, nar_ctx=nar_ctx, first_only=True),
+                 eng.serve_tick(st, chunk=4, nar_ctx=nar_ctx)]
+        join([1, 6], [5, 6])
+        ticks.append(eng.serve_tick(st, chunk=2, nar_ctx=nar_ctx, first_only=True))
+        ticks += [eng.serve_tick(st, chunk=4, nar_ctx=nar_ctx) for _ in range(5)]
+        outs.append(([t.cpu() for t in ticks], st.carry.tokens.cpu(), st.emitted.cpu()))
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("ar_loop", "nar_heads", "seanet_chunk"))
+    (cpu_ticks, cpu_tok, cpu_em), (gpu_ticks, gpu_tok, gpu_em) = outs
+    assert torch.equal(cpu_tok, gpu_tok) and torch.equal(cpu_em, gpu_em)
+    hop = MimiConfig(**SMALL_MIMI).hop_length
+    for want, got in zip(cpu_ticks, gpu_ticks):
+        n = want.numel() - 4 * 8
+        assert torch.equal(want[n:], got[n:])
+        n_new = want[n:].reshape(4, 8)[3]
+        wav_w, wav_g = want[:n].reshape(8, -1), got[:n].reshape(8, -1)
+        for r in range(8):
+            k = int(n_new[r]) * hop
+            if k:
+                peak = float(wav_w[r, :k].abs().max())
+                assert float((wav_w[r, :k] - wav_g[r, :k]).abs().max()) <= 1e-4 * peak
+
+
+@pytest.mark.cuda
+def test_seanet_chunk_kernel_at_8_rows_with_a_mask(cuda):
+    """K4 through `mimi_decode_step` at B = 8 and chunk 16 (full Mimi
+    width), as the serving tick runs it: rows at different stream ages (one
+    row reset mid-way), random masks; the emitting rows' samples within
+    1e-4 of their peak of the plain version on the CPU fed the same codes,
+    the masked rows' state left as it was."""
+    from sopro_tpu_torch.codec.streaming import (
+        MimiStreamState, init_mimi_stream_state, mimi_decode_step, reset_stream_rows,
+    )
+    from sopro_tpu_torch.codec.vocoder import pack_seanet_decoder
+
+    def to(state, dev):
+        return MimiStreamState(*(tuple(x.to(dev) for x in leaf) if isinstance(leaf, tuple)
+                                 else leaf.to(dev) for leaf in state))
+
+    mcfg = MimiConfig()
+    mtree = W.init_mimi_params(3, mcfg)
+    W.fill_zero_inits(None, mtree, 4)
+    codec = W.mimi_params_from_jax(mtree, mcfg, cuda)
+    cpu = W.mimi_params_from_jax(mtree, mcfg, "cpu")
+    packed_cpu = pack_seanet_decoder(cpu.p["decoder"], mcfg)
+    rng = np.random.default_rng(5)
+    st = init_mimi_stream_state(mcfg, 8, cuda)
+    st_cpu = init_mimi_stream_state(mcfg, 8, "cpu")
+    for step in range(4):
+        codes = torch.from_numpy(rng.integers(0, mcfg.codebook_size, (8, 16, mcfg.num_quantizers)))
+        mask = torch.from_numpy(rng.random(8) < 0.6)
+        mask[0] = True
+        if step == 2:
+            rows = torch.zeros(8, dtype=torch.bool)
+            rows[3] = True
+            st, st_cpu = reset_stream_rows(st, rows.to(cuda)), reset_stream_rows(st_cpu, rows)
+        before = kernels.LAUNCHES["seanet_chunk"]
+        wav, new = mimi_decode_step(codec.p, mcfg, codes.to(cuda), st, mask=mask.to(cuda),
+                                    packed=codec.packed_decoder())
+        assert kernels.LAUNCHES["seanet_chunk"] == before + 1
+        wav_p, new_cpu = mimi_decode_step(cpu.p, mcfg, codes, st_cpu, mask=mask, packed=packed_cpu)
+        assert torch.equal(new.pos.cpu(), new_cpu.pos)
+        for r in range(8):
+            if bool(mask[r]):
+                peak = float(wav_p[r].abs().max())
+                assert float((wav[r].cpu() - wav_p[r]).abs().max()) <= 1e-4 * peak
+            else:
+                assert torch.equal(new.emb_hist[r], st.emb_hist[r])
+        st, st_cpu = new, to(new, "cpu")
