@@ -65,6 +65,29 @@ Phases (each raises, so the script exits non-zero, on failure):
    window gathered across 8 slots (8 x 197 rows, tail 8 x 16) against its
    plain version. HTTP: `server_stdlib` on 127.0.0.1 answers the reference
    cache, a SPRO stream, a WAV and the stats with 200.
+11. train (`sopro_tpu_torch.train`, full width, random weights from a seed
+   with the zero-initialised leaves filled; rows of S = 401 frames, row 0
+   full so it has no EOS target, texts of 33-64 tokens, references of
+   100-150 frames): one B = 2 step's loss and per-leaf gradients on the
+   card against the CPU (TF32 off); 20 steps at B = 8 on one batch (the loss
+   finite and falling, no kernel of K1-K5 launched; step ms by CUDA
+   events, median after 3 warm steps;
+   valid frames per second; peak memory; the step's FLOPs from
+   `profiling.train_step_flops` and their share of the fp32 peak; a
+   profiler trace of two more steps for the kernels' busy share, launches
+   and synchronisations per step and the largest kernels; one more step split
+   into forward, backward and optimizer). With deterministic algorithms on: the step through
+   `parallel.py` at world size 1 on NCCL (`file://` rendezvous) equals the
+   plain step; 2 steps, a train checkpoint, a restore into a fresh model
+   and a third step equal 3 straight steps (the checkpoint also restores
+   onto the CPU). The trained model's `synthesize` (its kernel caches built
+   before the steps) equals, bit for bit, that of the model reloaded through
+   `save_pretrained` / `from_pretrained`, and launches K1 and K2.
+12. CLI: `python -m sopro_tpu_torch.cli --random_init --device cuda` in a
+   subprocess: its WAV equals phase 4's `synthesize(..., pcm16=True)` at
+   the same seed, `--metrics_json` prints the metrics, `--trace_dir`
+   writes a Chrome trace that names K1, K2 and K3's kernels; `--stream`
+   equals `stream` and `--long` equals `synthesize_long`.
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}. Per kernel the record holds its
 launches in its path's counted run and per request of that run (K1, K2 and
@@ -80,6 +103,7 @@ B = 4, K4 also at chunk 16, with errors against float64 plain versions.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -806,27 +830,34 @@ def write_word_tokenizer(path):
                    "eos_token": "</s>", "pad_token": "<|pad|>", "unk_token": "<unk>"}, f)
 
 
+def write_mimi_snapshot(mdir, mcfg):
+    """The phase-4 Mimi (`init_mimi_params(SEED)`) as a snapshot directory in
+    HF names with its config.json."""
+    import dataclasses
+
+    from sopro_tpu_torch import hub as H
+    from sopro_tpu_torch import weights as W
+
+    os.makedirs(mdir)
+    H.write_safetensors(os.path.join(mdir, "model.safetensors"),
+                        mimi_checkpoint_state_dict(W.init_mimi_params(SEED, mcfg), mcfg))
+    with open(os.path.join(mdir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(mcfg), f)
+
+
 def drive_checkpoint(tts, ref, ref_tokens, dev, mcfg):
     """save_pretrained of the phase-4 model, a Mimi snapshot in HF names
     from the same seed's tree, both loaded again with every tensor consumed:
     synthesize equal bit for bit; then, where transformers imports, the
     snapshot's BPE tokenizer through from_pretrained."""
-    import dataclasses
-
-    from sopro_tpu_torch import hub as H
-    from sopro_tpu_torch import weights as W
     from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
     from sopro_tpu_torch.tts import SoproTTS
 
     with tempfile.TemporaryDirectory() as tmp:
         sdir, mdir = os.path.join(tmp, "sopro"), os.path.join(tmp, "mimi")
-        os.makedirs(mdir)
         t0 = time.perf_counter()
         tts.save_pretrained(sdir)
-        H.write_safetensors(os.path.join(mdir, "model.safetensors"),
-                            mimi_checkpoint_state_dict(W.init_mimi_params(SEED, mcfg), mcfg))
-        with open(os.path.join(mdir, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(mcfg), f)
+        write_mimi_snapshot(mdir, mcfg)
         sizes = {d: sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d)) for d in (sdir, mdir)}
         t1 = time.perf_counter()
         loaded = SoproTTS.from_pretrained(sdir, mimi_repo_id=mdir, device=dev,
@@ -1240,6 +1271,365 @@ def drive_serve(tts, ref, dev, rng):
     return result
 
 
+# phase 11: rows of S = 401 frames (row 0 fills S: no EOS target), texts and references cut per row
+TRAIN_S = MAX_FRAMES + 1
+TRAIN_LENGTHS = (TRAIN_S, 396, 350, 301, 262, 233, 180, 121)
+TRAIN_TEXT_LENGTHS = (64, 60, 57, 52, 48, 44, 40, 33)
+TRAIN_REF_LENGTHS = (150, 150, 150, 140, 130, 120, 110, 100)
+TRAIN_STEPS, TRAIN_WARM = 20, 3
+TRAIN_CPU_ROWS = [0, 3]  # the card-vs-CPU step: the full row and one with an EOS target
+# the card against the CPU, both fp32 with TF32 off; sums run in other orders
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4  # of each leaf's largest |gradient|, plus 1e-6 of the largest of all leaves
+
+
+def train_batch(cfg, rng):
+    """The numpy-seeded B = 8 training batch on the host."""
+    from sopro_tpu_torch.train import TrainBatch
+
+    b, l, tr = len(TRAIN_LENGTHS), max(TRAIN_TEXT_LENGTHS), max(TRAIN_REF_LENGTHS)
+    q, v = cfg.num_codebooks, cfg.codebook_size
+
+    def mask(n, lengths):
+        return torch.from_numpy(np.arange(n)[None] < np.array(lengths)[:, None])
+
+    return TrainBatch(
+        text_ids=torch.from_numpy(rng.integers(4, 259, (b, l)).astype(np.int32)),
+        text_mask=mask(l, TRAIN_TEXT_LENGTHS),
+        ref_tokens=torch.from_numpy(rng.integers(0, v, (b, tr, q)).astype(np.int32)),
+        ref_mask=mask(tr, TRAIN_REF_LENGTHS),
+        frames=torch.from_numpy(rng.integers(0, v, (b, TRAIN_S, q)).astype(np.int32)),
+        frame_mask=mask(TRAIN_S, TRAIN_LENGTHS),
+    )
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms for the bit-for-bit comparisons of training
+    steps (the default CUDA backward of some ops adds with atomics)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def same_state(a, b, what):
+    """Raise unless two models' parameters are equal bit for bit."""
+    pb = dict(b.named_parameters())
+    bad = [n for n, p in a.named_parameters() if not torch.equal(p.detach().cpu(), pb[n].detach().cpu())]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} parameters differ, e.g. {bad[:3]}")
+
+
+def same_metrics(got, want, what):
+    if any(not torch.equal(got[k].cpu(), want[k].cpu()) for k in want):
+        raise AssertionError(f"{what}: metrics {({k: float(v) for k, v in got.items()})} vs "
+                             f"{({k: float(v) for k, v in want.items()})}")
+
+
+def profile_steps(step, batch, n=2):
+    """n steps under torch.profiler -> (the kernels' busy share of the host
+    wall, kernel launches per step, stream / device / event synchronisations
+    per step, the largest kernels by device ms per step). User annotations
+    (optimizer ranges) are not kernels and are left out of the sums; a
+    `.item()` on a CPU tensor (AdamW's step counts) is not a sync."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6 / wall
+    launches = sum(e.count for e in kernels) / n
+    syncs = (sum(e.count for e in rows if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                                      "cudaEventSynchronize")) - 1) / n  # less the last one
+    top = sorted(((e.key, e.self_device_time_total / 1e3 / n) for e in kernels), key=lambda r: -r[1])
+    return busy, launches, syncs, top[:8]
+
+
+def step_phases(model, opt, batch):
+    """One training step split into forward, backward and the optimizer
+    (with `weights_changed`): per phase the host's ms to dispatch it and the
+    ms between CUDA events around it."""
+    from sopro_tpu_torch import train as T
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    host = []
+    torch.cuda.synchronize()
+    opt.zero_grad(set_to_none=False)
+    t = time.perf_counter()
+    ev[0].record()
+    loss, _ = T.loss_fn(model, batch)
+    ev[1].record()
+    host.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    loss.backward()
+    ev[2].record()
+    host.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    T.fill_missing_grads(opt)
+    opt.step()
+    model.weights_changed()
+    ev[3].record()
+    host.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return {name: (h * 1e3, ev[i].elapsed_time(ev[i + 1]))
+            for i, (name, h) in enumerate(zip(("forward", "backward", "optimizer"), host))}
+
+
+def drive_train(tts, ref_tokens, dev, rng, cfg, mcfg):
+    """Phase 11: the card against the CPU, 20 timed steps, the NCCL world-1
+    step, resume, and serving from the trained model."""
+    import torch.distributed as dist
+
+    from sopro_tpu_torch import kernels
+    from sopro_tpu_torch import parallel as P
+    from sopro_tpu_torch import profiling as PR
+    from sopro_tpu_torch import train as T
+    from sopro_tpu_torch import weights as W
+    from sopro_tpu_torch.bench_kernels import PEAK_FP32
+    from sopro_tpu_torch.engine import Engine
+    from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
+    from sopro_tpu_torch.tts import SoproTTS
+
+    tree = W.init_sopro_params(SEED + 11, cfg, 259)
+    W.fill_zero_inits(tree, None, SEED + 12)
+    host_batch = train_batch(cfg, rng)
+    batch = host_batch.to(dev)
+    b, l, tr = (int(x) for x in host_batch.text_ids.shape + host_batch.ref_tokens.shape[1:2])
+    out = {}
+
+    # one B = 2 step's loss and gradients, the card against the CPU
+    pair = T.TrainBatch(*(x[TRAIN_CPU_ROWS] for x in host_batch))
+    seen = []
+    for d in ("cpu", dev):
+        m = W.sopro_params_from_jax(tree, cfg, d)
+        t0 = time.perf_counter()
+        loss, _ = T.loss_fn(m, pair.to(d))
+        loss.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                 for n, p in m.named_parameters()}
+        seen.append((float(loss.detach()), grads))
+        log(f"  B = 2 loss and backward on {d}: loss {seen[-1][0]:.6f}, "
+            f"{time.perf_counter() - t0:.2f} s")
+        del m
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = seen
+    gmax = max(float(g.abs().max()) for g in g_cpu.values())
+    ratio, leaf = max((float((g_gpu[n] - g).abs().max())
+                       / (TRAIN_GRAD_TOL * float(g.abs().max()) + 1e-6 * gmax), n)
+                      for n, g in g_cpu.items())
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    log(f"  card vs CPU: loss rel err {loss_rel:.2e} (tol {TRAIN_LOSS_RTOL}); worst leaf {leaf}: "
+        f"grad err {ratio:.3f} of its tolerance ({TRAIN_GRAD_TOL} x its peak + 1e-6 x {gmax:.3e}), "
+        f"{len(g_cpu)} leaves")
+    if not loss_rel <= TRAIN_LOSS_RTOL or not ratio <= 1.0:
+        raise AssertionError(f"train: the card's step differs from the CPU's (loss {loss_rel:.2e}, "
+                             f"leaf {leaf} at {ratio:.3f} of its tolerance)")
+    out.update(cpu_loss_rel_err=loss_rel, cpu_grad_err_of_tol=ratio)
+    del seen, g_cpu, g_gpu
+
+    # the model that trains serves first, so K1's weight stream and K2's packs exist
+    model = W.sopro_params_from_jax(tree, cfg, dev)
+    trained = SoproTTS(Engine(model, tts.engine.mimi), cfg, SimpleCharTokenizer())
+    text, seed = REQUESTS[0]
+    before = trained.synthesize(text, ref=trained.prepare_reference(ref_tokens_tq=ref_tokens),
+                                max_frames=MAX_FRAMES, seed=seed)
+
+    # 20 steps at B = 8 on one batch
+    opt = T.make_optimizer(model)
+    step = T.make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    events, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(batch)["loss"])
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"train: the steps launched a serving kernel: {kernels.LAUNCHES}")
+    times = [s.elapsed_time(e) for s, e in events]
+    losses = [float(x) for x in losses]
+    ms = statistics.median(times[TRAIN_WARM:])
+    frames = int(host_batch.frame_mask.sum())
+    flops = PR.train_step_flops(cfg, b, TRAIN_S, l, tr)
+    log(f"  {TRAIN_STEPS} steps at B = {b}, S = {TRAIN_S} ({frames} valid frames): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {[round(x, 3) for x in losses]}")
+    log(f"  step {ms:.3f} ms (CUDA events, median of steps {TRAIN_WARM + 1}-{TRAIN_STEPS}; "
+        f"{min(times[TRAIN_WARM:]):.3f}-{max(times[TRAIN_WARM:]):.3f}), host wall {wall * 1e3:.3f} ms "
+        f"per step; {frames / (ms / 1e3):.0f} valid frames/s; peak memory {peak / 2**30:.2f} GiB")
+    log(f"  fwd+bwd {flops / 1e12:.4f} TFLOP per step (profiling.train_step_flops): "
+        f"{flops / (ms / 1e3) / 1e12:.2f} TF/s = {flops / (ms / 1e3) / PEAK_FP32 * 100:.1f} % of the "
+        f"fp32 peak; bound {flops / PEAK_FP32 * 1e3:.2f} ms")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    busy, launches, syncs, top = profile_steps(step, batch)
+    log(f"  profiler, 2 more steps: kernels busy {busy * 100:.1f} % of the host wall; "
+        f"{launches:.0f} kernel launches and {syncs:.1f} synchronisations per step; largest kernels, "
+        "ms per step: " + "; ".join(f"{k[:70]} {v:.3f}" for k, v in top))
+    phases = step_phases(model, opt, batch)
+    log("  one more step by phase, host ms to dispatch / ms between CUDA events: " + "; ".join(
+        f"{k} {h:.2f} / {d:.2f}" for k, (h, d) in phases.items()))
+    out.update(step_ms=ms, host_ms=wall * 1e3, frames_per_s=frames / (ms / 1e3),
+               peak_gib=peak / 2**30, tflop=flops / 1e12, fp32_share=flops / (ms / 1e3) / PEAK_FP32,
+               loss_first=losses[0], loss_last=losses[-1], kernels_busy=busy,
+               launches_per_step=launches, syncs_per_step=syncs, phases=phases)
+
+    with deterministic(), tempfile.TemporaryDirectory() as tmp:
+        # the step through parallel.py at world size 1 on NCCL
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        P.init_process_group(0, 1, "file://" + os.path.join(tmp, "rendezvous"), device=dev)
+        try:
+            plain_m, dp_m = (W.sopro_params_from_jax(tree, cfg, dev) for _ in range(2))
+            want = T.make_train_step(plain_m, T.make_optimizer(plain_m))(batch)
+            got = P.make_train_step(dp_m, T.make_optimizer(dp_m))(P.shard_batch(batch, 0, 1))
+            same_metrics(got, want, "parallel step at world size 1")
+            same_state(dp_m, plain_m, "parallel step at world size 1")
+            log(f"  parallel.make_train_step, NCCL world size 1: loss {float(got['loss']):.6f}, "
+                "metrics and parameters equal to the plain step")
+        finally:
+            dist.destroy_process_group()
+        del plain_m, dp_m
+
+        # 2 steps, a checkpoint, a third step; restored into a fresh model, the same third step
+        a = W.sopro_params_from_jax(tree, cfg, dev)
+        opt_a = T.make_optimizer(a)
+        step_a = T.make_train_step(a, opt_a)
+        for _ in range(2):
+            step_a(batch)
+        path = os.path.join(tmp, "train.pt")
+        t1 = time.perf_counter()
+        T.save_train_checkpoint(path, a, opt_a, step=2)
+        saved = {n: p.detach().cpu().clone() for n, p in a.named_parameters()}
+        t2 = time.perf_counter()
+        want = step_a(batch)
+        fresh = W.sopro_params_from_jax(W.init_sopro_params(SEED + 13, cfg, 259), cfg, dev)
+        opt_f = T.make_optimizer(fresh)
+        t3 = time.perf_counter()
+        if T.restore_train_checkpoint(path, fresh, opt_f) != 2:
+            raise AssertionError("resume: the step number was not restored")
+        t4 = time.perf_counter()
+        same_metrics(T.make_train_step(fresh, opt_f)(batch), want, "resumed step 3")
+        same_state(fresh, a, "resumed step 3")
+        on_cpu = W.sopro_params_from_jax(W.init_sopro_params(SEED + 13, cfg, 259), cfg, "cpu")
+        opt_c = T.make_optimizer(on_cpu)
+        T.restore_train_checkpoint(path, on_cpu, opt_c, device="cpu")
+        bad = [n for n, p in on_cpu.named_parameters() if not torch.equal(p.detach(), saved[n])]
+        moments = [t for st in opt_c.state.values() for t in st.values() if torch.is_tensor(t)]
+        if bad or any(t.device.type != "cpu" for t in moments):
+            raise AssertionError(f"resume on the CPU: {len(bad)} parameters differ")
+        log(f"  resume: checkpoint {os.path.getsize(path) / 1e6:.1f} MB written in {t2 - t1:.2f} s, "
+            f"restored in {t4 - t3:.2f} s; step 3 after the restore equals 3 straight steps bit for "
+            "bit; the card's checkpoint restores onto the CPU")
+        del a, opt_a, fresh, opt_f, on_cpu, opt_c
+
+    # serving from the trained model: its caches were built before the steps
+    kernels.reset_launches()
+    after = trained.synthesize(text, ref=trained.prepare_reference(ref_tokens_tq=ref_tokens),
+                               max_frames=MAX_FRAMES, seed=seed)
+    launched("trained synthesize", ("ar_loop", "nar_heads", "seanet"))
+    with tempfile.TemporaryDirectory() as tmp:
+        sdir, mdir = os.path.join(tmp, "sopro"), os.path.join(tmp, "mimi")
+        trained.save_pretrained(sdir)
+        write_mimi_snapshot(mdir, mcfg)
+        loaded = SoproTTS.from_pretrained(sdir, mimi_repo_id=mdir, device=dev,
+                                          tokenizer=SimpleCharTokenizer(), on_unconsumed="raise")
+    want = loaded.synthesize(text, ref=loaded.prepare_reference(ref_tokens_tq=ref_tokens),
+                             max_frames=MAX_FRAMES, seed=seed)
+    if after.shape != want.shape or not np.array_equal(after, want):
+        raise AssertionError("train: the trained model's synthesize differs from the reloaded model's")
+    if before.shape == after.shape and np.array_equal(before, after):
+        raise AssertionError("train: synthesize did not change with the weights")
+    log(f"  trained synthesize: {after.shape[1]} samples, bit-identical to the model reloaded "
+        "through save_pretrained / from_pretrained (and different from before the steps)")
+    return out
+
+
+def read_wav16(path):
+    import wave
+
+    with wave.open(path, "rb") as f:
+        if (f.getframerate(), f.getnchannels(), f.getsampwidth()) != (24000, 1, 2):
+            raise AssertionError(f"{path}: not 24 kHz mono PCM16")
+        return np.frombuffer(f.readframes(f.getnframes()), np.int16)
+
+
+CLI_LONG_TEXT = PARAGRAPH + " " + PARAGRAPH  # over 350 characters: two rows of one batch
+
+
+def drive_cli(tts, ref, ref_tokens):
+    """Phase 12: the CLI in subprocesses against phase 4's model in this
+    process (`--seed` seeds both the random weights and the sampling, so
+    every run takes phase 4's SEED)."""
+    from sopro_tpu_torch import audio as A
+    from sopro_tpu_torch.profiling import TRACE_FILE
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref.npy")
+        np.save(ref_path, ref_tokens)
+
+        def cli(name, text, *extra):
+            path = os.path.join(tmp, f"{name}.wav")
+            cmd = [sys.executable, "-m", "sopro_tpu_torch.cli", "--random_init", "--device", "cuda",
+                   "--seed", str(SEED), "--ref_tokens", ref_path, "--max_frames", str(MAX_FRAMES),
+                   "--metrics_json", "--text", text, "--out", path, *extra]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"cli {name}: exit {r.returncode}\n{r.stderr[-3000:]}")
+            metrics = json.loads(r.stdout.strip().splitlines()[-1])
+            log(f"  cli {name}: exit 0 in {time.perf_counter() - t0:.2f} s; metrics {metrics}")
+            return read_wav16(path), metrics
+
+        def same(got, want, what):
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"cli {what}: the WAV differs from the library's")
+            log(f"  cli {what}: {got.size} samples (peak {int(np.abs(got).max(initial=0))} LSB), "
+                "equal to the library's")
+
+        text = REQUESTS[1][0]
+        trace = os.path.join(tmp, "trace")
+        wav, out["metrics"] = cli("synthesize", text, "--trace_dir", trace)
+        same(wav, tts.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=SEED, pcm16=True)[0],
+             "synthesize")
+        with open(os.path.join(trace, TRACE_FILE)) as f:
+            kernels = [e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        counts = {k: sum(1 for n in kernels if any(s in n for s in subs)) for k, subs in
+                  (("ar_loop", ("ar_loop_kernel",)), ("nar_heads", ("nar_heads_kernel",)),
+                   ("seanet", ("conv_tc_kernel", "resblock_kernel")))}
+        log(f"  cli trace: {len(kernels)} kernel events; K1 / K2 / K3 launches named in it: {counts}")
+        if not all(counts.values()):
+            raise AssertionError(f"cli trace: a kernel is missing: {counts}")
+        out["trace_kernels"] = counts
+
+        text = STREAM_REQUESTS[0][0]
+        wav, _ = cli("stream", text, "--stream")
+        chunks = tts.stream(text, ref=ref, max_frames=MAX_FRAMES, seed=SEED, chunk_frames=CHUNK)
+        same(wav, A.pcm16(np.concatenate(list(chunks), axis=1))[0], "--stream")
+
+        wav, _ = cli("long", CLI_LONG_TEXT, "--long")
+        same(wav, tts.synthesize_long(CLI_LONG_TEXT, ref=ref, max_frames=MAX_FRAMES, seed=SEED,
+                                      pcm16=True)[0], "--long")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1291,6 +1681,12 @@ def main() -> int:
     drive_checkpoint(tts, ref, ref_tokens, dev, mcfg)
     log("[10] serve: ContinuousBatcher on the card, 8 slots, text bucket 256")
     serve = drive_serve(tts, ref, dev, rng)
+    log(f"[11] train: full width, B = {len(TRAIN_LENGTHS)} x S = {TRAIN_S}; card vs CPU, "
+        "NCCL world size 1, resume, serving the trained model")
+    train = drive_train(tts, ref_tokens, dev, rng, cfg, mcfg)
+    log(f"  train summary: {json.dumps(train)}")
+    log("[12] CLI: python -m sopro_tpu_torch.cli --random_init --device cuda")
+    drive_cli(tts, ref, ref_tokens)
 
     # each kernel's count from the path it belongs to (K4: the stream, K5: the per-step
     # route), and per request of that path's counted run

@@ -1,4 +1,4 @@
-"""sopro_tpu_torch: the Sopro TTS inference path in PyTorch for NVIDIA Hopper.
+"""sopro_tpu_torch: Sopro TTS in PyTorch for NVIDIA Hopper.
 
 A port of `sopro_tpu` (JAX) that imports neither JAX nor `sopro_tpu`. Plain
 tensor code is PyTorch; the five kernels (the AR decode loop K1 and its
@@ -8,7 +8,9 @@ with nvcc at first use and bound through ctypes (`kernels.py`).
 
 `SoproTTS` (from_pretrained / from_random, synthesize, stream, batch) is
 imported on first access; importing this package loads only the
-configuration classes. Serving is `sopro_tpu_torch.serve`.
+configuration classes. Serving is `sopro_tpu_torch.serve`, the command line
+`python -m sopro_tpu_torch.cli`, training `sopro_tpu_torch.train` (data
+parallel: `sopro_tpu_torch.parallel`).
 """
 
 from sopro_tpu_torch.config import RuntimeConfig, SoproTTSConfig

@@ -1,16 +1,19 @@
-"""Host-side audio input for reference voices (counterpart:
-sopro_tpu/audio.py): WAV loading, polyphase resampling, energy VAD trim and
-centre crop. Waveforms are numpy float32, mono, shape [S].
+"""Host-side audio I/O for reference voices and outputs (counterpart:
+sopro_tpu/audio.py): loading, saving 16-bit WAV, polyphase resampling,
+energy VAD trim and centre crop. Waveforms are numpy float32, mono, shape
+[S].
 
 WAV comes through the standard library's `wave` (8/16/24/32-bit PCM) or
-`scipy.io.wavfile` (IEEE float and the formats `wave` refuses). Other
-containers (mp3, ogg, flac, ...) raise a ValueError: the JAX package's
-native decoders are not ported.
+`scipy.io.wavfile` (IEEE float and the formats `wave` refuses); mp3 and ogg
+vorbis through the repository's native decoder (`native.decode_file`,
+which opens the system's libmpg123 / libvorbisfile). Other containers raise
+a ValueError.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import wave
 from typing import Tuple
 
@@ -18,19 +21,21 @@ import numpy as np
 
 
 def load_audio_file(path: str) -> Tuple[np.ndarray, int]:
-    """Read a WAV file -> (mono float32 [S], sample rate)."""
-    if not str(path).lower().endswith(".wav"):
-        raise ValueError(
-            f"Cannot read {path!r}: the torch port reads WAV only "
-            "(convert mp3/ogg/flac references to WAV first)."
-        )
-    try:
-        return _load_wav_stdlib(path)
-    except wave.Error:
-        from scipy.io import wavfile
+    """Read an audio file -> (mono float32 [S], sample rate)."""
+    if str(path).lower().endswith(".wav"):
+        try:
+            return _load_wav_stdlib(path)
+        except wave.Error:
+            from scipy.io import wavfile
 
-        sr, data = wavfile.read(path)
-        return _to_float_mono(data), int(sr)
+            sr, data = wavfile.read(path)
+            return _to_float_mono(data), int(sr)
+    from sopro_tpu_torch import native
+
+    try:
+        return native.decode_file(str(path))
+    except ValueError as e:
+        raise ValueError(f"{e} (references are read as WAV, mp3 or ogg vorbis)") from None
 
 
 def _load_wav_stdlib(path: str) -> Tuple[np.ndarray, int]:
@@ -65,6 +70,33 @@ def _to_float_mono(data: np.ndarray) -> np.ndarray:
     else:
         out = data.astype(np.float32)
     return out.mean(axis=1) if out.ndim > 1 else out
+
+
+def save_audio(path: str, wav: np.ndarray, sr: int = 24000) -> None:
+    """Write mono PCM16 WAV. Takes [S], [C, S] (downmixed; int16 rows from
+    a pcm16 call are written as they are when there is one) or [1, C, S]."""
+    wav = np.asarray(wav)
+    if wav.ndim == 3:
+        wav = wav[0]
+    if wav.ndim == 2:
+        if wav.dtype == np.int16 and wav.shape[0] == 1:
+            wav = wav[0]
+        else:
+            wav = (wav.astype(np.float32) / 32768.0 if wav.dtype == np.int16 else wav).mean(axis=0)
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(int(sr))
+        f.writeframes(pcm16(wav).tobytes())
+
+
+def pcm16(wav: np.ndarray) -> np.ndarray:
+    """float [-1, 1] -> int16 with clipping; int16 passes through."""
+    wav = np.asarray(wav)
+    if wav.dtype == np.int16:
+        return wav
+    return np.round(np.clip(wav.astype(np.float32), -1.0, 1.0) * 32767.0).astype(np.int16)
 
 
 def resample(wav: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:

@@ -279,10 +279,11 @@ def mimi_decode(
 class MimiCodec(ParamModule):
     """Mimi parameters in the JAX package's layout: {"encoder", "enc_tf",
     "downsample", "quantizer": {"embed", "dec_embed", "in_proj_sem",
-    "in_proj_ac"}, "upsample", "dec_tf", "decoder"}. Calling it decodes."""
+    "in_proj_ac"}, "upsample", "dec_tf", "decoder"}. Calling it decodes.
+    The codec is not trained: its leaves carry no gradient."""
 
     def __init__(self, tree: Params, cfg: MimiConfig):
-        super().__init__(tree)
+        super().__init__(tree, trainable=False)
         self.cfg = cfg
         self._packed = None
 

@@ -2,8 +2,12 @@
 
 The ops take nested dicts of tensors in the JAX package's layouts, so each
 model piece keeps its parameters as such a tree (`module.p`) and registers
-every leaf as a buffer, so `state_dict()`, `.to()` and device moves see them.
-This slice serves only, so leaves are buffers, not trainable Parameters.
+every leaf as an `nn.Parameter` named by its path (`a__b__0`), so
+`state_dict()`, `.to()`, device moves and optimizers see them. The Sopro
+model's leaves are trainable (`train.py` updates every one of them, as the
+JAX package's optimizer does); the Mimi codec is never trained and builds
+its module with `trainable=False`, so its leaves carry no gradient. Serving
+runs under `torch.inference_mode()`, where `requires_grad` costs nothing.
 """
 
 from __future__ import annotations
@@ -27,13 +31,13 @@ def tree_map(fn, tree: Any) -> Any:
 
 
 class ParamModule(nn.Module):
-    def __init__(self, tree: Any):
+    def __init__(self, tree: Any, trainable: bool = True):
         super().__init__()
         names = []
 
         def register(path, leaf):
             name = "__".join(path)
-            self.register_buffer(name, leaf)
+            self.register_parameter(name, nn.Parameter(leaf, requires_grad=trainable))
             names.append(name)
             return name
 
@@ -51,15 +55,15 @@ class ParamModule(nn.Module):
 
     @property
     def p(self) -> Any:
-        """The parameter tree, with leaves bound to this module's buffers."""
+        """The parameter tree, with leaves bound to this module's parameters."""
         if self._tree is None:
             self._tree = tree_map(lambda name: getattr(self, name), self._skeleton)
         return self._tree
 
     def _apply(self, fn, *args, **kwargs):
         out = super()._apply(fn, *args, **kwargs)
-        self._tree = None  # buffers were replaced: rebind on next access
+        self._tree = None  # parameters may have been replaced: rebind on next access
         return out
 
     def param_device(self) -> torch.device:
-        return next(self.buffers()).device
+        return next(self.parameters()).device

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from sopro_tpu_torch.config import SoproTTSConfig
 from sopro_tpu_torch.models.base import ParamModule
 from sopro_tpu_torch.ops.attention import build_kv_cache, text_xattn
-from sopro_tpu_torch.ops.blocks import linear, rmsnorm, ssmlite_step
+from sopro_tpu_torch.ops.blocks import linear, rmsnorm, ssmlite, ssmlite_step
 
 Params = Dict
 TEXT_HEADS = 4
@@ -78,33 +78,64 @@ def ar_step(
     return linear(p["head"], h), torch.stack(new_bufs)
 
 
+def ar_forward(
+    p: Params,
+    cfg: SoproTTSConfig,
+    x_btd: torch.Tensor,
+    text_emb: Optional[torch.Tensor] = None,
+    text_mask: Optional[torch.Tensor] = None,
+    frame_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Teacher-forced full-sequence forward over [B, S, D] -> logits
+    [B, S, V+1] (training): causal SSMLite blocks with `frame_mask`, the
+    text cross-attention over `text_emb` after every `ar_text_attn_freq`-th
+    block, the norm and the head."""
+    dils = cfg.ar_dilations()
+    kvs = (build_text_kv_caches(p, cfg, text_emb, text_mask) if text_emb is not None
+           else [None] * len(p["blocks"]))
+    h = x_btd
+    for i, bp in enumerate(p["blocks"]):
+        h = ssmlite(bp, h, kernel_size=cfg.ar_kernel, dilation=dils[i], causal=True,
+                    mask=frame_mask)
+        if p["xattn"][i] is not None and kvs[i] is not None:
+            h = text_xattn(p["xattn"][i], h, kvs[i], heads=TEXT_HEADS)
+    return linear(p["head"], rmsnorm(p["norm"], h))
+
+
 class ARGenerator(ParamModule):
     """AR generator parameters; `stacked()` gives the kernel's weight view."""
 
     def __init__(self, tree: Params, cfg: SoproTTSConfig):
         super().__init__(tree)
         self.cfg = cfg
+        self.weights_changed()
+
+    def weights_changed(self) -> None:
+        """Drop the stacked weights and the packed streams: the next kernel
+        call rebuilds them from the current parameters."""
         self._stacked = None
         self._streams: Dict[int, Dict] = {}
 
     def _apply(self, fn, *args, **kwargs):
-        self._stacked = None
-        self._streams = {}
+        self.weights_changed()
         return super()._apply(fn, *args, **kwargs)
 
+    @torch.no_grad()
     def stream(self, cs: int) -> Dict:
         """The stacked weights packed per rank in the order kernels K1 and K5
         read them at cluster size cs (`ops.ar_loop.pack_ar_stream`; built
-        once per device and cluster size)."""
+        once per device, cluster size and set of weights)."""
         if cs not in self._streams:
             from sopro_tpu_torch.ops.ar_loop import pack_ar_stream
 
             self._streams[cs] = pack_ar_stream(self.stacked(), self.cfg, cs)
         return self._streams[cs]
 
+    @torch.no_grad()
     def stacked(self) -> Dict[str, torch.Tensor]:
         """Per-block weights stacked on a leading layer/attn axis, contiguous
-        (the AR loop kernel's input layout; built once per device)."""
+        (the AR loop kernel's input layout; built once per device and set of
+        weights)."""
         if self._stacked is None:
             p = self.p
             blocks = p["blocks"]

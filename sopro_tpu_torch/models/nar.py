@@ -52,14 +52,38 @@ def _stage_hidden(
     return linear(p["pre"], rmsnorm(p["norm"], x))
 
 
+def _head_weights(p: Params, stage: str):
+    """(hid [H, hd], w_stack [H, hd, V], b_stack [H, V]) of one stage."""
+    hid = p["head_id_emb"][stage]["emb"].contiguous()
+    w_stack = torch.stack([hp["w"] for hp in p["heads"][stage]]).contiguous()
+    b_stack = torch.stack([hp["b"] for hp in p["heads"][stage]]).contiguous()
+    return hid, w_stack, b_stack
+
+
 def _stage_head_stacks(p: Params, stage: str):
     """(hid, w_stack, b_stack, packed): `packed` is K2's TF32 hi/lo split of
     the weights on CUDA (pack_nar_heads), None on the CPU."""
-    hid = p["head_id_emb"][stage]["emb"].contiguous()  # [H, hd]
-    w_stack = torch.stack([hp["w"] for hp in p["heads"][stage]]).contiguous()  # [H, hd, V]
-    b_stack = torch.stack([hp["b"] for hp in p["heads"][stage]]).contiguous()  # [H, V]
+    hid, w_stack, b_stack = _head_weights(p, stage)
     packed = pack_nar_heads(w_stack) if w_stack.is_cuda else None
     return hid, w_stack, b_stack, packed
+
+
+def nar_forward_stage(
+    p: Params,
+    cfg: SoproTTSConfig,
+    stage: str,
+    cond: torch.Tensor,
+    prev_emb: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    head_tail: Optional[int] = None,
+) -> torch.Tensor:
+    """One refinement stage -> logits [B, T', n_heads, codebook_size]
+    (training; T' = `head_tail` or T). The head product is a plain einsum,
+    as in the JAX package."""
+    z = _stage_hidden(p, cfg, stage, cond, prev_emb, mask, head_tail)
+    hid, w_stack, b_stack = _head_weights(p, stage)
+    zh = z[:, :, None, :] + hid[None, None, :, :]
+    return torch.einsum("bthd,hdv->bthv", zh, w_stack) + b_stack[None, None]
 
 
 def nar_stage_preds(
@@ -121,17 +145,24 @@ def nar_refine(
 
 
 class NARRefiner(ParamModule):
-    """NAR parameters; head stacks are built once per device."""
+    """NAR parameters; head stacks are built once per device and set of
+    weights."""
 
     def __init__(self, tree: Params, cfg: SoproTTSConfig):
         super().__init__(tree)
         self.cfg = cfg
+        self.weights_changed()
+
+    def weights_changed(self) -> None:
+        """Drop the head stacks (and K2's packs): the next call rebuilds
+        them from the current parameters."""
         self._stacks = None
 
     def _apply(self, fn, *args, **kwargs):
-        self._stacks = None
+        self.weights_changed()
         return super()._apply(fn, *args, **kwargs)
 
+    @torch.no_grad()
     def head_stacks(self) -> Dict[str, tuple]:
         if self._stacks is None:
             self._stacks = {s: _stage_head_stacks(self.p, s) for s in self.cfg.stage_order()}

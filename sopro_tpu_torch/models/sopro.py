@@ -50,6 +50,14 @@ class SoproModel(nn.Module):
     def device(self) -> torch.device:
         return self.shared.param_device()
 
+    def weights_changed(self) -> None:
+        """Drop every cache built from the weights (K1/K5's stacked weights
+        and packed streams, the NAR head stacks with K2's packs). Call it
+        after the parameters change in place (an optimizer step, a
+        restore): serving then rebuilds the caches from the new weights."""
+        self.ar.weights_changed()
+        self.nar.weights_changed()
+
 
 class PreparedReference(NamedTuple):
     sv_ref: torch.Tensor  # [B, sv_dim]

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import os
 import re
-import wave
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -270,7 +269,7 @@ class SoproTTS:
             )
             if t <= 0:
                 return empty
-            return to_pcm16(wav) if pcm16 else wav
+            return A.pcm16(wav) if pcm16 else wav
         prep = self.engine.prepare_conditioning(
             ids, ref, max_frames=max_frames, style_strength=self._style(style_strength)
         )
@@ -400,16 +399,8 @@ class SoproTTS:
         return stream(self, text, **kwargs)
 
     def save_wav(self, path: str, wav: np.ndarray) -> None:
-        """Write mono PCM16 WAV at 24 kHz."""
-        wav = np.asarray(wav)
-        if wav.ndim == 2:
-            wav = wav[0] if wav.shape[0] == 1 else wav.mean(axis=0)
-        os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
-        with wave.open(path, "wb") as f:
-            f.setnchannels(1)
-            f.setsampwidth(2)
-            f.setframerate(TARGET_SR)
-            f.writeframes(to_pcm16(wav).tobytes())
+        """Write mono PCM16 WAV at 24 kHz (`audio.save_audio`)."""
+        A.save_audio(path, wav, TARGET_SR)
 
     def save_pretrained(self, out_dir: str) -> str:
         """Write `out_dir/model.safetensors` (reference names and layouts,
@@ -422,11 +413,3 @@ class SoproTTS:
         if tok is not None and hasattr(tok, "save_pretrained"):
             tok.save_pretrained(out_dir)
         return path
-
-
-def to_pcm16(wav: np.ndarray) -> np.ndarray:
-    """float [-1, 1] -> int16 with clipping; int16 passes through."""
-    wav = np.asarray(wav)
-    if wav.dtype == np.int16:
-        return wav
-    return np.round(np.clip(wav.astype(np.float32), -1.0, 1.0) * 32767.0).astype(np.int16)

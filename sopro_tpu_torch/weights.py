@@ -32,13 +32,14 @@ MIMI_QUANTIZER_KEYS = ("embed", "dec_embed", "in_proj_sem", "in_proj_ac")
 
 def to_torch(tree: Any, device) -> Any:
     """numpy (or array-like) leaves -> torch tensors on `device`; floats
-    become float32."""
+    become float32. Each leaf is a copy: on the CPU a tensor would otherwise
+    share the caller's array, and a training step updates it in place."""
     def leaf(a):
         a = np.asarray(a)
         t = torch.from_numpy(np.ascontiguousarray(a))
         if t.is_floating_point():
             t = t.float()
-        return t.to(device)
+        return t.to(device, copy=True)
     return tree_map(leaf, tree)
 
 

@@ -1,12 +1,14 @@
 """The five CUDA kernels against their plain PyTorch versions on the card,
-at small shapes, and the synthesize, batch, per-step and stream paths on
-the card against the CPU; each test skips without a CUDA device.
+at small shapes; the synthesize, batch, per-step and stream paths and a
+training step on the card against the CPU; serving after a training step
+from rebuilt weight packs. Each test skips without a CUDA device.
 
 This file imports no JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-It also holds the small configurations the other test_torch_* files share.
+It also holds the small configurations and the training batch the other
+test_torch_* files share.
 Tolerances on the card: ids and tokens exact (argmax and sampler decisions
 away from near-ties), waveforms within 1e-4 of their peak (fp32, summation
 order differs from cuBLAS/cuDNN).
@@ -40,6 +42,33 @@ SMALL_MIMI = dict(
     head_dim=16, sliding_window=6, frame_rate=1000.0,
 )
 TEXT_VOCAB = 259  # SimpleCharTokenizer
+# training: the configuration of tests/test_parallel.py
+TRAIN_CFG = dict(
+    d_model=64, n_layers_text=1, n_layers_ar=2, n_layers_nar=2, ref_enc_layers=1,
+    ref_xattn_layers=1, max_frames=16, num_codebooks=8, codebook_size=32, nar_head_dim=32,
+    stage_B=(2, 3), stage_C=(4, 5), stage_D=(6, 7), stage_E=(8, 8), sv_student_dim=16,
+)
+
+
+def make_batch(seed=0, b=4, l=10, tr=6, s=12, vocab=64, cb=32, q=8):
+    """A numpy training batch for TRAIN_CFG: frame lengths (s, 7, 4, 9) (row
+    0 fills S: no EOS target), partial text and reference masks."""
+    rng = np.random.default_rng(seed)
+    lengths = np.array([s, 7, 4, 9][:b])
+    return dict(
+        text_ids=rng.integers(0, vocab, (b, l)).astype(np.int32),
+        text_mask=np.arange(l)[None] < np.array([l, 6, 8, 3][:b])[:, None],
+        ref_tokens=rng.integers(0, cb, (b, tr, q)).astype(np.int32),
+        ref_mask=np.arange(tr)[None] < np.array([tr, 4, 5, 6][:b])[:, None],
+        frames=rng.integers(0, cb, (b, s, q)).astype(np.int32),
+        frame_mask=np.arange(s)[None] < lengths[:, None],
+    )
+
+
+def torch_batch(nb, device="cpu"):
+    from sopro_tpu_torch.train import TrainBatch
+
+    return TrainBatch(**{k: torch.from_numpy(v).to(device) for k, v in nb.items()})
 
 
 @pytest.fixture(scope="module")
@@ -559,3 +588,76 @@ def test_seanet_chunk_kernel_at_8_rows_with_a_mask(cuda):
             else:
                 assert torch.equal(new.emb_hist[r], st.emb_hist[r])
         st, st_cpu = new, to(new, "cpu")
+
+
+def _train_models(dev):
+    """The same TRAIN_CFG model on the CPU and on `dev`."""
+    cfg = SoproTTSConfig(**TRAIN_CFG)
+    tree = W.init_sopro_params(11, cfg, TEXT_VOCAB)
+    W.fill_zero_inits(tree, None, 12)
+    return [W.sopro_params_from_jax(tree, cfg, d) for d in ("cpu", dev)]
+
+
+@pytest.mark.cuda
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One training step on the card against the CPU, TF32 off: the loss
+    within 1e-5 relative, each leaf's gradient within 1e-4 of its largest
+    entry (plus 1e-9). The AdamW step then runs on both from the card's
+    gradients (an element whose gradient is near 0 takes a step of about
+    lr whatever its sign, so the rounding of the two backwards is kept out
+    of it): the parameters within 1e-6."""
+    from sopro_tpu_torch import train as T
+
+    out = []
+    for model, dev in zip(_train_models(cuda), ("cpu", cuda)):
+        opt = T.make_optimizer(model, lr=1e-3)
+        opt.zero_grad(set_to_none=False)
+        loss, metrics = T.loss_fn(model, torch_batch(make_batch(), dev))
+        loss.backward()
+        out.append((model, opt, metrics))
+    (m_cpu, o_cpu, met_cpu), (m_gpu, o_gpu, met_gpu) = out
+    for k in met_cpu:
+        np.testing.assert_allclose(float(met_gpu[k].detach()), float(met_cpu[k].detach()),
+                                   rtol=1e-5, err_msg=k)
+    p_gpu = dict(m_gpu.named_parameters())
+    for name, p in m_cpu.named_parameters():
+        g, want = p_gpu[name].grad.cpu(), p.grad
+        assert float((g - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-9, name
+        p.grad = g
+    for opt in (o_cpu, o_gpu):
+        T.fill_missing_grads(opt)
+        opt.step()
+    for name, p in m_cpu.named_parameters():
+        assert float((p_gpu[name].detach().cpu() - p.detach()).abs().max()) <= 1e-6, name
+
+
+@pytest.mark.cuda
+def test_weights_changed_rebuilds_the_kernel_packs(cuda):
+    """Serve (K1's weight stream and K2's packs are built), take one step,
+    serve again: the tokens and waveform equal a model built afresh from the
+    trained weights, launching K1 and K2 again."""
+    from sopro_tpu_torch import train as T
+    from sopro_tpu_torch.engine import Engine
+    from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
+    from sopro_tpu_torch.tts import SoproTTS
+
+    model = _train_models(cuda)[1]
+    mcfg = MimiConfig(**SMALL_MIMI)
+    mtree = W.init_mimi_params(13, mcfg)
+
+    def tts_of(m):
+        return SoproTTS(Engine(m, W.mimi_params_from_jax(mtree, mcfg, cuda)), m.cfg,
+                        SimpleCharTokenizer())
+
+    tts = tts_of(model)
+    ref = np.random.default_rng(14).integers(0, 32, (12, 8)).astype(np.int32)
+    kw = dict(ref_tokens_tq=ref, max_frames=20, seed=4, fused=True)
+    tts.synthesize("before the step", **kw)
+    assert model.ar._streams and model.nar._stacks is not None
+    T.make_train_step(model, T.make_optimizer(model, lr=1e-2))(torch_batch(make_batch(), cuda))
+    assert not model.ar._streams and model.nar._stacks is None
+    kernels.reset_launches()
+    got = tts.synthesize("after the step", **kw)
+    assert kernels.LAUNCHES["ar_loop"] > 0 and kernels.LAUNCHES["nar_heads"] > 0, kernels.LAUNCHES
+    fresh = W.sopro_params_from_jax(W.sopro_tree(model), model.cfg, cuda)
+    np.testing.assert_array_equal(got, tts_of(fresh).synthesize("after the step", **kw))
