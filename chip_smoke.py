@@ -88,6 +88,20 @@ Phases (each raises, so the script exits non-zero, on failure):
    the same seed, `--metrics_json` prints the metrics, `--trace_dir`
    writes a Chrome trace that names K1, K2 and K3's kernels; `--stream`
    equals `stream` and `--long` equals `synthesize_long`.
+13. bf16: `from_random(..., runtime=RuntimeConfig(compute_dtype="bfloat16"))`
+   from phase 4's seed. Each bf16 kernel against its bf16 plain version
+   (within 1e-2 of peak; K2's ids equal away from a 1e-4 top-2 margin; K1's
+   tokens equal up to the first near-tie of the plain run) and timed beside
+   it and the bf16 library call (K2 at 6, 187, 401 and 1,604 rows; K3 at
+   B = 1 and 4; K4 at chunks 6 and 16 and at 8 rows with partial
+   histories; K1 over 401 near-greedy steps and at 1, 4, 7 and 8 rows; K5
+   at B = 1 and 2); then, counters zeroed before and read after, three
+   400-frame `synthesize` requests (K1, K2, K3 in bf16, no float32 kernel),
+   three streams at chunk 6 (TTFA, steady chunk ms), a B = 4 batch, the
+   per-step route (K5, not K1), an 8-way `ContinuousBatcher` burst (every
+   session as long as its `generate_tokens`); the bf16 Mimi decode of the
+   fp32 path's codes against the fp32 one (SNR, beside the JAX package's
+   TPU claim of 41 dB; not gated).
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}. Per kernel the record holds its
 launches in its path's counted run and per request of that run (K1, K2 and
@@ -99,6 +113,9 @@ the 3-pass TF32 rate for the tensor-core kernels K2, K3 and K4 and the fp32
 rate for K1 and K5); K2 also at 6, 187, 401 and 1,604 rows and at the
 serve tick's window, K1 also at 1, 4, 7 and 8 serving rows, K3 also at
 B = 4, K4 also at chunk 16, with errors against float64 plain versions.
+Each record's "bf16" entry holds the same keys for the kernel's bfloat16
+instantiation (launches from the bf16 path it belongs to; bounds at 2
+bytes an element, one TF32 pass for K2, K3 and K4).
 """
 
 from __future__ import annotations
@@ -1332,7 +1349,8 @@ def same_metrics(got, want, what):
 def profile_steps(step, batch, n=2):
     """n steps under torch.profiler -> (the kernels' busy share of the host
     wall, kernel launches per step, stream / device / event synchronisations
-    per step, the largest kernels by device ms per step). User annotations
+    per step, the largest kernels by device ms per step, the host wall per
+    step in seconds). User annotations
     (optimizer ranges) are not kernels and are left out of the sums; a
     `.item()` on a CPU tensor (AdamW's step counts) is not a sync."""
     from torch.autograd import DeviceType
@@ -1353,7 +1371,7 @@ def profile_steps(step, batch, n=2):
     syncs = (sum(e.count for e in rows if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                                                       "cudaEventSynchronize")) - 1) / n  # less the last one
     top = sorted(((e.key, e.self_device_time_total / 1e3 / n) for e in kernels), key=lambda r: -r[1])
-    return busy, launches, syncs, top[:8]
+    return busy, launches, syncs, top[:8], wall / n
 
 
 def step_phases(model, opt, batch):
@@ -1478,7 +1496,7 @@ def drive_train(tts, ref_tokens, dev, rng, cfg, mcfg):
         f"fp32 peak; bound {flops / PEAK_FP32 * 1e3:.2f} ms")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: the loss did not fall: {losses}")
-    busy, launches, syncs, top = profile_steps(step, batch)
+    busy, launches, syncs, top, _ = profile_steps(step, batch)
     log(f"  profiler, 2 more steps: kernels busy {busy * 100:.1f} % of the host wall; "
         f"{launches:.0f} kernel launches and {syncs:.1f} synchronisations per step; largest kernels, "
         "ms per step: " + "; ".join(f"{k[:70]} {v:.3f}" for k, v in top))
@@ -1630,6 +1648,447 @@ def drive_cli(tts, ref, ref_tokens):
     return out
 
 
+# phase 13: the bfloat16 compute policy
+BF16_TOL = 1e-2  # a bf16 kernel against its bf16 plain version, of the peak (a few bf16 steps)
+BF16_NAR_GAP = 1e-4  # K2 bf16: ids equal wherever the float64 top-2 margin exceeds this
+BF16_SERVE_MAX = 96  # the bf16 burst's max_frames
+TPU_BF16_SNR_DB = 41.0  # bench.py's comment: the JAX package's bf16 vocoder SNR on a TPU
+
+
+def launched_bf16(path: str, needed):
+    """The bf16 launch counts since the last reset; raises unless every
+    kernel in `needed` launched its bfloat16 instantiation and no float32
+    instantiation launched."""
+    from sopro_tpu_torch import kernels
+
+    bf16, f32 = dict(kernels.LAUNCHES_BF16), dict(kernels.LAUNCHES)
+    log(f"  bf16 launches during the {path} run: {bf16} (float32: {f32})")
+    missing = [k for k in needed if bf16[k] <= 0]
+    if missing or any(f32.values()):
+        raise AssertionError(f"the bf16 {path} path: bf16 kernels {missing} not launched, "
+                             f"float32 launches {f32}")
+    return bf16
+
+
+class RecordingContext:
+    """An AR context whose plain steps keep their logits [B, V]
+    (`ar_loop_step` reads cfg, emb and step)."""
+
+    def __init__(self, ctx):
+        self.ctx, self.cfg, self.emb, self.logits = ctx, ctx.cfg, ctx.emb, []
+
+    def step(self, x, bufs):
+        logits, bufs = self.ctx.step(x, bufs)
+        self.logits.append(logits.float())
+        return logits, bufs
+
+
+def first_divergence(got, want, logits, row, what, tol=BF16_TOL):
+    """The first step where row `row` of the kernel's tokens `got` leaves
+    the plain run's `want` (-1: none). Raises unless the plain run's
+    penalized top-2 margin there is within tol of its peak logit (a near-tie
+    that bf16 rounding can tip); the history starts empty."""
+    from sopro_tpu_torch.ops.ar_loop import REP_PENALTY
+
+    diff = (got[row] != want[row]).nonzero()
+    if len(diff) == 0:
+        return -1
+    i = int(diff[0])
+    x = logits[i][row].double().clone()
+    for t in set(int(v) for v in want[row, max(0, i - 50):i].tolist()):
+        x[t] = x[t] * REP_PENALTY if x[t] < 0 else x[t] / REP_PENALTY
+    top2 = torch.topk(x, 2).values
+    margin = float(top2[0] - top2[1]) / float(logits[i][row].abs().max())
+    log(f"  {what}: row {row} leaves the plain tokens at step {i}, penalized top-2 margin "
+        f"{margin:.2e} of the peak logit")
+    if margin > tol:
+        raise AssertionError(f"{what}: row {row} diverges at step {i} with a margin of {margin:.2e}")
+    return i
+
+
+def check_bf16_kernels(tts16, dev, rng):
+    """Each bfloat16 kernel against its bfloat16 plain version on the card at
+    the main paths' shapes, timed beside the plain version and the bf16
+    library yardstick; bounds at 2 bytes an element and the 989 TFLOP/s
+    bfloat16 tensor-core rate (`design_bound_ms`: at the rate of the design
+    taken, one TF32 pass for K2, K3 and K4, the fp32 cores for K1 and K5)."""
+    from sopro_tpu_torch.bench_kernels import (
+        ar_cost, bound, conv_stack_cost, nar_cost, nar_library, seanet_library,
+        seanet_library_weights,
+    )
+    from sopro_tpu_torch.codec.mimi import decode_embeddings, seanet_apply
+    from sopro_tpu_torch.codec.mimi_config import decoder_plan, required_halo
+    from sopro_tpu_torch.codec.vocoder import (
+        seanet_decode, seanet_decode_chunk, seanet_decode_chunk_plain,
+    )
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.ops.ar_loop import ar_loop, ar_loop_plain
+    from sopro_tpu_torch.ops.ar_step import ar_step, ar_step_plain
+    from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax, nar_heads_argmax_plain
+    from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
+
+    bf16 = torch.bfloat16
+    model, mimi, eng, cfg = tts16.engine.model, tts16.engine.mimi, tts16.engine, tts16.cfg
+    mcfg, plan = mimi.cfg, decoder_plan(mimi.cfg)
+    stats = {}
+
+    # K2 at NAR_ROWS rows per stage
+    out = {"max_abs_err": 0.0, "mismatches": 0}
+    with torch.inference_mode():
+        for rows in NAR_ROWS:
+            ms = plain_ms = lib_ms = flop = nbytes = 0.0
+            for stage, (hid, w, b, packed) in model.nar.head_stacks().items():
+                z = torch.from_numpy(rng.standard_normal((1, rows, w.shape[1])).astype(np.float32))
+                z = z.to(dev, bf16)
+                got, want = nar_heads_argmax(z, hid, w, b, packed), nar_heads_argmax_plain(z, hid, w, b)
+                zh = (z[:, :, None] + hid[None, None]).double()
+                logits = torch.einsum("bthd,hdv->bthv", zh, w.double()) + b.double()[None, None]
+                top2 = torch.topk(logits, 2, dim=-1).values
+                differ = got != want
+                if bool((differ & (top2[..., 0] - top2[..., 1] > BF16_NAR_GAP)).any()):
+                    raise AssertionError(f"nar_heads bf16 {rows} rows stage {stage}: ids differ at a "
+                                         "clear margin")
+                out["mismatches"] += int(differ.sum())
+                gl = torch.gather(logits, -1, got.long()[..., None])[..., 0]
+                out["max_abs_err"] = max(out["max_abs_err"], float((top2[..., 0] - gl).max()))
+                ms += cuda_ms(lambda: nar_heads_argmax(z, hid, w, b, packed), 20)
+                plain_ms += cuda_ms(lambda: nar_heads_argmax_plain(z, hid, w, b), 20)
+                lib_ms += cuda_ms(lambda: nar_library(z, hid, w, b), 20)
+                f, n = nar_cost(rows, *w.shape, es=2)
+                flop, nbytes = flop + f, nbytes + n
+            bnd = bound(flop, nbytes, tf32x3=True, bf16=True)
+            log(f"  bf16 nar_heads {rows} rows, 4 stages: {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms "
+                f"(plain), {lib_ms:.3f} ms (bf16 einsum + argmax); bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_rate']}), design bound {bnd['design_bound_ms']:.4f} ms")
+            out[rows] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
+    log(f"  bf16 nar_heads: ids differ only at near-ties ({out['mismatches']} positions); worst "
+        f"float64 logit gap of a chosen id {out['max_abs_err']:.3e}")
+    stats["nar_heads"] = dict(out[MAX_FRAMES + 1], max_abs_err=out["max_abs_err"],
+                              by_rows={r: out[r] for r in NAR_ROWS})
+
+    # K3 at B = 1 and 4
+    lib_w = seanet_library_weights(mimi.p["decoder"], plan)
+    packed = mimi.packed_decoder()
+    k3 = {}
+    with torch.inference_mode():
+        for b in (1, 4):
+            codes = torch.from_numpy(
+                rng.integers(0, mcfg.codebook_size, (b, MAX_FRAMES + 1, mcfg.num_quantizers))).to(dev)
+            emb = decode_embeddings(mimi.p, mcfg, codes).contiguous()
+            got, want = seanet_decode(packed, mcfg, emb), seanet_apply(mimi.p["decoder"], plan, emb)[..., 0]
+            if got.dtype != bf16 or got.shape != want.shape:
+                raise AssertionError(f"seanet bf16 B={b}: {got.dtype} {tuple(got.shape)}")
+            err, peak = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+            if not err <= BF16_TOL * peak:
+                raise AssertionError(f"seanet bf16 B={b}: max|err| {err} > {BF16_TOL} * peak {peak}")
+            row = dict(max_abs_err=err, peak=peak, ms=cuda_ms(lambda: seanet_decode(packed, mcfg, emb), 5),
+                       plain_ms=cuda_ms(lambda: seanet_apply(mimi.p["decoder"], plan, emb), 5),
+                       library_ms=cuda_ms(lambda: seanet_library(lib_w, emb), 5),
+                       **bound(*conv_stack_cost(packed["ops"], b, emb.shape[1], causal=True),
+                               tf32x3=True, bf16=True))
+            log(f"  bf16 seanet B={b}: max|err| {err:.3e} of peak {peak:.3e}; {row['ms']:.3f} ms "
+                f"(kernel) vs {row['plain_ms']:.3f} ms (plain), {row['library_ms']:.3f} ms (cuDNN "
+                f"bf16 stack); bound {row['bound_ms']:.4f} ms ({row['bound_rate']}), design bound "
+                f"{row['design_bound_ms']:.4f} ms")
+            k3[b] = row
+    stats["seanet"] = dict(k3[1], B4=k3[4])
+
+    # K4 at chunks 6 and 16, and 8 serving rows with partial histories
+    halo, hop25 = required_halo(mcfg), int(np.prod(mcfg.upsampling_ratios))
+    k4 = {}
+    with torch.inference_mode():
+        for b, m25, hist in ((1, 2 * CHUNK, None), (1, 32, None), SERVE_K4):
+            frames = -(-(halo + m25) // 2)
+            codes = torch.from_numpy(
+                rng.integers(0, mcfg.codebook_size, (b, frames, mcfg.num_quantizers))).to(dev)
+            ext = decode_embeddings(mimi.p, mcfg, codes)[:, -(halo + m25):].contiguous()
+            n_hist = None if hist is None else torch.tensor(hist, dtype=torch.int32, device=dev)
+            got = seanet_decode_chunk(packed, mcfg, ext, n_hist)
+            want = seanet_decode_chunk_plain(mimi.p["decoder"], mcfg, ext, n_hist)
+            what = f"bf16 seanet_chunk B={b} ext {tuple(ext.shape)} n_hist={hist or halo}"
+            if not torch.equal(got, seanet_decode_chunk(packed, mcfg, ext, n_hist)):
+                raise AssertionError(f"{what}: a repeated call is not bit-identical")
+            err, peak = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+            if got.shape != (b, m25 * hop25) or not err <= BF16_TOL * peak:
+                raise AssertionError(f"{what}: {tuple(got.shape)}, max|err| {err} vs peak {peak}")
+            row = dict(max_abs_err=err, ms=cuda_ms(lambda: seanet_decode_chunk(packed, mcfg, ext, n_hist), 20),
+                       plain_ms=cuda_ms(lambda: seanet_decode_chunk_plain(mimi.p["decoder"], mcfg, ext,
+                                                                          n_hist), 20),
+                       library_ms=None)
+            if hist is None:
+                n_out = m25 * hop25
+                row["library_ms"] = cuda_ms(lambda: seanet_library(lib_w, ext)[:, -n_out:], 20)
+                row.update(bound(*conv_stack_cost(packed["ops"], b, ext.shape[1], causal=False,
+                                                  keep=n_out), tf32x3=True, bf16=True))
+            log(f"  {what}: max|err| {err:.3e} of peak {peak:.3e}, repeat bit-identical; "
+                f"{row['ms']:.3f} ms (kernel) vs {row['plain_ms']:.3f} ms (plain)"
+                + (f", {row['library_ms']:.3f} ms (cuDNN bf16), bound {row['bound_ms']:.4f} ms "
+                   f"({row['bound_rate']}), design bound {row['design_bound_ms']:.4f} ms"
+                   if hist is None else ""))
+            k4[(b, m25, hist)] = row
+    stats["seanet_chunk"] = dict(k4[(1, 2 * CHUNK, None)], chunk16=k4[(1, 32, None)],
+                                 serve_b8=k4[SERVE_K4],
+                                 max_abs_err=max(r["max_abs_err"] for r in k4.values()))
+
+    # K1: 401 near-greedy steps against the plain loop; B = 1, 4, 7, 8 rows
+    ids = np.asarray(SimpleCharTokenizer().encode(REQUESTS[0][0]), np.int32)
+    ref = eng.prepare_reference(rng.integers(0, cfg.codebook_size, (150, cfg.num_codebooks)
+                                             ).astype(np.int32))
+    s = MAX_FRAMES + 1
+    keys = ("t", "last", "streak", "stopped", "first_eos", "key", "hist", "bufs")
+    with torch.inference_mode():
+        prep = eng.prepare_conditioning(ids, ref, max_frames=MAX_FRAMES, style_strength=1.0)
+        cond = prep["cond_ar"]
+        ctx = M.ar_context(model, prep["txt_seq"], prep["text_mask"])
+
+        def fresh(b=1, c=cond):
+            carry = M.init_ar_carry(cfg, b, c.shape[1], 7, dev, bf16)
+            return {k: getattr(carry, k) for k in keys}
+
+        greedy = M.ARSettings(temperature=1e-4, anti_loop=False).per_row(1, dev)
+        tk, sk = ar_loop(ctx, cond, fresh(), greedy, s, False)
+        rec = RecordingContext(ctx)
+        tp, sp = ar_loop_plain(rec, cond, fresh(), greedy, s, False)
+        torch.cuda.synchronize()
+        first = first_divergence(tk, tp, rec.logits, 0, "bf16 ar_loop near-greedy")
+        k1 = {"first_diff": first, "steps": int(sk["t"][0])}
+        if first >= 0:  # a near-tie parted the tokens: hold the state after the equal steps
+            tk, sk = ar_loop(ctx, cond, fresh(), greedy, first, False)
+            tp, sp = ar_loop_plain(ctx, cond, fresh(), greedy, first, False)
+            torch.cuda.synchronize()
+            if not torch.equal(tk, tp):
+                raise AssertionError(f"bf16 ar_loop: the first {first} tokens differ on a rerun")
+        for k in ("t", "last", "streak", "stopped", "first_eos", "key", "hist"):
+            if not torch.equal(sk[k], sp[k]):
+                raise AssertionError(f"bf16 ar_loop: the same tokens but another state {k}")
+        err, peak = (float((sk["bufs"].float() - sp["bufs"].float()).abs().max()),
+                     float(sp["bufs"].float().abs().max()))
+        if not err <= BF16_TOL * peak:
+            raise AssertionError(f"bf16 ar_loop: conv state max|err| {err} > {BF16_TOL} * {peak}")
+        k1["max_abs_err"], n_eq = err, int(sp["t"][0])
+        if n_eq < cond.shape[1]:  # the next step's logits from each state, through the same plain step
+            prev = sp["last"] if n_eq > 0 else torch.full_like(sp["last"], cfg.ar_vocab)
+            x = cond[:, n_eq] + ctx.emb[prev.long()]
+            lk, lp = ctx.step(x, sk["bufs"])[0], ctx.step(x, sp["bufs"])[0]
+            lerr, lpeak = float((lk - lp).abs().max()), float(lp.abs().max())
+            if not lerr <= BF16_TOL * lpeak:
+                raise AssertionError(f"bf16 ar_loop: step {n_eq} logits from the kernel's state "
+                                     f"max|err| {lerr} > {BF16_TOL} * {lpeak}")
+            k1["state_logit_err"] = lerr
+            log(f"  bf16 ar_loop near-greedy: {n_eq} equal steps, conv-state max|err| {err:.3e} of "
+                f"peak {peak:.3e}; step {n_eq} logits from the kernel's state max|err| {lerr:.3e} "
+                f"of peak {lpeak:.3e}")
+        else:
+            log(f"  bf16 ar_loop near-greedy: {n_eq} equal steps, conv-state max|err| {err:.3e} of "
+                f"peak {peak:.3e}")
+        prod = M.ARSettings().per_row(1, dev)
+        k1["ms"] = cuda_ms(lambda: ar_loop(ctx, cond, fresh(), prod, s, True), 3)
+        k1["plain_ms"] = cuda_ms(lambda: ar_loop_plain(ctx, cond, fresh(), prod, s, True), 1)
+        _, st = ar_loop(ctx, cond, fresh(), prod, s, True)
+        k1["steps"] = int(st["t"][0])
+        k1["us_per_step"] = k1["ms"] * 1e3 / k1["steps"]
+        kv_k = torch.stack([c["k"] for c in ctx.kv if c is not None])
+        k1.update(bound(*ar_cost(model.ar.stacked(), kv_k, k1["steps"], 1), tf32x3=False, bf16=True),
+                  library_ms=None)
+        log(f"  bf16 ar_loop: {k1['steps']} steps {k1['ms']:.3f} ms (kernel, "
+            f"{k1['us_per_step']:.1f} µs per step) vs {k1['plain_ms']:.3f} ms (plain); bound "
+            f"{k1['bound_ms']:.4f} ms ({k1['bound_rate']}), design bound {k1['design_bound_ms']:.4f} ms")
+        rows, texts = {}, [REQUESTS[i % 3][0] for i in range(8)]
+        for b in (1, 4, 7, 8):
+            pad_ids, mask = eng._padded([np.asarray(SimpleCharTokenizer().encode(t), np.int32)
+                                         for t in texts[:b]], eng.rt.text_buckets)
+            pb = M.prepare_conditioning(model, pad_ids, mask, M.tile_reference(ref, b),
+                                        max_frames=MAX_FRAMES, style_strength=1.0)
+            cb, ctx_b = pb["cond_ar"], M.ar_context(model, pb["txt_seq"], mask)
+            per_row = M.ARSettings().per_row(b, dev)
+            ms = cuda_ms(lambda: ar_loop(ctx_b, cb, fresh(b, cb), per_row, 64, True), 5)
+            rows[b] = {"us_per_step": ms * 1e3 / 64}
+            if b == 8:
+                near = M.ARSettings(temperature=torch.tensor([1e-4 * (1 + i) for i in range(b)]),
+                                    anti_loop=False,
+                                    min_gen_frames=torch.tensor([1 + 7 * i for i in range(b)]))
+                near = near.per_row(b, dev)
+                tk8, _ = ar_loop(ctx_b, cb, fresh(b, cb), near, 64, False)
+                rec8 = RecordingContext(ctx_b)
+                tp8, _ = ar_loop_plain(rec8, cb, fresh(b, cb), near, 64, False)
+                torch.cuda.synchronize()
+                rows[b]["first_diff"] = [first_divergence(tk8, tp8, rec8.logits, r,
+                                                          "bf16 ar_loop B=8") for r in range(b)]
+            log(f"  bf16 K1 at B={b}: {rows[b]['us_per_step']:.1f} µs per step over 64 steps"
+                + (f"; near-greedy rows against the plain loop, first divergence per row "
+                   f"{rows[b]['first_diff']} (-1: none)" if b == 8 else ""))
+        k1["serve_rows"] = rows
+    stats["ar_loop"] = k1
+
+    # K5 at B = 1 and 2, text bucket 64
+    worst = 0.0
+    k5 = {}
+    with torch.inference_mode():
+        for b in (1, 2):
+            pad_ids, mask = eng._padded([np.asarray(SimpleCharTokenizer().encode(t), np.int32)
+                                         for t in (REQUESTS[0][0], "Short one")[:b]],
+                                        eng.rt.text_buckets)
+            pb = M.prepare_conditioning(model, pad_ids, mask, M.tile_reference(ref, b),
+                                        max_frames=MAX_FRAMES, style_strength=1.0)
+            sctx = M.ar_step_context(model, pb["txt_seq"], mask)
+            x = (pb["cond_ar"][:, 0] + sctx.emb[-1]).contiguous()
+            bufs = (torch.from_numpy(rng.standard_normal(
+                (cfg.n_layers_ar, b, fresh()["bufs"].shape[2], cfg.d_model)).astype(np.float32))
+                * 0.3).to(dev, bf16)
+            (lg, bg), (lw, bw) = ar_step(sctx, x, bufs), ar_step_plain(sctx, x, bufs)
+            torch.cuda.synchronize()
+            for name, g, w in (("logits", lg, lw), ("bufs", bg, bw)):
+                err, peak = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+                log(f"  bf16 ar_step B={b} {name}: max|err| {err:.3e}, peak {peak:.3e}")
+                if not err <= BF16_TOL * peak:
+                    raise AssertionError(f"bf16 ar_step B={b}: {name} max|err| {err} vs peak {peak}")
+                worst = max(worst, err) if name == "logits" else worst
+            if b == 1:
+                k5["ms"] = cuda_ms(lambda: ar_step(sctx, x, bufs), 50)
+                k5["plain_ms"] = cuda_ms(lambda: ar_step_plain(sctx, x, bufs), 20)
+                k5.update(bound(*ar_cost(model.ar.stacked(), sctx.kv_k, 1, 1), tf32x3=False, bf16=True))
+    k5.update(max_abs_err=worst, library_ms=None)
+    log(f"  bf16 ar_step (B = 1): {k5['ms'] * 1e3:.1f} µs (kernel) vs {k5['plain_ms'] * 1e3:.1f} µs "
+        f"(plain); bound {k5['bound_ms'] * 1e3:.2f} µs ({k5['bound_rate']}), design bound "
+        f"{k5['design_bound_ms'] * 1e3:.2f} µs")
+    stats["ar_step"] = k5
+    return stats
+
+
+def drive_bf16(cfg, mcfg, dev, rng, ref_tokens, tts32, ref32):
+    """Phase 13: the bf16 compute policy on the card. The kernels against
+    their plain versions, then the paths with counters zeroed before and
+    read after each: three 400-frame synthesize requests, three streams at
+    chunk 6, a B = 4 batch, the per-step route, an 8-way batcher burst; and
+    the bf16 Mimi decode against the fp32 one on the fp32 path's codes."""
+    from sopro_tpu_torch import kernels
+    from sopro_tpu_torch.config import RuntimeConfig
+    from sopro_tpu_torch.serve import ContinuousBatcher
+    from sopro_tpu_torch.tts import SoproTTS
+
+    rt = RuntimeConfig(compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    tts = SoproTTS.from_random(cfg, seed=SEED, mimi_cfg=mcfg, device=dev, runtime=rt)
+    log(f"  from_random(runtime=bfloat16): {time.perf_counter() - t0:.2f} s; parameters "
+        f"{next(tts.engine.model.parameters()).dtype}")
+    stats = check_bf16_kernels(tts, dev, rng)
+    hop, sr = tts.engine.mimi_cfg.hop_length, float(mcfg.sampling_rate)
+    ref = tts.prepare_reference(ref_tokens_tq=ref_tokens)
+    tts.synthesize("warm up", ref=ref, max_frames=8, seed=0)
+    torch.cuda.synchronize()
+    out = {}
+
+    kernels.reset_launches()
+    secs = []
+    for text, seed in REQUESTS:
+        t1 = time.perf_counter()
+        wav = tts.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=seed)
+        sec = time.perf_counter() - t1
+        if wav.dtype != np.float32 or wav.shape[1] % hop or not np.isfinite(wav).all():
+            raise AssertionError(f"bf16 synthesize: {wav.dtype} {wav.shape}")
+        audio_s = wav.shape[1] / sr
+        secs.append(sec)
+        log(f"  bf16 request seed={seed}: {wav.shape[1] // hop} frames, {audio_s:.2f} s audio in "
+            f"{sec:.3f} s, RTF {sec / audio_s:.4f}")
+    out["synthesize"] = launched_bf16("synthesize", ("ar_loop", "nar_heads", "seanet"))
+    out["request_s"] = secs
+
+    run_stream(tts, "warm up", ref, 0)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    runs = [(text, seed, *run_stream(tts, text, ref, seed)) for text, seed in STREAM_REQUESTS]
+    out["stream"] = launched_bf16("stream", ("ar_loop", "nar_heads", "seanet_chunk"))
+    out["ttfa_ms"], out["chunk_ms"] = [], []
+    for text, seed, chunks, ttfa, gaps in runs:
+        frames = check_stream(chunks, tts, text, ref, seed, f"bf16 stream seed={seed}")
+        out["ttfa_ms"].append(ttfa * 1e3)
+        out["chunk_ms"].append(statistics.mean(gaps) * 1e3)
+        log(f"  bf16 stream seed={seed}: {frames} frames in {len(chunks)} chunks; TTFA "
+            f"{ttfa * 1e3:.2f} ms; steady chunk mean {statistics.mean(gaps) * 1e3:.2f} ms")
+
+    texts, seeds = BATCH
+    tts.synthesize_batch(texts, ref=ref, max_frames=8, seeds=seeds)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    outs = tts.synthesize_batch(texts, ref=ref, max_frames=MAX_FRAMES, seeds=seeds)
+    sec = time.perf_counter() - t1
+    launched_bf16("batch", ("ar_loop", "nar_heads", "seanet"))
+    if not np.array_equal(outs[0], outs[3]) or not all(np.isfinite(o).all() for o in outs):
+        raise AssertionError("bf16 synthesize_batch: duplicated rows differ or samples not finite")
+    audio_s = sum(o.shape[1] for o in outs) / sr
+    out["batch_s"] = sec
+    log(f"  bf16 synthesize_batch B={len(texts)}: {[o.shape[1] // hop for o in outs]} frames, "
+        f"{audio_s:.2f} s audio in {sec:.3f} s, RTF {sec / audio_s:.4f}")
+
+    step_rt = RuntimeConfig(compute_dtype="bfloat16", use_pallas_resident=False)
+    step = SoproTTS.from_random(cfg, seed=SEED, mimi_cfg=mcfg, device=dev, runtime=step_rt)
+    sref = step.prepare_reference(ref_tokens_tq=ref_tokens)
+    step.synthesize("warm up", ref=sref, max_frames=8, seed=0)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    wav = step.synthesize(REQUESTS[0][0], ref=sref, max_frames=MAX_FRAMES, seed=REQUESTS[0][1])
+    step_s = time.perf_counter() - t1
+    text, seed = STREAM_REQUESTS[0]
+    chunks, _, _ = run_stream(step, text, sref, seed)
+    out["per_step"] = launched_bf16("per-step route", ("ar_step", "nar_heads", "seanet",
+                                                       "seanet_chunk"))
+    if out["per_step"]["ar_loop"]:
+        raise AssertionError("the bf16 per-step route launched K1")
+    check_stream(chunks, step, text, sref, seed, "bf16 per-step stream")
+    log(f"  bf16 per-step route: synthesize {wav.shape[1] // hop} frames in {step_s:.3f} s "
+        f"(K5 launched, K1 not), a stream of {len(chunks)} chunks")
+    del step
+
+    b = ContinuousBatcher(tts, slots=8, chunk_frames=16, ramp_frames=4, text_bucket=SERVE_TEXT_BUCKET,
+                          max_frames=BF16_SERVE_MAX)
+    try:
+        b.warmup()
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        hs = [b.submit(SERVE_TEXTS[i], ref, seed=SERVE_SEEDS[i]) for i in range(8)]
+        outs = [list(h.chunks()) for h in hs]
+        wall = time.perf_counter() - t1
+    finally:
+        b.stop()
+    out["serve"] = launched_bf16("serve", ("ar_loop", "nar_heads", "seanet_chunk"))
+    audio = 0
+    for i, chunks in enumerate(outs):
+        frames = sum(c.shape[1] for c in chunks) // hop
+        want = tts.generate_tokens(SERVE_TEXTS[i], ref, max_frames=BF16_SERVE_MAX,
+                                   seed=SERVE_SEEDS[i]).shape[0]
+        if frames != want or not all(np.isfinite(c).all() for c in chunks):
+            raise AssertionError(f"bf16 serve session {i}: {frames} frames, generate_tokens {want}")
+        audio += frames * hop
+    out["serve_audio_s_per_s"] = audio / sr / wall
+    log(f"  bf16 serve: 8 sessions on 8 slots, max_frames {BF16_SERVE_MAX}: each as long as its "
+        f"generate_tokens; {audio / sr:.2f} s of audio in {wall:.3f} s")
+
+    out["profile"] = {}  # where the time of a batch and a stream goes, fp32 against bf16
+    text, seed = STREAM_REQUESTS[0]
+    for name, t, r in (("fp32", tts32, ref32), ("bf16", tts, ref)):
+        for what, fn in (("batch B=4", lambda t=t, r=r: t.synthesize_batch(
+                              texts, ref=r, max_frames=MAX_FRAMES, seeds=seeds)),
+                         ("stream", lambda t=t, r=r: list(t.stream(text, ref=r, max_frames=MAX_FRAMES,
+                                                                   seed=seed)))):
+            busy, n, _, top, wall = profile_steps(lambda _: fn(), None, n=1)
+            out["profile"][f"{name} {what}"] = dict(wall_ms=wall * 1e3, busy=busy, launches=n,
+                                                    top=top[:3])
+            log(f"  profiler, {name} {what}: {wall * 1e3:.1f} ms host wall, kernels busy "
+                f"{busy * 100:.1f} %, {n:.0f} kernel launches; largest: "
+                + "; ".join(f"{k[:60]} {ms:.2f} ms" for k, ms in top[:3]))
+
+    codes = tts32.generate_tokens(REQUESTS[0][0], ref32, max_frames=MAX_FRAMES, seed=REQUESTS[0][1])
+    w32, w16 = tts32.engine.decode(codes), tts.engine.decode(codes)
+    snr = 10.0 * np.log10(float((w32.astype(np.float64) ** 2).sum())
+                          / max(float(((w16.astype(np.float64) - w32) ** 2).sum()), 1e-30))
+    out["snr_db"] = snr
+    log(f"  bf16 vs fp32 Mimi decode of the fp32 path's {codes.shape} codes: SNR {snr:.1f} dB "
+        f"(the JAX package's TPU claim: {TPU_BF16_SNR_DB:.0f} dB; not gated)")
+    return stats, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1687,6 +2146,9 @@ def main() -> int:
     log(f"  train summary: {json.dumps(train)}")
     log("[12] CLI: python -m sopro_tpu_torch.cli --random_init --device cuda")
     drive_cli(tts, ref, ref_tokens)
+    log("[13] bf16: RuntimeConfig(compute_dtype=\"bfloat16\"), kernels and paths")
+    bf16_stats, bf16_paths = drive_bf16(cfg, mcfg, dev, rng, ref_tokens, tts, ref)
+    log(f"  bf16 summary: {json.dumps(bf16_paths)}")
 
     # each kernel's count from the path it belongs to (K4: the stream, K5: the per-step
     # route), and per request of that path's counted run
@@ -1703,6 +2165,16 @@ def main() -> int:
     stats["ar_loop"]["serve_rows"] = serve["k1_rows"]
     stats["nar_heads"]["serve_tick"] = serve["k2_tick"]
     extra += ("serve_launches", "serve_launches_per_session", "serve_rows", "serve_tick")
+    # the bf16 instantiations: launches from the bf16 path each belongs to
+    bf16_launches = dict(bf16_paths["synthesize"], seanet_chunk=bf16_paths["stream"]["seanet_chunk"],
+                         ar_step=bf16_paths["per_step"]["ar_step"])
+    bf16_extra = ("bound_rate", "design_bound_ms", "by_rows", "B4", "chunk16", "serve_b8",
+                  "us_per_step", "first_diff", "state_logit_err", "serve_rows")
+    for name in KERNELS:
+        s16 = bf16_stats[name]
+        stats[name]["bf16"] = dict(launches=bf16_launches[name], **{k: s16[k] for k in keys},
+                                   **{k: s16[k] for k in bf16_extra if k in s16})
+    extra += ("bf16",)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "launches_per_request": launches[name] / requests[name],

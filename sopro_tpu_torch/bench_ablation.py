@@ -43,9 +43,9 @@ ABLATIONS = {
     )],
     "conv: no ELU or split": [(
         "seanet.cu",
-        "      if (a.elu_in) v = elu(v);\n"
-        "      tf32x3::split(v, a_hi[r * Tl::LDA + k], a_lo[r * Tl::LDA + k]);",
-        "      a_hi[r * Tl::LDA + k] = v;",
+        "        if (a.elu_in) v = elu(v);\n"
+        "        tf32x3::split(v, a_hi[r * Tl::LDA + k], a_lo[r * Tl::LDA + k]);",
+        "        a_hi[r * Tl::LDA + k] = v;",
     )],
     "one accumulator": [
         ("seanet.cu", "    float part[Tl::MT][Tl::NT][4];\n    tf32x3::zero(part);",

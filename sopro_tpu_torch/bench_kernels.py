@@ -15,8 +15,16 @@ per conv and whole, the plain version and the cuDNN stack. With
 `--old-src`, K1 and K5 old against new as `bench_ar` times them. Bounds per
 row: FLOP over 67 TFLOP/s (fp32 CUDA cores) and three times the FLOP over
 495 TFLOP/s (3-pass TF32 tensor cores), bytes (inputs read once, output
-written once) over 3.35 TB/s. Prints tables and writes them as JSON to PATH
-(default build/bench_kernels.json).
+written once) over 3.35 TB/s. `bound(..., bf16=True)` is the bound of a
+kernel's bfloat16 instantiation: its bytes at 2 bytes an element, its
+products (bfloat16 operands, float32 accumulation) over the card's
+989 TFLOP/s bfloat16 tensor-core rate, K1 / K5 included; `design_bound_ms`
+keeps the ceiling of the design the kernels took (one TF32 pass, design (a)
+of csrc/nar_heads.cu and csrc/seanet.cu, at 495 TFLOP/s; K1 / K5's fp32
+FMAs on widened bfloat16 weights at the CUDA-core rate). `nar_library`
+is K2's library yardstick in either dtype (einsum + argmax in the inputs'
+dtype; timed only, the port never calls it). Prints tables and writes them
+as JSON to PATH (default build/bench_kernels.json).
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import torch.nn.functional as F
 
 from sopro_tpu_torch import kernels
 
-PEAK_FP32, PEAK_TF32, HBM = 67e12, 495e12, 3.35e12
+PEAK_FP32, PEAK_TF32, PEAK_BF16, HBM = 67e12, 495e12, 989e12, 3.35e12
 NAR_ROWS = (6, 187, 401, 1604)
 
 
@@ -60,24 +68,44 @@ def bounds(flop: float, nbytes: float) -> dict:
             "tf32x3_ms": 3 * flop / PEAK_TF32 * 1e3, "bytes_ms": nbytes / HBM * 1e3}
 
 
-def bound(flop: float, nbytes: float, tf32x3: bool) -> dict:
+def bound(flop: float, nbytes: float, tf32x3: bool, bf16: bool = False) -> dict:
     """The least time the card could take (ms): the larger of the bytes over
-    HBM's rate and the float32 operations over the rate the kernel's
-    arithmetic can reach on the card: 3-pass TF32 on the tensor cores where
-    it uses them (`tf32x3`), else the fp32 CUDA cores. `fp32_bound_ms` keeps
-    the CUDA-core bound beside it."""
+    HBM's rate and the operations over the card's peak rate for their type.
+    Float32 (`bf16` false): 3xTF32 on the tensor cores where the kernel uses
+    them (`tf32x3`), else the fp32 CUDA cores. Bfloat16: the 989 TFLOP/s
+    bfloat16 tensor-core rate whatever the design, whose own ceiling (one
+    TF32 pass, or the fp32 cores where not `tf32x3`) is `design_bound_ms`.
+    `nbytes` counts the instantiation's own element size. `fp32_bound_ms`
+    keeps the CUDA-core bound beside it."""
     b = bounds(flop, nbytes)
-    ops_ms = b["tf32x3_ms"] if tf32x3 else b["fp32_ms"]
+    if bf16:
+        ops_ms, rate = flop / PEAK_BF16 * 1e3, "bf16 tensor cores"
+        design_ms = b["tf32x3_ms"] / 3 if tf32x3 else b["fp32_ms"]
+    else:
+        ops_ms, rate = ((b["tf32x3_ms"], "3xTF32 tensor cores") if tf32x3
+                        else (b["fp32_ms"], "fp32 cores"))
     by_ops = ops_ms >= b["bytes_ms"]
-    return {"bound_ms": max(ops_ms, b["bytes_ms"]), "bound_by": "operations" if by_ops else "bytes",
-            "bound_rate": ("3xTF32 tensor cores" if tf32x3 else "fp32 cores") if by_ops else "HBM",
-            "fp32_bound_ms": max(b["fp32_ms"], b["bytes_ms"])}
+    out = {"bound_ms": max(ops_ms, b["bytes_ms"]), "bound_by": "operations" if by_ops else "bytes",
+           "bound_rate": rate if by_ops else "HBM",
+           "fp32_bound_ms": max(b["fp32_ms"], b["bytes_ms"])}
+    if bf16:
+        out["design_bound_ms"] = max(design_ms, b["bytes_ms"])
+    return out
 
 
-def nar_cost(rows: int, h: int, hd: int, v: int):
+def nar_cost(rows: int, h: int, hd: int, v: int, es: int = 4):
     """(FLOP, bytes) of one K2 stage: the products, and z, hid, W, b read
-    and the ids written once."""
-    return 2.0 * rows * h * hd * v, 4.0 * (rows * hd + h * hd + h * hd * v + h * v + rows * h)
+    (`es` bytes an element) and the int32 ids written once."""
+    return (2.0 * rows * h * hd * v,
+            es * (rows * hd + h * hd + h * hd * v + h * v) + 4.0 * rows * h)
+
+
+def nar_library(z: torch.Tensor, hid: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """K2's library yardstick: the head product as one einsum in the inputs'
+    dtype (cuBLAS; bfloat16 with float32 accumulation under
+    `configure_cuda_numerics`), the bias, and argmax."""
+    zh = z[:, :, None, :] + hid[None, None]
+    return torch.argmax(torch.einsum("bthd,hdv->bthv", zh, w) + b[None, None], dim=-1)
 
 
 def conv_stack_cost(ops, b: int, t_in: int, causal: bool, keep=None):
@@ -85,7 +113,7 @@ def conv_stack_cost(ops, b: int, t_in: int, causal: bool, keep=None):
     per-conv ops (`pack_seanet_decoder(...)["ops"]`): causal convs keep the
     length, valid ones shrink by the receptive field, and the last conv
     computes only `keep` rows when given. Bytes: the embeddings and the
-    weights read, the waveform written."""
+    weights read, the waveform written, at the weights' element size."""
     flop, t, cin0 = 0.0, t_in, int(ops[0]["w"].shape[-2])
     for i, op in enumerate(ops):
         taps, cin, cout = (int(s) for s in op["w"].shape[-3:])
@@ -95,18 +123,18 @@ def conv_stack_cost(ops, b: int, t_in: int, causal: bool, keep=None):
         flop += 2.0 * b * t_out * int(op["phases"]) * taps * cin * cout
         t = t_out * int(op["phases"])
     weights = sum(op["w"].numel() + op["b"].numel() for op in ops)
-    return flop, 4.0 * (b * t_in * cin0 + weights + b * t)
+    return flop, float(ops[0]["w"].element_size()) * (b * t_in * cin0 + weights + b * t)
 
 
 def ar_cost(stacked, kv_k, steps: int, rows: int):
     """(FLOP, bytes) of `steps` AR steps of `rows` rows on the kernel's
     stacked weights: each weight element one multiply-add per row and step,
     the text attention 4 L D per attention layer; the weights and the text
-    KV read once."""
+    KV read once, at their element size."""
     weights = sum(t.numel() for t in stacked.values())
     a, _, heads, l_txt, hd = kv_k.shape
     flop = 2.0 * steps * rows * (weights + 2 * a * l_txt * heads * hd)
-    return flop, 4.0 * (weights + 2 * kv_k.numel())
+    return flop, float(kv_k.element_size()) * (weights + 2 * kv_k.numel())
 
 
 def seanet_library_weights(params, plan):

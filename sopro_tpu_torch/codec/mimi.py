@@ -9,6 +9,12 @@ codec/vocoder.py). Encode: the SEANet encoder, the encoder transformer, the
 stride-2 replicate-padded downsample and the split RVQ (nearest code by
 argmax of 2 x.e - |e|^2, ties to the lowest index). Attention is plain
 matmul + softmax in float32, as in the JAX package.
+
+In bfloat16 every dense conv and transpose conv accumulates in float32,
+adds its bias in float32 and rounds once to the activations' dtype, where
+the TPU's SEANet kernel rounds (`seanet_apply` is the plain version of K3
+and K4); an ELU or a residual add in bfloat16 rounds its result. In float32
+the same code is the plain float32 conv.
 """
 
 from __future__ import annotations
@@ -51,26 +57,32 @@ def mimi_conv(p: Params, x: torch.Tensor, spec: Dict[str, Any]) -> torch.Tensor:
     left, right = causal_conv_padding(x.shape[1], k, stride, dil)
     mode = "replicate" if spec.get("pad_mode", "constant") == "replicate" else "constant"
     xt = F.pad(x.transpose(1, 2), (left, right), mode=mode)
-    w = p["w"].permute(2, 1, 0).to(x.dtype)  # [Cout, Cin/g, k]
-    y = F.conv1d(xt, w, stride=stride, dilation=dil, groups=int(spec.get("groups", 1)))
+    w = p["w"].permute(2, 1, 0)  # [Cout, Cin/g, k]
+    y = F.conv1d(xt.float(), w.float(), stride=stride, dilation=dil,
+                 groups=int(spec.get("groups", 1)))
     y = y.transpose(1, 2)
     if "b" in p:
-        y = y + p["b"].to(y.dtype)
-    return y
+        y = y + p["b"].float()
+    return y.to(x.dtype)
 
 
-def _convt_polyphase(w: torch.Tensor, x: torch.Tensor, s: int) -> torch.Tensor:
-    """k = 2s transpose conv: y[m*s + r] = w[s-1-r] . x[m-1] + w[2s-1-r] . x[m],
-    one dense [B*T, 2*Cin] @ [2*Cin, s*Cout] product."""
+def _convt_polyphase(
+    w: torch.Tensor, x: torch.Tensor, s: int, bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """k = 2s transpose conv: y[m*s + r] = w[s-1-r] . x[m-1] + w[2s-1-r] . x[m]
+    (+ bias), one dense [B*T, 2*Cin] @ [2*Cin, s*Cout] product in float32,
+    rounded once to x's dtype."""
     k, cin, cout = w.shape
     r = torch.arange(s, device=w.device)
     w_prev = w[s - 1 - r].permute(1, 0, 2).reshape(cin, s * cout)
     w_curr = w[2 * s - 1 - r].permute(1, 0, 2).reshape(cin, s * cout)
-    w2 = torch.cat([w_prev, w_curr], dim=0).to(x.dtype)
+    w2 = torch.cat([w_prev, w_curr], dim=0).float()
     b, t, _ = x.shape
     xprev = F.pad(x, (0, 0, 1, 0))[:, :t]
-    y = torch.cat([xprev, x], dim=-1) @ w2
-    return y.reshape(b, t * s, cout)
+    y = torch.cat([xprev, x], dim=-1).float() @ w2
+    if bias is not None:
+        y = y + bias.float().repeat(s)
+    return y.to(x.dtype).reshape(b, t * s, cout)
 
 
 def _convt_polyphase_depthwise(w: torch.Tensor, x: torch.Tensor, s: int) -> torch.Tensor:
@@ -93,11 +105,10 @@ def mimi_convt(p: Params, x: torch.Tensor, spec: Dict[str, Any]) -> torch.Tensor
     if stride < 2 or k != 2 * stride:
         raise ValueError(f"mimi_convt: unsupported transpose conv {spec}")
     if groups == 1:
-        y = _convt_polyphase(p["w"], x, stride)
-    elif groups == cin == cout:
-        y = _convt_polyphase_depthwise(p["w"], x, stride)
-    else:
+        return _convt_polyphase(p["w"], x, stride, p.get("b"))
+    if groups != cin or cin != cout:
         raise ValueError(f"mimi_convt: unsupported grouping {spec}")
+    y = _convt_polyphase_depthwise(p["w"], x, stride)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -173,21 +184,27 @@ def sliding_causal_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -
     return torch.where(ok, zero, torch.full_like(zero, float("-inf")))
 
 
+def _lin(h: torch.Tensor, p: Params) -> torch.Tensor:
+    """h @ w in h's dtype: a float32 input (the encoder's waveform path)
+    takes bfloat16 weights widened, as JAX's dtype promotion does."""
+    return h @ p["w"].to(h.dtype)
+
+
 def transformer_layer(
     p: Params, cfg: MimiConfig, x: torch.Tensor, cos, sin, bias: torch.Tensor
 ) -> torch.Tensor:
     """One pre-LN block with LayerScale residuals."""
     h = _layernorm(p["ln1"], x, cfg.norm_eps)
-    q = apply_rope(_split_heads(h @ p["q"]["w"], cfg.num_attention_heads), cos, sin)
-    k = apply_rope(_split_heads(h @ p["k"]["w"], cfg.num_key_value_heads), cos, sin)
-    v = _split_heads(h @ p["v"]["w"], cfg.num_key_value_heads)
+    q = apply_rope(_split_heads(_lin(h, p["q"]), cfg.num_attention_heads), cos, sin)
+    k = apply_rope(_split_heads(_lin(h, p["k"]), cfg.num_key_value_heads), cos, sin)
+    v = _split_heads(_lin(h, p["v"]), cfg.num_key_value_heads)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     w = torch.softmax(logits + bias[None, None], dim=-1).to(x.dtype)
-    a = _merge_heads(torch.matmul(w, v.to(x.dtype))) @ p["o"]["w"]
+    a = _lin(_merge_heads(torch.matmul(w, v.to(x.dtype))), p["o"])
     x = x + p["scale_attn"].to(x.dtype) * a
     h = _layernorm(p["ln2"], x, cfg.norm_eps)
-    h = F.gelu(h @ p["fc1"]["w"]) @ p["fc2"]["w"]
+    h = _lin(F.gelu(_lin(h, p["fc1"])), p["fc2"])
     return x + p["scale_mlp"].to(x.dtype) * h
 
 
@@ -230,7 +247,7 @@ def rvq_encode(
     ns = int(cfg.num_semantic_quantizers)
 
     def run_rvq(in_proj, embeds, n):
-        res = emb_btd @ in_proj
+        res = emb_btd @ in_proj.to(emb_btd.dtype)
         out = []
         for i in range(n):
             idx = _nearest_code(embeds[i], res)

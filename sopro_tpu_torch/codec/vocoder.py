@@ -30,14 +30,21 @@ Kernel layout (`pack_seanet_decoder`, once per device):
   The bounds and the start table are computed from it.
 - "k3": the launch list of K3 and K4. {"kind": "conv", "op", "hi", "lo":
   [taps, cinp, np] (the TF32 split of the weight, zero-padded to cinp = Cin
-  rounded up to 32 and np = N rounded up to 128), "b" [N], "taps", "dil",
+  rounded up to 32 and np = N rounded up to 128; for bfloat16 weights "hi"
+  is the weight itself and "lo" None: a bfloat16 value is exact in TF32,
+  its split has no low part), "b" [N], "taps", "dil",
   "elu_in", "cin", "n", "phases", "residual"}: a transpose conv is one
   two-tap conv with N = s * Cout, column r * Cout + c holding phase r, its
   bias repeated s times. {"kind": "resblock", "op", "c", "final", "w1hi",
   "w1lo" [3C, C/2], "b1", "w2hi", "w2lo" [C/2, C], "b2", "wf" [3C], "bf"
   [1]}: a residual block of C = 128 or 64 channels (k3 dilation 1), with
-  the final ELU + k3 conv to one channel when "final" (wf and bf, float32,
-  are then that conv's). "op": the launch's first op in "ops".
+  the final ELU + k3 conv to one channel when "final" (wf and bf, in the
+  weights' dtype, are then that conv's; bfloat16: "w1hi" / "w2hi" the
+  weights, "w1lo" / "w2lo" None). "op": the launch's first op in "ops".
+
+The weights' dtype is the codec's (float32, or bfloat16 under the bf16
+compute policy); the kernels take activations of the same dtype and the
+bfloat16 instantiations round where the TPU kernel does (csrc/seanet.cu).
 - "start_table" [halo + 1, n_ops] int32: for a chunk whose history starts
   at ext row s0, row s0 holds the first input row of each op that lies at
   or after the stream's start.
@@ -109,12 +116,20 @@ def _k3_conv(op: Dict[str, Any], residual: bool) -> Dict[str, Any]:
     taps, cin, n = w.shape
     cinp = -(-cin // CIN_MULTIPLE) * CIN_MULTIPLE
     np_ = -(-n // N_MULTIPLE) * N_MULTIPLE
-    padded = torch.zeros((taps, cinp, np_), dtype=torch.float32, device=w.device)
+    padded = torch.zeros((taps, cinp, np_), dtype=w.dtype, device=w.device)
     padded[:, :cin, :n] = w
-    hi, lo = split_tf32(padded)
+    hi, lo = _split(padded)
     return {"kind": "conv", "hi": hi, "lo": lo, "b": op["b"].repeat(phases).contiguous(),
             "taps": int(taps), "dil": int(op["dil"]), "elu_in": bool(op["elu_in"]),
             "cin": int(cin), "n": int(n), "phases": phases, "residual": residual}
+
+
+def _split(w: torch.Tensor):
+    """The kernels' weight operand: (hi, lo), the TF32 split of a float32
+    weight, or (w, None) for a bfloat16 one (exact in TF32)."""
+    if w.dtype == torch.bfloat16:
+        return w.contiguous(), None
+    return split_tf32(w)
 
 
 def _fusable(k3: Dict[str, Any], k1: Dict[str, Any]) -> bool:
@@ -137,8 +152,8 @@ def _k3_launches(ops: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
             last = ops[i + 2] if i + 3 == len(ops) else None
             final = (last is not None and tuple(last["w"].shape) == (3, c, 1)
                      and int(last["dil"]) == 1 and last["elu_in"] and int(last["phases"]) == 1)
-            w1hi, w1lo = split_tf32(op["w"].reshape(3 * c, c // 2).contiguous())
-            w2hi, w2lo = split_tf32(nxt["w"].reshape(c // 2, c).contiguous())
+            w1hi, w1lo = _split(op["w"].reshape(3 * c, c // 2).contiguous())
+            w2hi, w2lo = _split(nxt["w"].reshape(c // 2, c).contiguous())
             launch = {"kind": "resblock", "op": i, "c": c, "final": final, "w1hi": w1hi,
                       "w1lo": w1lo, "b1": op["b"], "w2hi": w2hi, "w2lo": w2lo, "b2": nxt["b"],
                       "wf": None, "bf": None}
@@ -179,8 +194,15 @@ _ARGTYPES = {
 K4_MAX_SPLITS = 16  # csrc/seanet.cu kMaxSplits: K4's convs split Cin over up to 16 blocks
 
 
-def _entry(name: str):
-    return kernels.entry("seanet", name, _ARGTYPES[name])
+def _entry(name: str, dtype):
+    """C entry point `name` of seanet.cu, its bfloat16 instantiation for
+    bfloat16 tensors."""
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    return kernels.entry("seanet", name + suffix, _ARGTYPES[name])
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _start_arg(start: Optional[torch.Tensor]):
@@ -200,10 +222,10 @@ def _conv_cuda(launch: Dict[str, Any], x: torch.Tensor, residual, start=None, t_
     t_out = t_in if t_out is None else int(t_out)
     if cin != launch["cin"]:
         raise ValueError(f"seanet kernel: input has {cin} channels, weight {launch['cin']}")
-    y = torch.empty((b, t_out, launch["n"]), dtype=torch.float32, device=x.device)
-    rc = _entry("sopro_seanet_conv_tc")(
-        x.data_ptr(), launch["hi"].data_ptr(), launch["lo"].data_ptr(), launch["b"].data_ptr(),
-        None if residual is None else residual.data_ptr(), y.data_ptr(), b, t_in, t_out,
+    y = torch.empty((b, t_out, launch["n"]), dtype=x.dtype, device=x.device)
+    rc = _entry("sopro_seanet_conv_tc", x.dtype)(
+        x.data_ptr(), launch["hi"].data_ptr(), _ptr(launch["lo"]), launch["b"].data_ptr(),
+        _ptr(residual), y.data_ptr(), b, t_in, t_out,
         0 if residual is None else int(residual.shape[1]), cin, int(launch["hi"].shape[1]),
         launch["n"], int(launch["hi"].shape[2]), launch["taps"], launch["dil"],
         int(launch["elu_in"]), *_start_arg(start), max_splits,
@@ -223,12 +245,12 @@ def _resblock_cuda(launch: Dict[str, Any], x: torch.Tensor, start=None, t_out=No
     t_out = t_in if t_out is None else int(t_out)
     if c != launch["c"]:
         raise ValueError(f"seanet kernel: input has {c} channels, block {launch['c']}")
-    y = torch.empty((b, t_out) if launch["final"] else (b, t_out, c), dtype=torch.float32,
+    y = torch.empty((b, t_out) if launch["final"] else (b, t_out, c), dtype=x.dtype,
                     device=x.device)
-    opt = (lambda k: None if launch[k] is None else launch[k].data_ptr())
-    rc = _entry("sopro_seanet_resblock")(
-        x.data_ptr(), launch["w1hi"].data_ptr(), launch["w1lo"].data_ptr(),
-        launch["b1"].data_ptr(), launch["w2hi"].data_ptr(), launch["w2lo"].data_ptr(),
+    opt = (lambda k: _ptr(launch[k]))
+    rc = _entry("sopro_seanet_resblock", x.dtype)(
+        x.data_ptr(), launch["w1hi"].data_ptr(), opt("w1lo"),
+        launch["b1"].data_ptr(), launch["w2hi"].data_ptr(), opt("w2lo"),
         launch["b2"].data_ptr(), opt("wf"), opt("bf"), y.data_ptr(), b, t_in, t_out, c,
         int(launch["final"]), *_start_arg(start),
         kernels.stream_ptr(x.device).value if stream is None else stream,
@@ -277,11 +299,11 @@ def run_launches(launches: List[Dict[str, Any]], x: torch.Tensor,
 def _check_cuda_inputs(name: str, packed: Dict[str, Any], x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype != torch.float32 or x.dim() != 3:
-        raise ValueError(f"{name}: input must be float32 [B, T, H]")
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3:
+        raise ValueError(f"{name}: input must be float32 or bfloat16 [B, T, H]")
     for op in packed["ops"]:
-        if op["w"].device != x.device or op["w"].dtype != torch.float32:
-            raise ValueError(f"{name}: weights must be float32 on the input's device")
+        if op["w"].device != x.device or op["w"].dtype != x.dtype:
+            raise ValueError(f"{name}: weights must be {x.dtype} on the input's device")
 
 
 def seanet_decode(packed: Dict[str, Any], cfg: MimiConfig, emb: torch.Tensor) -> torch.Tensor:
@@ -291,7 +313,7 @@ def seanet_decode(packed: Dict[str, Any], cfg: MimiConfig, emb: torch.Tensor) ->
         return seanet_apply(packed["params"], decoder_plan(cfg), emb)[..., 0]
     _check_cuda_inputs("seanet_decode", packed, emb)
     wav = run_launches(packed["k3"], emb)
-    kernels.LAUNCHES["seanet"] += 1
+    kernels.count("seanet", emb.dtype)
     return wav
 
 
@@ -339,7 +361,7 @@ def seanet_decode_chunk(
     _check_cuda_inputs("seanet_decode_chunk", packed, ext)
     wav = run_launches(packed["k3"], ext, chunk_starts(packed, cfg, n_hist, ext.device),
                        keep=n_out, valid=True)
-    kernels.LAUNCHES["seanet_chunk"] += 1
+    kernels.count("seanet_chunk", ext.dtype)
     return wav
 
 

@@ -4,8 +4,8 @@
 `cfg` JSON deserializes unchanged. `RuntimeConfig` takes the JAX package's
 fields: the padding buckets, which must match the JAX package's so both
 compute on the same padded shapes, the batch grouping, the choice of AR
-kernel and of SEANet kernel, and the dtypes (float32 only, until a bf16
-path lands).
+kernel and of SEANet kernel, and the dtypes (`compute_dtype` float32 or
+bfloat16, the JAX package's compute policy).
 """
 
 from __future__ import annotations
@@ -119,17 +119,24 @@ def _cycle_to(cycle: Tuple[int, ...], n: int) -> Tuple[int, ...]:
     return tuple(out[: int(n)])
 
 
+DTYPES = ("float32", "bfloat16")
+
+
 @dataclass(frozen=True)
 class RuntimeConfig:
     """Execution knobs; not part of the checkpoint contract, names and
     defaults as in the JAX package.
 
-    Four fields are accepted for the JAX API's sake and select nothing:
-    `compute_dtype` and `param_dtype` (the port computes in float32 only,
-    and every tolerance it is held to assumes it: another value raises
-    ValueError), `ar_chunk` (read by no code) and `use_pallas_vocoder`
-    (the kernels are the only SEANet route on the card: False raises
-    there)."""
+    `compute_dtype` "bfloat16" casts every floating parameter of the model
+    and the codec to bfloat16 when the engine is built, and every serving
+    path then computes in bfloat16 with the JAX package's float32 islands
+    (norms, softmaxes, the sampler) and the kernels' bfloat16
+    instantiations; "float32" (the default) computes in float32. Three
+    fields are accepted for the JAX API's sake and select nothing:
+    `param_dtype` (read by no code in either package), `ar_chunk` (read by
+    no code) and `use_pallas_vocoder` (the kernels are the only SEANet route
+    on the card: False raises there). Either dtype field raises ValueError
+    for another value than "float32" or "bfloat16"."""
 
     compute_dtype: str = "float32"
     param_dtype: str = "float32"
@@ -160,10 +167,9 @@ class RuntimeConfig:
 
     def __post_init__(self):
         for name in ("compute_dtype", "param_dtype"):
-            if getattr(self, name) != "float32":
+            if getattr(self, name) not in DTYPES:
                 raise ValueError(
-                    f"RuntimeConfig({name}={getattr(self, name)!r}): the port computes in "
-                    "float32 only"
+                    f"RuntimeConfig({name}={getattr(self, name)!r}): takes one of {DTYPES}"
                 )
 
 

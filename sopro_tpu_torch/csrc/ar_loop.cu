@@ -1,4 +1,4 @@
-// Kernel K1: the AR decode loop, n_steps steps in one launch, float32.
+// Kernel K1: the AR decode loop, n_steps steps in one launch, float32 or bfloat16.
 //
 // Replaces sopro_tpu/ops/pallas_ar_loop.py::ar_loop_pallas (its
 // `_ar_loop_kernel`), with the same state-in / state-out contract: per row
@@ -66,14 +66,31 @@
 // step. K5 is bound like one step of K1, plus a launch and the cluster's
 // set-up per step; the caller samples between launches.
 //
+// The bfloat16 instantiations (sopro_ar_loop_bf16, sopro_ar_step_bf16) take
+// every weight, the conditioning, the embeddings, the text KV and the ring
+// buffers in bfloat16 and compute what the TPU kernel computes on them
+// (pallas_ar_loop.py `mm` and its step): the residual stream h stays float32;
+// x_t = cond + emb is rounded to bfloat16 first; each product's input (the
+// normed h, the GELU output, the attention output) is rounded to bfloat16 and
+// multiplied by the bfloat16 weights in float32 FMAs on the CUDA cores, the
+// bias added in float32; the GLU output is stored in the ring as bfloat16 and
+// the conv runs in float32 over it; the text K/V are widened to float32 in the
+// attention; the logits and the sampler are float32, as in float32. The
+// weight stream is bfloat16 (`pack_ar_stream` of the bfloat16 stacked
+// weights): a 32 KB ring stage carries twice the rows, and a step streams
+// half the bytes (~21 MB at d = 384).
+//
 // Built with -DSOPRO_AR_CLOCKS (bench_ar.py), thread 0 of block 0 adds
 // clock64() deltas per phase of a step (AR_PHASE marks, the phases of
 // bench_ar.PHASES) into g_ar_clk, read by sopro_ar_clocks.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -82,6 +99,13 @@ constexpr int kMaxLayers = 16;
 constexpr int kBisect = 26;
 constexpr int kRing = 3;        // weight ring stages
 constexpr int kStage = 8192;    // floats per stage (32 KB)
+
+// Elements of type T a ring stage holds, and the stream slices' width
+// multiple: each chunk a whole number of 16-byte units (TMA bulk copies).
+template <typename T>
+constexpr int kStageElems = kStage * 4 / (int)sizeof(T);
+template <typename T>
+constexpr int kAlign = 16 / (int)sizeof(T);
 
 #ifdef SOPRO_AR_CLOCKS
 // per phase in shared memory while the kernel runs, into g_ar_clk at exit
@@ -104,7 +128,10 @@ extern "C" int sopro_ar_clocks(unsigned long long* out) {
 #define AR_PHASE(n)
 #endif
 
-// Mirrored field for field by `_Args` in ops/ar_loop.py.
+// Mirrored field for field by `_Args` in ops/ar_loop.py. The weights,
+// conditioning, embeddings, text KV, ring buffers, x_in and the stream are
+// float32, or all bfloat16 in the bfloat16 instantiations (the kernel reads
+// them through pointers of its element type).
 struct ArLoopArgs {
   int B, S, n_steps, L, D, N, K, CTX, A, H, V, Vp, freq, anti_loop, eos, hist_len, top_k,
       loop_streak;  // Vp: head_w row stride, V rounded up to a multiple of 4
@@ -155,6 +182,48 @@ __device__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1,
   }
   o0 = x0;
   o1 = x1;
+}
+
+// ---- element types --------------------------------------------------------
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// A value of element type T read as float, through the read-only cache.
+template <typename T>
+__device__ __forceinline__ float ldf(const float* p, size_t i) {
+  return to_f(__ldg(reinterpret_cast<const T*>(p) + i));
+}
+
+// v rounded to T (the TPU kernel's `astype(w.dtype)`), as float.
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (std::is_same<T, float>::value) return v;
+  else return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Four consecutive elements of type T (16-byte aligned for float, 8 for
+// bfloat16) as a float4.
+template <typename T>
+__device__ __forceinline__ float4 ld4(const float* base, size_t i) {
+  if constexpr (std::is_same<T, float>::value) {
+    return *reinterpret_cast<const float4*>(base + i);
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(reinterpret_cast<const __nv_bfloat16*>(base) + i);
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float4 ldg4(const float* base, size_t i) {
+  if constexpr (std::is_same<T, float>::value) {
+    return __ldg(reinterpret_cast<const float4*>(base + i));
+  } else {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(reinterpret_cast<const __nv_bfloat16*>(base) + i));
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
 }
 
 // ---- block reductions (every thread gets the result) ----------------------
@@ -225,11 +294,13 @@ __device__ int block_reduce_i(int v, int op, Red& R) {
 // thread's sum of squares `ss` over its own entries i = tid, tid + nt, ...,
 // taken in the pass that wrote them: each thread normalises its own
 // entries, then a barrier publishes hn (and h).
-__device__ void norm_from(const float* h, float ss, const float* __restrict__ scale, float* hn,
-                          int n, Red& red) {
+// The scale: elements off.. of `scale`, of element type T.
+template <typename T>
+__device__ void norm_from(const float* h, float ss, const float* __restrict__ scale, size_t off,
+                          float* hn, int n, Red& red) {
   ss = block_reduce(ss, 0, red);
   const float inv = rsqrtf(ss / (float)n + 1e-6f);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) hn[i] = h[i] * inv * __ldg(scale + i);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) hn[i] = h[i] * inv * ldf<T>(scale, off + i);
   __syncthreads();
 }
 
@@ -239,19 +310,22 @@ struct Layout {
   int cs, cw, fw, vw;  // cluster size; channels, FFN columns, logits per block
 };
 
+// vw: a multiple of kAlign<T> (16-byte rows of the head's slice).
+template <typename T>
 __host__ __device__ Layout layout(const ArLoopArgs& a, int cs) {
   Layout l;
   l.cs = cs;
   l.cw = a.D / cs;
   l.fw = 4 * a.D / cs;
-  l.vw = ((a.Vp + cs - 1) / cs + 3) / 4 * 4;
+  l.vw = ((a.Vp + cs - 1) / cs + kAlign<T> - 1) / kAlign<T> * kAlign<T>;
   return l;
 }
 
-// One slice [rows][width] of a rank's stream: chunks of kStage / width whole
-// rows, each (offset, floats) into sched (nullable).
+// One slice [rows][width] of a rank's stream: chunks of kStageElems<T> / width
+// whole rows, each (offset, elements) into sched (nullable).
+template <typename T>
 __host__ __device__ inline void add_slice(int rows, int width, int* sched, int& n, int& off) {
-  const int rpc = kStage / width;
+  const int rpc = kStageElems<T> / width;
   for (int r0 = 0; r0 < rows; r0 += rpc) {
     const int nr = rows - r0 < rpc ? rows - r0 : rpc;
     if (sched != nullptr) {
@@ -267,19 +341,20 @@ __host__ __device__ inline void add_slice(int rows, int width, int* sched, int& 
 // [D][2cw] (a then b), ff1 columns [D][fw], ff2 rows [fw][D], after every
 // freq-th layer its x_q columns [D][cw] and x_out rows [cw][D]; then its head
 // columns [D][vw] (zero past Vp). Returns the chunks per step; *len the
-// floats per rank. Mirrored by ops/ar_loop.py `stream_schedule`.
+// elements per rank. Mirrored by ops/ar_loop.py `stream_schedule`.
+template <typename T>
 __host__ __device__ int stream_schedule(const ArLoopArgs& a, const Layout& l, int* sched, int* len) {
   int n = 0, off = 0;
   for (int li = 0; li < a.N; ++li) {
-    add_slice(a.D, 2 * l.cw, sched, n, off);
-    add_slice(a.D, l.fw, sched, n, off);
-    add_slice(l.fw, a.D, sched, n, off);
+    add_slice<T>(a.D, 2 * l.cw, sched, n, off);
+    add_slice<T>(a.D, l.fw, sched, n, off);
+    add_slice<T>(l.fw, a.D, sched, n, off);
     if ((li + 1) % a.freq == 0) {
-      add_slice(a.D, l.cw, sched, n, off);
-      add_slice(l.cw, a.D, sched, n, off);
+      add_slice<T>(a.D, l.cw, sched, n, off);
+      add_slice<T>(l.cw, a.D, sched, n, off);
     }
   }
-  add_slice(a.D, l.vw, sched, n, off);
+  add_slice<T>(a.D, l.vw, sched, n, off);
   if (len != nullptr) *len = off;
   return n;
 }
@@ -289,12 +364,14 @@ __host__ __device__ int stream_schedule(const ArLoopArgs& a, const Layout& l, in
 // (TMA) issued by one thread, completing on the slot's mbarrier with its byte
 // count; its use of the slot is phase (k / kRing) & 1 of that mbarrier.
 // sched holds the step's (offset, floats) per chunk, the same every step.
+// esize: the stream's element size in bytes (4 or 2).
 struct Ring {
   float* buf;         // [kRing][kStage]
   uint64_t* bar;      // [kRing] one mbarrier per slot
-  const float* src;   // this rank's stream
+  const char* src;    // this rank's stream
   const int* sched;   // [2 * nchunk]
   int nchunk, k;      // chunks per step; chunks taken (identical in every thread)
+  int esize;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -306,13 +383,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ void ring_issue(const Ring& rg, int k) {
   if (threadIdx.x != 0) return;
   const int c = k % rg.nchunk, slot = k % kRing;
-  const uint32_t bytes = 4u * (uint32_t)rg.sched[2 * c + 1];
+  const uint32_t bytes = (uint32_t)rg.esize * (uint32_t)rg.sched[2 * c + 1];
   const uint32_t bar = smem_addr(rg.bar + slot);
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(rg.buf + slot * kStage)), "l"(rg.src + rg.sched[2 * c]), "r"(bytes), "r"(bar)
+      ::"r"(smem_addr(rg.buf + slot * kStage)),
+      "l"(rg.src + (size_t)rg.esize * rg.sched[2 * c]), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -341,14 +419,16 @@ __device__ void ring_drain(const Ring& rg) {
 }
 
 // out[c] = sum_{i < n_in} x[i] * S[i][c] for c < width (a multiple of 4),
-// S [n_in][width] the next slice of the stream (x and out in shared memory).
+// S [n_in][width] the next slice of the stream, elements of type T (x and out
+// in shared memory; x[i] rounded to T first, the TPU kernel's `mm`).
 // Thread (g, c4) takes columns 4c4..4c4+3 of rows g, g + G, ... of every
 // chunk (G = blockDim / (width / 4) groups); the G partial sums per column
 // (`part`, >= 4 * blockDim floats) are folded by up to 32 lanes per column
 // with shuffles, in a fixed order.
+template <typename T>
 __device__ void gemv_stream(Ring& rg, int width, int n_in, const float* x, float* out, float* part) {
   const int nt = blockDim.x, tid = threadIdx.x;
-  const int ngrp = width / 4, G = max(1, nt / ngrp), rpc = kStage / width;
+  const int ngrp = width / 4, G = max(1, nt / ngrp), rpc = kStageElems<T> / width;
   const int g = tid / ngrp, c4 = tid - g * ngrp;
   const bool active = g < G;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -358,8 +438,8 @@ __device__ void gemv_stream(Ring& rg, int width, int n_in, const float* x, float
     if (active) {
 #pragma unroll 4
       for (int i = g; i < nr; i += G) {
-        const float xv = x[r0 + i];
-        const float4 wv = *reinterpret_cast<const float4*>(w + (size_t)i * width + 4 * c4);
+        const float xv = rnd<T>(x[r0 + i]);
+        const float4 wv = ld4<T>(w, (size_t)i * width + 4 * c4);
         acc.x = fmaf(xv, wv.x, acc.x);
         acc.y = fmaf(xv, wv.y, acc.y);
         acc.z = fmaf(xv, wv.z, acc.z);
@@ -420,7 +500,8 @@ __host__ __device__ size_t smem_ints(const ArLoopArgs& a, int nchunk) {
 }
 
 // kLogitsOnly: K5, one step from a.x_in, logits out, no sampler or state.
-template <bool kLogitsOnly>
+// E: the element type of the weights, cond, emb, KV, ring buffers and x_in.
+template <typename E, bool kLogitsOnly>
 __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -432,12 +513,12 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
   const int tid = threadIdx.x, nt = blockDim.x;
   const int D = a.D, V = a.V, L = a.L, CTX = a.CTX;
   const int hd = D / a.H;
-  const Layout lay = layout(a, cs);
+  const Layout lay = layout<E>(a, cs);
   const int c0 = r * lay.cw;                            // my channels
   const int f0 = r * lay.fw;                            // my FFN columns
   const int v0 = min(a.Vp, r * lay.vw), v1 = min(a.Vp, v0 + lay.vw);  // my logits (padded)
   const int v1r = min(V, v1);                                        // ... of which real
-  const int nchunk = stream_schedule(a, lay, nullptr, nullptr);
+  const int nchunk = stream_schedule<E>(a, lay, nullptr, nullptr);
 
   // ---- shared memory (identical layout in every block of the cluster) ----
   uint64_t* ringbar = reinterpret_cast<uint64_t*>(smem);  // [kRing] the ring's mbarriers
@@ -474,8 +555,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
   enum { T = 0, LAST, STREAK, STOPPED, FEOS, K0, K1, HEAD, REC, NONE_VALID };
 
   const size_t layer_stride = (size_t)a.B * CTX * D;  // one layer of [N, B, CTX, D]
-  const float* bufs_in = a.bufs_in + (size_t)b * CTX * D;
-  float* bufs_out = a.bufs_out + (size_t)b * CTX * D;
+  const size_t row_off = (size_t)b * CTX * D;          // this row's [CTX, D] in a layer
 
   // ---- entry: state, count grid, my ring columns, the weight schedule ----
   if constexpr (!kLogitsOnly) {
@@ -496,7 +576,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
     int any = 0;
     for (int l = 0; l < L; ++l) any |= a.mask[(size_t)b * L + l] != 0;
     st[NONE_VALID] = !any;
-    stream_schedule(a, lay, sched, nullptr);
+    stream_schedule<E>(a, lay, sched, nullptr);
     for (int i = 0; i < kRing; ++i)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(ringbar + i)) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -504,24 +584,27 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
   for (int li = 0; li < a.N; ++li) {
     for (int i = tid; i < CTX * lay.cw; i += nt) {
       const int j = i / lay.cw, c = i - j * lay.cw;
-      ringS[((size_t)li * CTX + j) * lay.cw + c] = bufs_in[li * layer_stride + (size_t)j * D + c0 + c];
+      ringS[((size_t)li * CTX + j) * lay.cw + c] =
+          ldf<E>(a.bufs_in, li * layer_stride + row_off + (size_t)j * D + c0 + c);
     }
     for (int c = tid; c < lay.cw; c += nt) {
-      glubS[(li * 2) * lay.cw + c] = a.glu_b[(size_t)li * 2 * D + c0 + c];
-      glubS[(li * 2 + 1) * lay.cw + c] = a.glu_b[(size_t)li * 2 * D + D + c0 + c];
-      dwbS[li * lay.cw + c] = a.dw_b[(size_t)li * D + c0 + c];
+      glubS[(li * 2) * lay.cw + c] = ldf<E>(a.glu_b, (size_t)li * 2 * D + c0 + c);
+      glubS[(li * 2 + 1) * lay.cw + c] = ldf<E>(a.glu_b, (size_t)li * 2 * D + D + c0 + c);
+      dwbS[li * lay.cw + c] = ldf<E>(a.dw_b, (size_t)li * D + c0 + c);
     }
     for (int i = tid; i < a.K * lay.cw; i += nt) {
       const int j = i / lay.cw, c = i - j * lay.cw;
-      dwS[((size_t)li * a.K + j) * lay.cw + c] = a.dw_w[((size_t)li * a.K + j) * D + c0 + c];
+      dwS[((size_t)li * a.K + j) * lay.cw + c] = ldf<E>(a.dw_w, ((size_t)li * a.K + j) * D + c0 + c);
     }
-    for (int c = tid; c < lay.fw; c += nt) ff1bS[li * lay.fw + c] = a.ff1_b[(size_t)li * 4 * D + f0 + c];
+    for (int c = tid; c < lay.fw; c += nt) ff1bS[li * lay.fw + c] = ldf<E>(a.ff1_b, (size_t)li * 4 * D + f0 + c);
   }
   __syncthreads();
   if constexpr (!kLogitsOnly)
     for (int i = tid; i < a.hist_len; i += nt)
       if (hist[i] >= 0 && hist[i] < V) atomicAdd(&cnt[hist[i]], 1);
-  Ring rg{ringbuf, ringbar, a.wstream + (size_t)r * a.stream_len, sched, nchunk, 0};
+  Ring rg{ringbuf, ringbar,
+          reinterpret_cast<const char*>(a.wstream) + sizeof(E) * (size_t)r * a.stream_len, sched,
+          nchunk, 0, (int)sizeof(E)};
   for (int k = 0; k < kRing - 1; ++k) ring_issue(rg, k);
   cl.sync();  // every block has started before any shared memory is pushed
 
@@ -534,7 +617,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
     float ss = 0.f;  // this thread's sum of squares of the h entries it wrote
     if constexpr (kLogitsOnly) {
       for (int i = tid; i < D; i += nt) {
-        const float v = a.x_in[(size_t)b * D + i];
+        const float v = ldf<E>(a.x_in, (size_t)b * D + i);
         h[i] = v;
         ss += v * v;
       }
@@ -544,20 +627,21 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
       // ---- x_t = cond[b, t] + emb[prev] ----
       const int prev = t == 0 ? V : st[LAST];
       const int tc = t < a.S - 1 ? t : a.S - 1;
-      for (int i = tid; i < D; i += nt) {
-        const float v = a.cond[((size_t)b * a.S + tc) * D + i] + a.emb[(size_t)prev * D + i];
+      for (int i = tid; i < D; i += nt) {  // bfloat16: the sum rounded first, as the TPU kernel
+        const float v = rnd<E>(ldf<E>(a.cond, ((size_t)b * a.S + tc) * D + i) +
+                               ldf<E>(a.emb, (size_t)prev * D + i));
         h[i] = v;
         ss += v * v;
       }
     }
     const int head = st[HEAD];
     AR_PHASE(1);
-    norm_from(h, ss, a.norm, hn, D, red);
+    norm_from<E>(h, ss, a.norm, 0, hn, D, red);
 
     for (int li = 0; li < a.N; ++li) {
       // GLU (my channels) -> ring buffer -> dilated depthwise conv
       AR_PHASE(2);
-      gemv_stream(rg, 2 * lay.cw, D, hn, gab, part);
+      gemv_stream<E>(rg, 2 * lay.cw, D, hn, gab, part);
       AR_PHASE(3);
       float* rl = ringS + (size_t)li * CTX * lay.cw;
       const float* gbias = glubS + li * 2 * lay.cw;
@@ -566,7 +650,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
       for (int c = tid; c < lay.cw; c += nt) {
         const float av = gab[c] + gbias[c];
         const float bv = gab[lay.cw + c] + gbias[lay.cw + c];
-        rl[head * lay.cw + c] = av * (1.f / (1.f + expf(-bv)));  // newest -> oldest slot
+        rl[head * lay.cw + c] = rnd<E>(av * (1.f / (1.f + expf(-bv))));  // newest -> oldest slot
       }
       __syncthreads();
       for (int idx = tid; idx < lay.cw * a.K; idx += nt) {  // one product per (channel, tap)
@@ -591,18 +675,18 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
         ss += v * v;
       }
       AR_PHASE(5);
-      norm_from(h, ss, a.ff_norm + (size_t)li * D, hn, D, red);
+      norm_from<E>(h, ss, a.ff_norm, (size_t)li * D, hn, D, red);
 
       // FFN: my hidden columns -> GELU -> my rows of ff2, summed over ranks
       AR_PHASE(6);
-      gemv_stream(rg, lay.fw, D, hn, loc, part);
+      gemv_stream<E>(rg, lay.fw, D, hn, loc, part);
       for (int c = tid; c < lay.fw; c += nt) {
         const float v = loc[c] + ff1bS[li * lay.fw + c];
         loc[c] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
       }
       __syncthreads();
       AR_PHASE(7);
-      gemv_stream(rg, D, lay.fw, loc, yl, part);
+      gemv_stream<E>(rg, D, lay.fw, loc, yl, part);
       AR_PHASE(8);
       push(cl, pbuf + (size_t)r * D, yl, D, cs);
       cl.sync();
@@ -610,30 +694,30 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
       for (int i = tid; i < D; i += nt) {
         float s = 0.f;
         for (int rr = 0; rr < cs; ++rr) s += pbuf[(size_t)rr * D + i];
-        const float v = h[i] + (s + __ldg(a.ff2_b + (size_t)li * D + i));
+        const float v = h[i] + (s + ldf<E>(a.ff2_b, (size_t)li * D + i));
         h[i] = v;
         ss += v * v;
       }
       const bool last = li + 1 == a.N;
-      const float* next_norm = last ? a.out_norm : a.norm + (size_t)(li + 1) * D;
+      const float* next_norm = last ? a.out_norm : a.norm;
+      const size_t next_off = last ? 0 : (size_t)(li + 1) * D;
       if ((li + 1) % a.freq != 0) {
         AR_PHASE(last ? 14 : 1);
-        norm_from(h, ss, next_norm, hn, D, red);
+        norm_from<E>(h, ss, next_norm, next_off, hn, D, red);
         continue;
       }
 
       // text cross-attention, sliced like the channels
       const int ai = li / a.freq;
       AR_PHASE(9);
-      norm_from(h, ss, a.x_nq + (size_t)ai * D, hn, D, red);
-      gemv_stream(rg, lay.cw, D, hn, yl, part);
+      norm_from<E>(h, ss, a.x_nq, (size_t)ai * D, hn, D, red);
+      gemv_stream<E>(rg, lay.cw, D, hn, yl, part);
       AR_PHASE(10);
       push(cl, q + c0, yl, lay.cw, cs);  // q columns [c0, c0 + cw) -> everyone
       cl.sync();
       AR_PHASE(11);
       for (int hh = c0 / hd; hh <= (c0 + lay.cw - 1) / hd; ++hh) {
-        const float* kk = a.kv_k + (((size_t)ai * a.B + b) * a.H + hh) * L * hd;
-        const float* vv = a.kv_v + (((size_t)ai * a.B + b) * a.H + hh) * L * hd;
+        const size_t kv0 = (((size_t)ai * a.B + b) * a.H + hh) * L * hd;  // head hh's [L, hd]
         const float* qh = q + hh * hd;
         const int sub = tid & 7;  // eight lanes per key row
         for (int l0 = 0; l0 < L; l0 += nt / 8) {
@@ -641,7 +725,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
           float s = 0.f;
           if (l < L)
             for (int d4 = sub; d4 < hd / 4; d4 += 8) {
-              const float4 kv = __ldg(reinterpret_cast<const float4*>(kk + (size_t)l * hd) + d4);
+              const float4 kv = ldg4<E>(a.kv_k, kv0 + (size_t)l * hd + 4 * d4);
               const float4 qv = *reinterpret_cast<const float4*>(qh + 4 * d4);
               s = fmaf(qv.x, kv.x, s);
               s = fmaf(qv.y, kv.y, s);
@@ -674,7 +758,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
           const int sidx = idx / nd, d = e0 + idx - sidx * nd;
           float s = 0.f;
 #pragma unroll 4
-          for (int l = sidx; l < L; l += nsplit) s = fmaf(att[l] / ssum, __ldg(vv + (size_t)l * hd + d), s);
+          for (int l = sidx; l < L; l += nsplit) s = fmaf(att[l] / ssum, ldf<E>(a.kv_v, kv0 + (size_t)l * hd + d), s);
           part[idx] = s;
         }
         __syncthreads();
@@ -686,11 +770,11 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
         __syncthreads();
       }
       AR_PHASE(12);
-      gemv_stream(rg, D, lay.cw, cbuf, yl, part);
+      gemv_stream<E>(rg, D, lay.cw, cbuf, yl, part);
       AR_PHASE(13);
       push(cl, pbuf + (size_t)r * D, yl, D, cs);
       cl.sync();
-      const float gate = tanhf(__ldg(a.x_gate + ai));
+      const float gate = tanhf(ldf<E>(a.x_gate, ai));
       ss = 0.f;
       for (int i = tid; i < D; i += nt) {
         float s = 0.f;
@@ -700,19 +784,19 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
         ss += v * v;
       }
       AR_PHASE(last ? 14 : 1);
-      norm_from(h, ss, next_norm, hn, D, red);
+      norm_from<E>(h, ss, next_norm, next_off, hn, D, red);
     }
 
     // ---- head (hn is the output norm of h): my logits, pushed to every block ----
-    gemv_stream(rg, lay.vw, D, hn, loc, part);
+    gemv_stream<E>(rg, lay.vw, D, hn, loc, part);
     if constexpr (kLogitsOnly) {  // K5: my real logit columns out, the ring head on
       for (int c = tid; c < v1r - v0; c += nt)
-        a.logits[(size_t)b * V + v0 + c] = loc[c] + __ldg(a.head_b + v0 + c);
+        a.logits[(size_t)b * V + v0 + c] = loc[c] + ldf<E>(a.head_b, v0 + c);
       if (tid == 0) st[HEAD] = (head + 1) % CTX;
       __syncthreads();
       continue;
     }
-    for (int c = tid; c < v1r - v0; c += nt) loc[c] += __ldg(a.head_b + v0 + c);
+    for (int c = tid; c < v1r - v0; c += nt) loc[c] += ldf<E>(a.head_b, v0 + c);
     __syncthreads();
     AR_PHASE(15);
     push(cl, lg + v0, loc, max(0, v1r - v0), cs);
@@ -862,11 +946,13 @@ __global__ void __launch_bounds__(kThreads, 1) ar_loop_kernel(const ArLoopArgs a
     for (int i = tid; i < a.hist_len; i += nt) a.hist_out[(size_t)b * a.hist_len + i] = hist[i];
   }
   const int head = st[HEAD];
+  E* bufs_out = reinterpret_cast<E*>(a.bufs_out) + row_off;
   for (int li = 0; li < a.N; ++li)
     for (int i = tid; i < CTX * lay.cw; i += nt) {
       const int j = i / lay.cw, c = i - j * lay.cw;
-      bufs_out[li * layer_stride + (size_t)j * D + c0 + c] =
-          ringS[((size_t)li * CTX + (head + j) % CTX) * lay.cw + c];
+      const float v = ringS[((size_t)li * CTX + (head + j) % CTX) * lay.cw + c];
+      if constexpr (std::is_same<E, float>::value) bufs_out[li * layer_stride + (size_t)j * D + c0 + c] = v;
+      else bufs_out[li * layer_stride + (size_t)j * D + c0 + c] = __float2bfloat16_rn(v);  // exact: v is a bfloat16
     }
   cl.sync();  // no block leaves while a peer could still address its shared memory
 }
@@ -877,20 +963,21 @@ constexpr size_t kMaxSmem = 232448;
 // (cfg untouched) where cs does not divide D, its conv products do not fit
 // `part`, a stream slice is not a multiple of 4 floats wide, or the card
 // cannot schedule the cluster; an error where the shared memory does not fit.
-template <bool kLogitsOnly>
+template <typename T, bool kLogitsOnly>
 cudaError_t configure(const ArLoopArgs& a, int cs, cudaLaunchConfig_t& cfg,
                       cudaLaunchAttribute* attr, bool& ok) {
   ok = false;
   if (a.D % cs != 0) return cudaSuccess;
-  const Layout lay = layout(a, cs);
-  if (lay.cw * a.K > 4 * kThreads || ((lay.cw | lay.fw | lay.vw | a.D) & 3) != 0 ||
-      lay.vw > kStage || a.D > kStage || lay.fw > kStage || lay.vw > 4 * kThreads ||
+  const Layout lay = layout<T>(a, cs);
+  if (lay.cw * a.K > 4 * kThreads || ((lay.cw | lay.fw | lay.vw | a.D) & (kAlign<T> - 1)) != 0 ||
+      lay.vw > kStageElems<T> || a.D > kStageElems<T> || lay.fw > kStageElems<T> ||
+      lay.vw > 4 * kThreads ||
       lay.fw > 4 * kThreads || a.D > 4 * kThreads || (cs * a.D < a.V && a.V > 4 * kThreads))
     return cudaSuccess;
-  const int nchunk = stream_schedule(a, lay, nullptr, nullptr);
+  const int nchunk = stream_schedule<T>(a, lay, nullptr, nullptr);
   const size_t smem = (smem_floats(a, lay) + smem_ints(a, nchunk)) * 4;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = ar_loop_kernel<kLogitsOnly>;
+  auto kernel = ar_loop_kernel<T, kLogitsOnly>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   cfg.gridDim = dim3((unsigned)(a.B * cs));
@@ -911,7 +998,7 @@ cudaError_t configure(const ArLoopArgs& a, int cs, cudaLaunchConfig_t& cfg,
   return cudaSuccess;
 }
 
-template <bool kLogitsOnly>
+template <typename T, bool kLogitsOnly>
 int check_args(const ArLoopArgs& a) {
   if (a.B <= 0 || a.N <= 0 || a.N > kMaxLayers || a.H <= 0 || a.D % a.H != 0 ||
       (a.D / a.H) % 4 != 0 || a.V <= 0 || a.Vp < a.V || a.Vp % 4 != 0 ||
@@ -919,22 +1006,22 @@ int check_args(const ArLoopArgs& a) {
     return (int)cudaErrorInvalidValue;
   for (int li = 0; li < a.N; ++li)
     if ((a.K - 1) * a.dils[li] + 1 > a.CTX) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(ar_loop_kernel<kLogitsOnly>,
+  cudaError_t e = cudaFuncSetAttribute(ar_loop_kernel<T, kLogitsOnly>,
                                        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return (int)e;
 }
 
 // The cluster size a launch takes: the largest of 16, 8, ... that qualifies
 // (see `configure`) and that the card schedules.
-template <bool kLogitsOnly>
+template <typename T, bool kLogitsOnly>
 int choose_cluster(const ArLoopArgs& a, int* cs_out) {
-  int rc = check_args<kLogitsOnly>(a);
+  int rc = check_args<T, kLogitsOnly>(a);
   if (rc != 0) return rc;
   for (int cs = 16; cs >= 1; cs /= 2) {
     cudaLaunchConfig_t cfg = {};
     cudaLaunchAttribute attr[1];
     bool ok = false;
-    cudaError_t e = configure<kLogitsOnly>(a, cs, cfg, attr, ok);
+    cudaError_t e = configure<T, kLogitsOnly>(a, cs, cfg, attr, ok);
     if (e != cudaSuccess) return (int)e;
     if (ok) {
       *cs_out = cs;
@@ -947,58 +1034,78 @@ int choose_cluster(const ArLoopArgs& a, int* cs_out) {
 // Launches `kernel` for a.B rows, one cluster of a.cs blocks per row (the
 // size a.wstream was packed for). Returns cudaGetLastError() after the
 // launch, or an error code for unsupported shapes.
-template <bool kLogitsOnly>
+template <typename T, bool kLogitsOnly>
 int launch(const ArLoopArgs& a, void* stream) {
-  int rc = check_args<kLogitsOnly>(a);
+  int rc = check_args<T, kLogitsOnly>(a);
   if (rc != 0) return rc;
   if (a.cs <= 0 || a.cs > 16 || a.wstream == nullptr) return (int)cudaErrorInvalidValue;
   int len = 0;
-  stream_schedule(a, layout(a, a.cs), nullptr, &len);
+  stream_schedule<T>(a, layout<T>(a, a.cs), nullptr, &len);
   if (len != a.stream_len) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   bool ok = false;
-  cudaError_t e = configure<kLogitsOnly>(a, a.cs, cfg, attr, ok);
+  cudaError_t e = configure<T, kLogitsOnly>(a, a.cs, cfg, attr, ok);
   if (e != cudaSuccess) return (int)e;
   if (!ok) return (int)cudaErrorInvalidConfiguration;
   cfg.stream = (cudaStream_t)stream;
-  e = cudaLaunchKernelEx(&cfg, ar_loop_kernel<kLogitsOnly>, a);
+  e = cudaLaunchKernelEx(&cfg, ar_loop_kernel<T, kLogitsOnly>, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // How many clusters of a.cs blocks the card holds at once for this launch:
 // a cluster must fit inside one GPC, so rows past the count run in waves.
-template <bool kLogitsOnly>
+template <typename T, bool kLogitsOnly>
 int active_clusters(const ArLoopArgs& a, int* out) {
-  int rc = check_args<kLogitsOnly>(a);
+  int rc = check_args<T, kLogitsOnly>(a);
   if (rc != 0) return rc;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   bool ok = false;
-  cudaError_t e = configure<kLogitsOnly>(a, a.cs, cfg, attr, ok);
+  cudaError_t e = configure<T, kLogitsOnly>(a, a.cs, cfg, attr, ok);
   if (e != cudaSuccess) return (int)e;
   if (!ok) return (int)cudaErrorInvalidConfiguration;
-  return (int)cudaOccupancyMaxActiveClusters(out, ar_loop_kernel<kLogitsOnly>, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, ar_loop_kernel<T, kLogitsOnly>, &cfg);
 }
+
+// mode: bit 0 K5 (logits only) else K1, bit 1 the bfloat16 instantiation.
+template <template <typename, bool> class F, typename... Args>
+int by_mode(int mode, Args... args) {
+  switch (mode) {
+    case 0: return F<float, false>::run(args...);
+    case 1: return F<float, true>::run(args...);
+    case 2: return F<__nv_bfloat16, false>::run(args...);
+    case 3: return F<__nv_bfloat16, true>::run(args...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+template <typename T, bool L>
+struct ActiveClusters {
+  static int run(const ArLoopArgs& a, int* out) { return active_clusters<T, L>(a, out); }
+};
+template <typename T, bool L>
+struct ChooseCluster {
+  static int run(const ArLoopArgs& a, int* out) { return choose_cluster<T, L>(a, out); }
+};
 
 }  // namespace
 
-// cudaOccupancyMaxActiveClusters for K1 (logits_only = 0) or K5 (1) at
-// cluster size a.cs and these shapes. Returns 0 or an error code.
-extern "C" int sopro_ar_active_clusters(const ArLoopArgs* args, int logits_only, int* out) {
-  return logits_only ? active_clusters<true>(*args, out) : active_clusters<false>(*args, out);
+// cudaOccupancyMaxActiveClusters for K1 or K5 (`mode`: bit 0 K5, bit 1
+// bfloat16) at cluster size a.cs and these shapes. Returns 0 or an error code.
+extern "C" int sopro_ar_active_clusters(const ArLoopArgs* args, int mode, int* out) {
+  return by_mode<ActiveClusters>(mode, *args, out);
 }
 
-// The cluster size K1 (logits_only = 0) or K5 (1) takes for these args
-// (the weight stream is then packed for it). Returns 0 or an error code.
-extern "C" int sopro_ar_cluster(const ArLoopArgs* args, int logits_only, int* cs_out) {
-  return logits_only ? choose_cluster<true>(*args, cs_out) : choose_cluster<false>(*args, cs_out);
+// The cluster size K1 or K5 (`mode` as above) takes for these args (the
+// weight stream is then packed for it). Returns 0 or an error code.
+extern "C" int sopro_ar_cluster(const ArLoopArgs* args, int mode, int* cs_out) {
+  return by_mode<ChooseCluster>(mode, *args, cs_out);
 }
 
 // K1: runs a.n_steps decode steps for a.B rows.
 extern "C" int sopro_ar_loop(const ArLoopArgs* args, void* stream) {
-  return launch<false>(*args, stream);
+  return launch<float, false>(*args, stream);
 }
 
 // K5: one step for a.B rows, a.x_in [B, D] and a.bufs_in -> a.logits [B, V]
@@ -1007,5 +1114,18 @@ extern "C" int sopro_ar_step(const ArLoopArgs* args, void* stream) {
   ArLoopArgs a = *args;
   if (a.x_in == nullptr || a.logits == nullptr) return (int)cudaErrorInvalidValue;
   a.n_steps = 1;
-  return launch<true>(a, stream);
+  return launch<float, true>(a, stream);
+}
+
+// K1 and K5 on bfloat16 weights, cond, emb, text KV, ring buffers and x_in
+// (the logits, settings and state stay float32 / int32).
+extern "C" int sopro_ar_loop_bf16(const ArLoopArgs* args, void* stream) {
+  return launch<__nv_bfloat16, false>(*args, stream);
+}
+
+extern "C" int sopro_ar_step_bf16(const ArLoopArgs* args, void* stream) {
+  ArLoopArgs a = *args;
+  if (a.x_in == nullptr || a.logits == nullptr) return (int)cudaErrorInvalidValue;
+  a.n_steps = 1;
+  return launch<__nv_bfloat16, true>(a, stream);
 }

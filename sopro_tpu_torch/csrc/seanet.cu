@@ -1,4 +1,5 @@
-// Kernels K3 and K4: the SEANet decoder's convolutions (Mimi vocoder), float32.
+// Kernels K3 and K4: the SEANet decoder's convolutions (Mimi vocoder), float32
+// or bfloat16.
 //
 // K3 replaces sopro_tpu/codec/pallas_vocoder.py::seanet_decode_pallas and K4
 // its streaming variant seanet_decode_pallas_chunk (both run the TPU's
@@ -79,10 +80,28 @@
 // ~2.1 GFLOP, 0.013 ms at the 3-pass rate, but ~120 MB of hi/lo weights
 // (more than L2 holds, so read from HBM every chunk, ~0.035 ms): K4 is bound
 // by those bytes and by the latency of its 11 dependent launches.
+//
+// The bfloat16 instantiations (sopro_seanet_conv_tc_bf16,
+// sopro_seanet_resblock_bf16) compute what the TPU kernel computes on
+// bfloat16 inputs: every conv accumulates in float32, adds its bias in float32
+// and rounds to bfloat16; every ELU runs in float32 on bfloat16 and rounds;
+// a residual add adds two bfloat16 values and rounds; the fused blocks round
+// their hidden and their block output (which stay in shared memory) at the
+// same points, and the waveform leaves as bfloat16. Design (a): the same TF32
+// m16n8k8 MMAs in ONE pass (tf32x3::mma1_tile_bf16) -- a bfloat16 value is
+// exact in TF32, so one pass gives the bfloat16 products exactly with float32
+// accumulation -- rather than (b), bf16 m16n8k16, whose fragment layouts the
+// tiles here do not have. Weights and activations are read as bfloat16 (half
+// the float32 bytes, a third of the hi/lo pair's) into shared memory; the
+// activations are widened (and ELU'd and rounded) once per chunk into float
+// A tiles, the weights as each B fragment is loaded. K3 in bfloat16 is bound
+// by its products at the TF32 rate: 132 GFLOP / 495 TF/s = 0.27 ms.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "tf32x3.cuh"
 
@@ -131,6 +150,7 @@ __device__ __forceinline__ int row_start(const int* __restrict__ start, int stri
 // ---------------------------------------------------------------------------
 
 constexpr int kTcBN = 128, kTcLDB = kTcBN + 8;
+constexpr int kTcLDB16 = kTcBN + 16;  // the bfloat16 weight ring's row stride (B fragments on 32 banks)
 constexpr int kTcLDR = kTcBN + 4;  // split-K partial tile row stride (float4 rows)
 
 // A warp owns WM = min(BM, 32) rows x 32 columns; BM / WM x 4 warps per block.
@@ -147,19 +167,28 @@ struct ConvTile {
 // row a0 + t (a0 = T_in - T_out): tap j reads input row a0 + t - (taps-1-j)*dil,
 // and input rows before row_start(start, start_stride, b) or past T_in read
 // as zero. The residual (nullable) adds row t + res_T - T_out of [B, res_T, N].
+// E: float (whi / wlo the TF32 split of w) or __nv_bfloat16 (whi the weights
+// themselves, wlo unused): the element type of x, the weights, bias,
+// residual and y.
+template <typename E>
 struct ConvArgs {
-  const float *x, *whi, *wlo, *bias, *residual;
-  float* y;
+  const E *x, *whi, *wlo, *bias, *residual;
+  E* y;
   const int* start;
   int start_stride, B, T_in, T_out, res_T, Cin, cinp, N, np, dil, elu_in;
   int splits;  // blocks of a cluster (grid z) sharing the Cin chunks of one tile
 };
 
-template <int BM, int BKC, int STAGES, int TAPS>
+template <int BM, int BKC, int STAGES, int TAPS, typename E>
 size_t conv_tc_smem(int halo) {
   const size_t rows = BM + halo;
-  const size_t ring = sizeof(float) * (STAGES * (rows * BKC + 2 * (size_t)TAPS * BKC * kTcLDB) +
-                                       2 * rows * ConvTile<BM, BKC>::LDA);
+  size_t ring;
+  if constexpr (std::is_same<E, float>::value)
+    ring = sizeof(float) * (STAGES * (rows * BKC + 2 * (size_t)TAPS * BKC * kTcLDB) +
+                            2 * rows * ConvTile<BM, BKC>::LDA);
+  else  // [S][rows][BKC] and [S][TAPS*BKC][kTcLDB16] bfloat16, then the float A tile
+    ring = sizeof(E) * STAGES * (rows * BKC + (size_t)TAPS * BKC * kTcLDB16) +
+           sizeof(float) * rows * ConvTile<BM, BKC>::LDA;
   const size_t red = sizeof(float) * BM * kTcLDR;  // the split-K partial tile, after the ring
   return ring > red ? ring : red;
 }
@@ -168,9 +197,10 @@ size_t conv_tc_smem(int halo) {
 // whi / wlo [taps, cinp, np]: the TF32 split of w, zero-padded. Grid: (B *
 // row tiles, np / 128, splits); the blocks of one cluster (grid z) take
 // consecutive ranges of the Cin chunks.
-template <int BM, int BKC, int STAGES, int MINB, int TAPS>
-__global__ void __launch_bounds__(ConvTile<BM, BKC>::THREADS, MINB) conv_tc_kernel(const ConvArgs a) {
+template <int BM, int BKC, int STAGES, int MINB, int TAPS, typename E>
+__global__ void __launch_bounds__(ConvTile<BM, BKC>::THREADS, MINB) conv_tc_kernel(const ConvArgs<E> a) {
   using Tl = ConvTile<BM, BKC>;
+  constexpr bool kF32 = std::is_same<E, float>::value;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int halo = (TAPS - 1) * a.dil, rows = BM + halo;
@@ -178,6 +208,10 @@ __global__ void __launch_bounds__(ConvTile<BM, BKC>::THREADS, MINB) conv_tc_kern
   float* wring = araw + STAGES * rows * BKC;         // [S][hi, lo][TAPS*BKC][kTcLDB]
   float* a_hi = wring + STAGES * 2 * TAPS * BKC * kTcLDB;  // [rows][LDA]
   float* a_lo = a_hi + rows * Tl::LDA;
+  // bfloat16: araw16 [S][rows][BKC], wring16 [S][TAPS*BKC][kTcLDB16], then a_hi
+  E* araw16 = reinterpret_cast<E*>(smem);
+  unsigned short* wring16 = reinterpret_cast<unsigned short*>(araw16 + STAGES * rows * BKC);
+  if constexpr (!kF32) a_hi = reinterpret_cast<float*>(wring16 + STAGES * TAPS * BKC * kTcLDB16);
 
   const int tiles = (a.T_out + BM - 1) / BM;
   const int b = blockIdx.x / tiles, t0 = (blockIdx.x - b * tiles) * BM;
@@ -185,16 +219,41 @@ __global__ void __launch_bounds__(ConvTile<BM, BKC>::THREADS, MINB) conv_tc_kern
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const int wm = warp / Tl::WGN, wn = warp % Tl::WGN;
   const int Cin = a.Cin, np = a.np, cinp = a.cinp;
-  const float* xb = a.x + (size_t)b * a.T_in * Cin;
+  const E* xb = a.x + (size_t)b * a.T_in * Cin;
   const int r0 = a.T_in - a.T_out + t0 - halo;        // input row of tile row 0
   const int lo = row_start(a.start, a.start_stride, b);
-  const bool vec = (Cin & 3) == 0;
+  const bool vec = kF32 ? (Cin & 3) == 0 : (Cin & 7) == 0;  // 16-byte copies
   const int nc = cinp / BKC, split = blockIdx.z;
   const int c0 = split * nc / a.splits, nloc = (split + 1) * nc / a.splits - c0;
   constexpr int wrows = TAPS * BKC;
 
   auto load = [&](int i, int slot) {  // chunk c0 + i of this block's range
-    if (i < nloc) {
+    if constexpr (!kF32) {
+      if (i < nloc) {
+        const int ci0 = (c0 + i) * BKC;
+        E* ad = araw16 + slot * rows * BKC;
+        if (vec) {
+          for (int e = tid; e < rows * (BKC / 8); e += Tl::THREADS) {
+            const int r = e / (BKC / 8), c8 = (e - r * (BKC / 8)) * 8;
+            const int t = r0 + r, ci = ci0 + c8;
+            const bool ok = t >= lo && t < a.T_in && ci < Cin;
+            tf32x3::cp_async16(ad + r * BKC + c8, ok ? xb + (size_t)t * Cin + ci : a.x, ok);
+          }
+        } else {  // no 2-byte cp.async: plain loads, visible after the barrier that takes the chunk
+          for (int e = tid; e < rows * BKC; e += Tl::THREADS) {
+            const int r = e / BKC, k = e - r * BKC;
+            const int t = r0 + r, ci = ci0 + k;
+            ad[e] = t >= lo && t < a.T_in && ci < Cin ? xb[(size_t)t * Cin + ci] : tf32x3::from_f<E>(0.f);
+          }
+        }
+        unsigned short* wd = wring16 + slot * wrows * kTcLDB16;
+        for (int e = tid; e < wrows * (kTcBN / 8); e += Tl::THREADS) {
+          const int kk = e / (kTcBN / 8), c8 = (e - kk * (kTcBN / 8)) * 8;
+          const int j = kk / BKC, ci = ci0 + kk - j * BKC;
+          tf32x3::cp_async16(wd + kk * kTcLDB16 + c8, a.whi + ((size_t)j * cinp + ci) * np + n0 + c8, true);
+        }
+      }
+    } else if (i < nloc) {
       const int ci0 = (c0 + i) * BKC;
       float* ad = araw + slot * rows * BKC;
       if (vec) {
@@ -233,25 +292,46 @@ __global__ void __launch_bounds__(ConvTile<BM, BKC>::THREADS, MINB) conv_tc_kern
     const int slot = i % STAGES;
     tf32x3::cp_async_wait<STAGES - 2>();
     __syncthreads();  // chunk i landed; every warp is done with chunk i-1
-    const float* ad = araw + slot * rows * BKC;
+    if constexpr (kF32) {
+      const float* ad = araw + slot * rows * BKC;
 #pragma unroll 4
-    for (int e = tid; e < rows * BKC; e += Tl::THREADS) {
-      const int r = e / BKC, k = e - r * BKC;
-      float v = ad[e];
-      if (a.elu_in) v = elu(v);
-      tf32x3::split(v, a_hi[r * Tl::LDA + k], a_lo[r * Tl::LDA + k]);
+      for (int e = tid; e < rows * BKC; e += Tl::THREADS) {
+        const int r = e / BKC, k = e - r * BKC;
+        float v = ad[e];
+        if (a.elu_in) v = elu(v);
+        tf32x3::split(v, a_hi[r * Tl::LDA + k], a_lo[r * Tl::LDA + k]);
+      }
+    } else {  // widen, ELU in float32 and round, as the TPU kernel's _elu
+      const E* ad = araw16 + slot * rows * BKC;
+#pragma unroll 4
+      for (int e = tid; e < rows * BKC; e += Tl::THREADS) {
+        const int r = e / BKC, k = e - r * BKC;
+        float v = __bfloat162float(ad[e]);
+        if (a.elu_in) v = tf32x3::bf16_round(elu(v));
+        a_hi[r * Tl::LDA + k] = v;
+      }
     }
     __syncthreads();
     load(i + STAGES - 1, (i + STAGES - 1) % STAGES);
-    const float* wh = wring + slot * 2 * wrows * kTcLDB + wn * Tl::WN;
     float part[Tl::MT][Tl::NT][4];
     tf32x3::zero(part);
+    if constexpr (kF32) {
+      const float* wh = wring + slot * 2 * wrows * kTcLDB + wn * Tl::WN;
 #pragma unroll
-    for (int j = 0; j < TAPS; ++j) {
-      const int ao = (wm * Tl::WM + j * a.dil) * Tl::LDA;
-      tf32x3::mma3_tile<Tl::MT, Tl::NT>(part, a_hi + ao, a_lo + ao, Tl::LDA,
-                                        wh + j * BKC * kTcLDB, wh + (wrows + j * BKC) * kTcLDB,
-                                        kTcLDB, BKC / 8);
+      for (int j = 0; j < TAPS; ++j) {
+        const int ao = (wm * Tl::WM + j * a.dil) * Tl::LDA;
+        tf32x3::mma3_tile<Tl::MT, Tl::NT>(part, a_hi + ao, a_lo + ao, Tl::LDA,
+                                          wh + j * BKC * kTcLDB, wh + (wrows + j * BKC) * kTcLDB,
+                                          kTcLDB, BKC / 8);
+      }
+    } else {
+      const unsigned short* wh = wring16 + slot * wrows * kTcLDB16 + wn * Tl::WN;
+#pragma unroll
+      for (int j = 0; j < TAPS; ++j) {
+        const int ao = (wm * Tl::WM + j * a.dil) * Tl::LDA;
+        tf32x3::mma1_tile_bf16<Tl::MT, Tl::NT>(part, a_hi + ao, Tl::LDA, wh + j * BKC * kTcLDB16,
+                                               kTcLDB16, BKC / 8);
+      }
     }
     tf32x3::add(acc, part);
   }
@@ -260,9 +340,16 @@ __global__ void __launch_bounds__(ConvTile<BM, BKC>::THREADS, MINB) conv_tc_kern
   auto store = [&](int r, int n, float v) {  // tile row r, column n: bias, residual, y
     const int t = t0 + r;
     if (t >= a.T_out || n >= a.N) return;
-    v += __ldg(a.bias + n);
-    if (a.residual != nullptr) v += __ldg(a.residual + ((size_t)b * a.res_T + t + res_off) * a.N + n);
-    a.y[((size_t)b * a.T_out + t) * a.N + n] = v;
+    if constexpr (kF32) {
+      v += __ldg(a.bias + n);
+      if (a.residual != nullptr) v += __ldg(a.residual + ((size_t)b * a.res_T + t + res_off) * a.N + n);
+      a.y[((size_t)b * a.T_out + t) * a.N + n] = v;
+    } else {  // the conv rounds, then the residual add rounds
+      v = tf32x3::bf16_round(v + tf32x3::ldg_f(a.bias + n));
+      if (a.residual != nullptr)
+        v += tf32x3::ldg_f(a.residual + ((size_t)b * a.res_T + t + res_off) * a.N + n);
+      a.y[((size_t)b * a.T_out + t) * a.N + n] = tf32x3::from_f<E>(v);
+    }
   };
   if (a.splits == 1) {
 #pragma unroll
@@ -316,11 +403,11 @@ __global__ void __launch_bounds__(ConvTile<BM, BKC>::THREADS, MINB) conv_tc_kern
 // The launch: 16-row tiles where T_out < 128, else BM; the fewest splits (a
 // power of two up to max_splits, at least one Cin chunk each) that give
 // every SM a block, fewer where that many clusters cannot all be resident.
-template <int BM, int BKC, int STAGES, int MINB, int TAPS>
-int launch_conv_tc(ConvArgs a, int max_splits, cudaStream_t s) {
-  const size_t smem = conv_tc_smem<BM, BKC, STAGES, TAPS>((TAPS - 1) * a.dil);
+template <int BM, int BKC, int STAGES, int MINB, int TAPS, typename E>
+int launch_conv_tc(ConvArgs<E> a, int max_splits, cudaStream_t s) {
+  const size_t smem = conv_tc_smem<BM, BKC, STAGES, TAPS, E>((TAPS - 1) * a.dil);
   if (smem > kMaxSmem || a.cinp % BKC != 0) return (int)cudaErrorInvalidValue;
-  auto kernel = conv_tc_kernel<BM, BKC, STAGES, MINB, TAPS>;
+  auto kernel = conv_tc_kernel<BM, BKC, STAGES, MINB, TAPS, E>;
   static LaunchCache caches[kMaxDevices];
   LaunchCache* cache = nullptr;
   cudaError_t e = prepare(kernel, caches, smem, cache);
@@ -383,7 +470,7 @@ constexpr int kRbBK = 16;
 // prefetching the next tile's input window while it computes this one.
 // C = 128 (stage 3, 260 KB of weights): the weights stream through a 2-stage
 // ring in 16-row chunks, one tile per block, two blocks per SM.
-template <int C, bool kFinal>
+template <int C, bool kFinal, typename E = float>
 struct ResTile {
   static constexpr bool RESIDENT = C == 64;
   static constexpr int CH = C / 2;
@@ -401,8 +488,18 @@ struct ResTile {
   static constexpr int N1 = 3 * C / kRbBK, N2 = CH / kRbBK;  // weight chunks of each conv
   static constexpr int SLOTS = RESIDENT ? N1 + N2 : STAGES;
   static constexpr int XBUF = RESIDENT ? 2 : 1;   // input windows in flight
-  static constexpr size_t SMEM = sizeof(float) * ((size_t)(XBUF + 2) * RX * LDX + 2 * BM * LDH +
-                                                  (size_t)SLOTS * 2 * kRbBK * LDW);
+  // bfloat16: the input windows [XBUF][RX][LDX16] and the weights [SLOTS][kRbBK][LDW16] as
+  // bfloat16 after elu(x) [RX][LDX] and elu(hidden) [BM][LDH] as float (no lo parts)
+  static constexpr bool F32 = std::is_same<E, float>::value;
+  static constexpr int LDX16 = C + 8, LDW16 = C + 16;
+  static constexpr int LDXE = F32 ? LDX : LDX16;                       // input window row stride
+  static constexpr int WSLOT = F32 ? 2 * kRbBK * LDW : kRbBK * LDW16;  // ring slot, in W
+  using W = typename std::conditional<F32, float, unsigned short>::type;  // the ring's element
+  static constexpr size_t SMEM =
+      F32 ? sizeof(float) * ((size_t)(XBUF + 2) * RX * LDX + 2 * BM * LDH +
+                             (size_t)SLOTS * 2 * kRbBK * LDW)
+          : sizeof(float) * ((size_t)RX * LDX + (size_t)BM * LDH) +
+                2 * ((size_t)XBUF * RX * LDX16 + (size_t)SLOTS * kRbBK * LDW16);
   static constexpr int MINB = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;  // blocks per SM
   static_assert(THREADS / 4 >= BMO, "the final conv takes four threads per output row");
 };
@@ -415,61 +512,88 @@ struct ResTile {
 // as zero, and so do the final conv's input rows before it. Tile i of batch
 // row b holds output rows t0 = i * BMO..; its input window starts at input
 // row a0 + t0 - HF - 2.
+// E as for the conv: bfloat16 takes w1hi / w2hi as the weights, w1lo / w2lo unused.
+template <typename E>
 struct ResArgs {
-  const float *x, *w1hi, *w1lo, *b1, *w2hi, *w2lo, *b2, *wf, *bf;
-  float* y;
+  const E *x, *w1hi, *w1lo, *b1, *w2hi, *w2lo, *b2, *wf, *bf;
+  E* y;
   const int* start;
   int start_stride, B, T_in, T_out;
 };
 
-template <int C, bool kFinal>
-__global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal>::MINB)
-    resblock_kernel(const ResArgs a) {
-  using R = ResTile<C, kFinal>;
-  const float* __restrict__ x = a.x;
-  const float* __restrict__ b1 = a.b1;
-  const float* __restrict__ b2 = a.b2;
-  const float* __restrict__ wf = a.wf;
-  float* __restrict__ y = a.y;
+// E = __nv_bfloat16: the same tiles, one TF32 pass on the bfloat16 weights
+// (w1hi / w2hi) and on the rounded activations, rounding where the TPU kernel
+// rounds: elu(x), the hidden (conv + bias), elu(hidden), the k1 conv + bias,
+// the residual add, elu(block output) and the waveform.
+template <int C, bool kFinal, typename E>
+__global__ void __launch_bounds__(ResTile<C, kFinal, E>::THREADS, ResTile<C, kFinal, E>::MINB)
+    resblock_kernel(const ResArgs<E> a) {
+  using R = ResTile<C, kFinal, E>;
+  using W = typename R::W;
+  const E* __restrict__ x = a.x;
+  E* __restrict__ y = a.y;
   const int a0 = a.T_in - a.T_out;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* xbuf = smem;                               // [XBUF][RX][LDX] block input windows
-  float* ex_hi = xbuf + R::XBUF * R::RX * R::LDX;   // [RX][LDX] elu(x) split; later the final conv's input
-  float* ex_lo = ex_hi + R::RX * R::LDX;
-  float* h_hi = ex_lo + R::RX * R::LDX;             // [BM][LDH] elu(hidden) split
-  float* h_lo = h_hi + R::BM * R::LDH;
-  float* ring = h_lo + R::BM * R::LDH;              // [SLOTS][hi, lo][kRbBK][LDW]
+  // ex_hi [RX][LDX]: elu(x) (its split with ex_lo in float32), later the
+  // final conv's input; h_hi [BM][LDH]: elu(hidden) (with h_lo); xbuf
+  // [XBUF][RX][LDXE]: the block input windows; ring [SLOTS][WSLOT]: weight
+  // chunks ([hi, lo][kRbBK][LDW] in float32, [kRbBK][LDW16] in bfloat16)
+  E* xbuf;
+  W* ring;
+  float *ex_hi, *ex_lo = nullptr, *h_hi, *h_lo = nullptr;
+  if constexpr (R::F32) {
+    xbuf = smem;
+    ex_hi = xbuf + R::XBUF * R::RX * R::LDX;
+    ex_lo = ex_hi + R::RX * R::LDX;
+    h_hi = ex_lo + R::RX * R::LDX;
+    h_lo = h_hi + R::BM * R::LDH;
+    ring = h_lo + R::BM * R::LDH;
+  } else {
+    ex_hi = smem;
+    h_hi = ex_hi + R::RX * R::LDX;
+    xbuf = reinterpret_cast<E*>(h_hi + R::BM * R::LDH);
+    ring = reinterpret_cast<W*>(xbuf + R::XBUF * R::RX * R::LDXE);
+  }
 
   const int tiles = (a.T_out + R::BMO - 1) / R::BMO, ntiles = a.B * tiles;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const int wm = warp / R::WGN, wn = warp % R::WGN;
+  constexpr int V = 16 / sizeof(E);  // elements of one 16-byte copy
 
   auto load_w = [&](int c, int slot) {  // weight chunk c (16 rows of w1, then of w2)
     if (c < R::N1 + R::N2) {
       const bool first = c < R::N1;
       const int width = first ? R::CH : C, k0 = (first ? c : c - R::N1) * kRbBK;
-      const float* hi = first ? a.w1hi : a.w2hi;
-      const float* lo = first ? a.w1lo : a.w2lo;
-      float* d = ring + slot * 2 * kRbBK * R::LDW;
-      const int per_half = kRbBK * (width / 4);
-      for (int i = tid; i < 2 * per_half; i += R::THREADS) {
-        const int half = i / per_half, rem = i - half * per_half;
-        const int kk = rem / (width / 4), c4 = (rem - kk * (width / 4)) * 4;
-        tf32x3::cp_async16(d + (half * kRbBK + kk) * R::LDW + c4,
-                           (half ? lo : hi) + (size_t)(k0 + kk) * width + c4, true);
+      const E* hi = first ? a.w1hi : a.w2hi;
+      W* d = ring + slot * R::WSLOT;
+      if constexpr (R::F32) {
+        const float* lo = first ? a.w1lo : a.w2lo;
+        const int per_half = kRbBK * (width / 4);
+        for (int i = tid; i < 2 * per_half; i += R::THREADS) {
+          const int half = i / per_half, rem = i - half * per_half;
+          const int kk = rem / (width / 4), c4 = (rem - kk * (width / 4)) * 4;
+          tf32x3::cp_async16(d + (half * kRbBK + kk) * R::LDW + c4,
+                             (half ? lo : hi) + (size_t)(k0 + kk) * width + c4, true);
+        }
+      } else {
+        const int per = kRbBK * (width / 8);
+        for (int i = tid; i < per; i += R::THREADS) {
+          const int kk = i / (width / 8), c8 = (i - kk * (width / 8)) * 8;
+          tf32x3::cp_async16(d + kk * R::LDW16 + c8, hi + (size_t)(k0 + kk) * width + c8, true);
+        }
       }
     }
   };
-  auto load_x = [&](int tile, float* dst) {  // tile's input window; rows outside [start, T_in) zero
+  auto load_x = [&](int tile, E* dst) {  // tile's input window; rows outside [start, T_in) zero
     if (tile < ntiles) {
       const int b = tile / tiles, tx0 = a0 + (tile - b * tiles) * R::BMO - R::HF - 2;
       const int lo = row_start(a.start, a.start_stride, b);
-      const float* xb = x + (size_t)b * a.T_in * C;
-      for (int i = tid; i < R::RX * (C / 4); i += R::THREADS) {
-        const int r = i / (C / 4), c4 = (i - r * (C / 4)) * 4, t = tx0 + r;
+      const E* xb = x + (size_t)b * a.T_in * C;
+      for (int i = tid; i < R::RX * (C / V); i += R::THREADS) {
+        const int r = i / (C / V), cv = (i - r * (C / V)) * V, t = tx0 + r;
         const bool ok = t >= lo && t < a.T_in;
-        tf32x3::cp_async16(dst + r * R::LDX + c4, ok ? xb + (size_t)t * C + c4 : x, ok);
+        tf32x3::cp_async16(dst + r * R::LDXE + cv, ok ? xb + (size_t)t * C + cv : x, ok);
       }
     }
   };
@@ -489,9 +613,9 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
 
   for (int it = 0; tile < ntiles; ++it, tile += gridDim.x) {
     const int b = tile / tiles, t0 = (tile - b * tiles) * R::BMO;
-    const float* xraw = xbuf + (it & (R::XBUF - 1)) * R::RX * R::LDX;
+    const E* xraw = xbuf + (it & (R::XBUF - 1)) * R::RX * R::LDXE;
     if (R::RESIDENT) {  // the other window was freed by the previous tile's last barrier
-      load_x(tile + gridDim.x, xbuf + ((it + 1) & 1) * R::RX * R::LDX);
+      load_x(tile + gridDim.x, xbuf + ((it + 1) & 1) * R::RX * R::LDXE);
       tf32x3::cp_async_commit();
       tf32x3::cp_async_wait<1>();
     } else {
@@ -501,7 +625,10 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
 #pragma unroll 4
     for (int i = tid; i < R::RX * C; i += R::THREADS) {  // rows before the start are zero: elu(0) = 0
       const int r = i / C, k = i - r * C;
-      tf32x3::split(elu(xraw[r * R::LDX + k]), ex_hi[r * R::LDX + k], ex_lo[r * R::LDX + k]);
+      if constexpr (R::F32)
+        tf32x3::split(elu(xraw[r * R::LDX + k]), ex_hi[r * R::LDX + k], ex_lo[r * R::LDX + k]);
+      else
+        ex_hi[r * R::LDX + k] = tf32x3::bf16_round(elu(__bfloat162float(xraw[r * R::LDX16 + k])));
     }
     if (R::RESIDENT) __syncthreads();
 
@@ -515,21 +642,29 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
         load_w(c + R::STAGES - 1, (c + R::STAGES - 1) % R::STAGES);
         tf32x3::cp_async_commit();
       }
-      const float* wh = ring + (R::RESIDENT ? c : c % R::STAGES) * 2 * kRbBK * R::LDW;
+      const W* wh = ring + (R::RESIDENT ? c : c % R::STAGES) * R::WSLOT;
       if (c < R::N1) {  // hidden row i = sum_j elu(x)[window row i + j] . w1[j]
         const int j = c * kRbBK / C, ci0 = c * kRbBK - j * C;
         const int ao = (wm * R::WM + j) * R::LDX + ci0;
         float part[R::MT][R::NT1][4];
         tf32x3::zero(part);
-        tf32x3::mma3_tile<R::MT, R::NT1>(part, ex_hi + ao, ex_lo + ao, R::LDX, wh + wn * R::WN1,
-                                         wh + kRbBK * R::LDW + wn * R::WN1, R::LDW, kRbBK / 8);
+        if constexpr (R::F32)
+          tf32x3::mma3_tile<R::MT, R::NT1>(part, ex_hi + ao, ex_lo + ao, R::LDX, wh + wn * R::WN1,
+                                           wh + kRbBK * R::LDW + wn * R::WN1, R::LDW, kRbBK / 8);
+        else
+          tf32x3::mma1_tile_bf16<R::MT, R::NT1>(part, ex_hi + ao, R::LDX, wh + wn * R::WN1, R::LDW16,
+                                                kRbBK / 8);
         tf32x3::add(acc1, part);
       } else {
         const int ao = wm * R::WM * R::LDH + (c - R::N1) * kRbBK;
-        tf32x3::mma3_tile<R::MT, R::NT2>(acc2, h_hi + ao, h_lo + ao, R::LDH, wh + wn * R::WN2,
-                                         wh + kRbBK * R::LDW + wn * R::WN2, R::LDW, kRbBK / 8);
+        if constexpr (R::F32)
+          tf32x3::mma3_tile<R::MT, R::NT2>(acc2, h_hi + ao, h_lo + ao, R::LDH, wh + wn * R::WN2,
+                                           wh + kRbBK * R::LDW + wn * R::WN2, R::LDW, kRbBK / 8);
+        else
+          tf32x3::mma1_tile_bf16<R::MT, R::NT2>(acc2, h_hi + ao, R::LDH, wh + wn * R::WN2, R::LDW16,
+                                                kRbBK / 8);
       }
-      if (c == R::N1 - 1) {  // elu(hidden + b1), split, into shared memory
+      if (c == R::N1 - 1) {  // elu(hidden + b1) into shared memory: split, or rounded twice
 #pragma unroll
         for (int mt = 0; mt < R::MT; ++mt)
 #pragma unroll
@@ -538,15 +673,20 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
             for (int e = 0; e < 4; ++e) {
               const int i = wm * R::WM + mt * 16 + (e >> 1) * 8 + g;
               const int n = wn * R::WN1 + nt * 8 + 2 * q + (e & 1);
-              tf32x3::split(elu(acc1[mt][nt][e] + __ldg(b1 + n)), h_hi[i * R::LDH + n],
-                            h_lo[i * R::LDH + n]);
+              if constexpr (R::F32) {
+                tf32x3::split(elu(acc1[mt][nt][e] + __ldg(a.b1 + n)), h_hi[i * R::LDH + n],
+                              h_lo[i * R::LDH + n]);
+              } else {
+                const float hv = tf32x3::bf16_round(acc1[mt][nt][e] + tf32x3::ldg_f(a.b1 + n));
+                h_hi[i * R::LDH + n] = tf32x3::bf16_round(elu(hv));
+              }
             }
         __syncthreads();
       }
     }
 
     // block output row i (output row t0 - HF + i, input row a0 + t0 - HF + i)
-    // = acc2 + b2 + x[window row i + 2]
+    // = acc2 + b2 + x[window row i + 2] (bfloat16: the conv rounded, then the sum)
     float* outb = ex_hi;  // [BM][LDO]: elu(block output), the final conv's input
     const int lo = row_start(a.start, a.start_stride, b);
 #pragma unroll
@@ -557,12 +697,18 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
         for (int e = 0; e < 4; ++e) {
           const int i = wm * R::WM + mt * 16 + (e >> 1) * 8 + g;
           const int n = wn * R::WN2 + nt * 8 + 2 * q + (e & 1);
-          const float v = acc2[mt][nt][e] + __ldg(b2 + n) + xraw[(i + 2) * R::LDX + n];
+          float v;
+          if constexpr (R::F32) {
+            v = acc2[mt][nt][e] + __ldg(a.b2 + n) + xraw[(i + 2) * R::LDX + n];
+          } else {
+            const float cv = tf32x3::bf16_round(acc2[mt][nt][e] + tf32x3::ldg_f(a.b2 + n));
+            v = tf32x3::bf16_round(cv + __bfloat162float(xraw[(i + 2) * R::LDX16 + n]));
+          }
           const int t = t0 - R::HF + i;
-          if (kFinal) {
-            outb[i * R::LDO + n] = a0 + t >= lo ? elu(v) : 0.f;  // causal zero padding
+          if (kFinal) {  // causal zero padding
+            outb[i * R::LDO + n] = a0 + t >= lo ? (R::F32 ? elu(v) : tf32x3::bf16_round(elu(v))) : 0.f;
           } else if (t < a.T_out) {
-            y[((size_t)b * a.T_out + t) * C + n] = v;
+            y[((size_t)b * a.T_out + t) * C + n] = tf32x3::from_f<E>(v);
           }
         }
     if (kFinal) {  // output row o (time t0 + o): four threads, each a quarter of the 3C terms
@@ -573,22 +719,23 @@ __global__ void __launch_bounds__(ResTile<C, kFinal>::THREADS, ResTile<C, kFinal
 #pragma unroll 8
         for (int k = 0; k < 3 * C / 4; ++k) {
           const int p = sub + 4 * k, j = p / C, ci = p - j * C;
-          s = fmaf(outb[(o + j) * R::LDO + ci], __ldg(wf + p), s);
+          s = fmaf(outb[(o + j) * R::LDO + ci], tf32x3::ldg_f(a.wf + p), s);
         }
       }
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (sub == 0 && o < R::BMO && t0 + o < a.T_out) y[(size_t)b * a.T_out + t0 + o] = s + __ldg(a.bf);
+      if (sub == 0 && o < R::BMO && t0 + o < a.T_out)
+        y[(size_t)b * a.T_out + t0 + o] = tf32x3::from_f<E>(s + tf32x3::ldg_f(a.bf));
     }
     __syncthreads();  // the tile's buffers are free for the next one
   }
 }
 
-template <int C, bool kFinal>
-int launch_resblock(const ResArgs& a, cudaStream_t s) {
-  using R = ResTile<C, kFinal>;
+template <int C, bool kFinal, typename E>
+int launch_resblock(const ResArgs<E>& a, cudaStream_t s) {
+  using R = ResTile<C, kFinal, E>;
   static_assert(R::SMEM <= kMaxSmem, "resblock tile exceeds shared memory");
-  auto kernel = resblock_kernel<C, kFinal>;
+  auto kernel = resblock_kernel<C, kFinal, E>;
   static LaunchCache caches[kMaxDevices];
   LaunchCache* cache = nullptr;
   cudaError_t e = prepare(kernel, caches, R::SMEM, cache);
@@ -609,6 +756,51 @@ int launch_resblock(const ResArgs& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+template <typename E>
+int conv_tc(const E* x, const E* whi, const E* wlo, const E* bias, const E* residual, E* y, int B,
+            int T_in, int T_out, int res_T, int Cin, int cinp, int N, int np, int taps, int dil,
+            int elu_in, const int* start, int start_stride, int max_splits, void* stream) {
+  if (B <= 0 || T_out <= 0 || T_out > T_in || Cin <= 0 || N <= 0 || taps <= 0 || dil <= 0 ||
+      cinp < Cin || cinp % 32 != 0 || np < N || np % kTcBN != 0 || max_splits < 1 ||
+      max_splits > kMaxSplits || (residual != nullptr && res_T < T_out))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const ConvArgs<E> a = {x, whi, wlo, bias, residual, y, start, start_stride, B, T_in, T_out,
+                         res_T, Cin, cinp, N, np, dil, elu_in, 1};
+  // taps * BKC weight rows per ring stage (32, 32, 24, 56 for 1, 2, 3, 7
+  // taps); two blocks per SM where the ring fits in half the shared memory,
+  // so one block's loads and splits overlap the other's MMAs
+  const bool small = T_out < 128;
+  if (taps == 1)
+    return small ? launch_conv_tc<16, 32, 2, 2, 1, E>(a, max_splits, s)
+                 : launch_conv_tc<64, 32, 2, 2, 1, E>(a, max_splits, s);
+  if (taps == 2)
+    return small ? launch_conv_tc<16, 16, 2, 2, 2, E>(a, max_splits, s)
+                 : launch_conv_tc<64, 16, 2, 2, 2, E>(a, max_splits, s);
+  if (taps == 3)
+    return small ? launch_conv_tc<16, 8, 3, 2, 3, E>(a, max_splits, s)
+                 : launch_conv_tc<64, 8, 3, 2, 3, E>(a, max_splits, s);
+  if (taps == 7)
+    return small ? launch_conv_tc<16, 8, 3, 1, 7, E>(a, max_splits, s)
+                 : launch_conv_tc<64, 8, 3, 1, 7, E>(a, max_splits, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename E>
+int resblock(const E* x, const E* w1hi, const E* w1lo, const E* b1, const E* w2hi,
+             const E* w2lo, const E* b2, const E* wf, const E* bf, E* y, int B, int T_in,
+             int T_out, int C, int final, const int* start, int start_stride, void* stream) {
+  if (B <= 0 || T_out <= 0 || T_out > T_in) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const ResArgs<E> a = {x, w1hi, w1lo, b1, w2hi, w2lo, b2, wf, bf, y, start, start_stride, B,
+                        T_in, T_out};
+  if (C == 128 && !final) return launch_resblock<128, false, E>(a, s);
+  if (C == 128 && final) return launch_resblock<128, true, E>(a, s);
+  if (C == 64 && !final) return launch_resblock<64, false, E>(a, s);
+  if (C == 64 && final) return launch_resblock<64, true, E>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // K3 / K4 (a): one conv, output row t the causal conv at input row
@@ -624,30 +816,20 @@ extern "C" int sopro_seanet_conv_tc(const float* x, const float* whi, const floa
                                     int T_in, int T_out, int res_T, int Cin, int cinp, int N,
                                     int np, int taps, int dil, int elu_in, const int* start,
                                     int start_stride, int max_splits, void* stream) {
-  if (B <= 0 || T_out <= 0 || T_out > T_in || Cin <= 0 || N <= 0 || taps <= 0 || dil <= 0 ||
-      cinp < Cin || cinp % 32 != 0 || np < N || np % kTcBN != 0 || max_splits < 1 ||
-      max_splits > kMaxSplits || (residual != nullptr && res_T < T_out))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const ConvArgs a = {x, whi, wlo, bias, residual, y, start, start_stride, B, T_in, T_out,
-                      res_T, Cin, cinp, N, np, dil, elu_in, 1};
-  // taps * BKC weight rows per ring stage (32, 32, 24, 56 for 1, 2, 3, 7
-  // taps); two blocks per SM where the ring fits in half the shared memory,
-  // so one block's loads and splits overlap the other's MMAs
-  const bool small = T_out < 128;
-  if (taps == 1)
-    return small ? launch_conv_tc<16, 32, 2, 2, 1>(a, max_splits, s)
-                 : launch_conv_tc<64, 32, 2, 2, 1>(a, max_splits, s);
-  if (taps == 2)
-    return small ? launch_conv_tc<16, 16, 2, 2, 2>(a, max_splits, s)
-                 : launch_conv_tc<64, 16, 2, 2, 2>(a, max_splits, s);
-  if (taps == 3)
-    return small ? launch_conv_tc<16, 8, 3, 2, 3>(a, max_splits, s)
-                 : launch_conv_tc<64, 8, 3, 2, 3>(a, max_splits, s);
-  if (taps == 7)
-    return small ? launch_conv_tc<16, 8, 3, 1, 7>(a, max_splits, s)
-                 : launch_conv_tc<64, 8, 3, 1, 7>(a, max_splits, s);
-  return (int)cudaErrorInvalidValue;
+  return conv_tc<float>(x, whi, wlo, bias, residual, y, B, T_in, T_out, res_T, Cin, cinp, N, np,
+                        taps, dil, elu_in, start, start_stride, max_splits, stream);
+}
+
+// The bfloat16 instantiation, the same arguments in bfloat16: whi the
+// weights [taps, cinp, np] themselves (zero-padded as above), wlo unused.
+extern "C" int sopro_seanet_conv_tc_bf16(const __nv_bfloat16* x, const __nv_bfloat16* whi,
+                                         const __nv_bfloat16* wlo, const __nv_bfloat16* bias,
+                                         const __nv_bfloat16* residual, __nv_bfloat16* y, int B,
+                                         int T_in, int T_out, int res_T, int Cin, int cinp, int N,
+                                         int np, int taps, int dil, int elu_in, const int* start,
+                                         int start_stride, int max_splits, void* stream) {
+  return conv_tc<__nv_bfloat16>(x, whi, wlo, bias, residual, y, B, T_in, T_out, res_T, Cin, cinp,
+                                N, np, taps, dil, elu_in, start, start_stride, max_splits, stream);
 }
 
 // K3 / K4 (b): one residual block of C = 128 or 64 channels, k3 conv
@@ -660,12 +842,18 @@ extern "C" int sopro_seanet_resblock(const float* x, const float* w1hi, const fl
                                      const float* b2, const float* wf, const float* bf, float* y,
                                      int B, int T_in, int T_out, int C, int final,
                                      const int* start, int start_stride, void* stream) {
-  if (B <= 0 || T_out <= 0 || T_out > T_in) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const ResArgs a = {x, w1hi, w1lo, b1, w2hi, w2lo, b2, wf, bf, y, start, start_stride, B, T_in, T_out};
-  if (C == 128 && !final) return launch_resblock<128, false>(a, s);
-  if (C == 128 && final) return launch_resblock<128, true>(a, s);
-  if (C == 64 && !final) return launch_resblock<64, false>(a, s);
-  if (C == 64 && final) return launch_resblock<64, true>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return resblock<float>(x, w1hi, w1lo, b1, w2hi, w2lo, b2, wf, bf, y, B, T_in, T_out, C, final,
+                         start, start_stride, stream);
+}
+
+// The bfloat16 instantiation, the same arguments in bfloat16: w1hi / w2hi the
+// weights themselves, w1lo / w2lo unused.
+extern "C" int sopro_seanet_resblock_bf16(
+    const __nv_bfloat16* x, const __nv_bfloat16* w1hi, const __nv_bfloat16* w1lo,
+    const __nv_bfloat16* b1, const __nv_bfloat16* w2hi, const __nv_bfloat16* w2lo,
+    const __nv_bfloat16* b2, const __nv_bfloat16* wf, const __nv_bfloat16* bf, __nv_bfloat16* y,
+    int B, int T_in, int T_out, int C, int final, const int* start, int start_stride,
+    void* stream) {
+  return resblock<__nv_bfloat16>(x, w1hi, w1lo, b1, w2hi, w2lo, b2, wf, bf, y, B, T_in, T_out, C,
+                                 final, start, start_stride, stream);
 }

@@ -16,6 +16,10 @@
 // and the error-compensated products need three MMAs per fragment pair
 // anyway. `wgmma` with TMA-fed, K-major hi/lo tiles is the next step.
 //
+// The bfloat16 instantiations of K2 and K3 take one pass instead of three
+// (`mma1_tile_bf16`): a bfloat16 value is exact in TF32, so one TF32 MMA on
+// bfloat16 operands gives their products exactly, with float32 accumulation.
+//
 // Fragment layout of m16n8k8 (row.col), lane = 4 * g + q:
 //   A (16 x 8):  a0 (g, q)  a1 (g + 8, q)  a2 (g, q + 4)  a3 (g + 8, q + 4)
 //   B (8 x 8):   b0 (k = q, n = g)  b1 (k = q + 4, n = g)
@@ -23,6 +27,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace tf32x3 {
@@ -102,6 +107,57 @@ __device__ __forceinline__ void mma3_tile(float (&acc)[MT][NT][4], const float* 
       for (int nt = 0; nt < NT; ++nt) mma(acc[mt][nt], ah[mt], bh[nt]);
   }
 }
+
+// acc[MT][NT] += A . B in one TF32 pass: A float (TF32-exact values, here
+// bfloat16 ones) row-major with stride lda, at the warp's first row and first
+// k; B bfloat16 bits row-major [k][n] with stride ldb, at the first k and the
+// warp's first column, each widened to its float bits (a bfloat16 is the top
+// half of its float) as the fragment is loaded. With 16-bit B, ldb = 16 mod
+// 64 puts the fragment loads on 32 distinct banks.
+template <int MT, int NT>
+__device__ __forceinline__ void mma1_tile_bf16(float (&acc)[MT][NT][4], const float* __restrict__ a,
+                                               int lda, const unsigned short* __restrict__ b,
+                                               int ldb, int ksteps) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll 2
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int k0 = ks * 8;
+    uint32_t bf[NT][2], af[MT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int o0 = (k0 + q) * ldb + nt * 8 + g, o1 = o0 + 4 * ldb;
+      bf[nt][0] = (uint32_t)b[o0] << 16;
+      bf[nt][1] = (uint32_t)b[o1] << 16;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r0 = (mt * 16 + g) * lda + k0 + q, r1 = r0 + 8 * lda;
+      af[mt][0] = __float_as_uint(a[r0]);
+      af[mt][1] = __float_as_uint(a[r1]);
+      af[mt][2] = __float_as_uint(a[r0 + 4]);
+      af[mt][3] = __float_as_uint(a[r1 + 4]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma(acc[mt][nt], af[mt], bf[nt]);
+  }
+}
+
+// float -> bfloat16 -> float, to nearest even (XLA's convert).
+__device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// A float or bfloat16 element as float, through the read-only cache.
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+
+// float -> the element type (bfloat16: to nearest even).
+template <typename E>
+__device__ __forceinline__ E from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
 
 template <int MT, int NT>
 __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {

@@ -46,10 +46,22 @@ max-length stream back by one frame (the serving tick likewise).
 
 An engine built without a codec (`SoproTTS.from_random(with_codec=False)`)
 runs conditioning, AR decode and NAR refine; its codec calls raise.
+
+The compute dtype (`RuntimeConfig.compute_dtype`, the JAX package's
+policy): under "bfloat16" the engine casts every floating parameter of the
+model and the codec to bfloat16 when it is built (into copies, so the
+caller's model and codec keep their dtype; the small ones too: gates,
+mixes, codebook weights), and `self.dtype` is bfloat16: the AR
+ring buffers, the conditioning, the Mimi stream state and the serving
+state are kept in it, every kernel runs its bfloat16 instantiation, and the
+float32 islands are the modules' own (norms, softmaxes, the sampler). The
+waveform leaves the device as float32 (exact from bfloat16; the packed
+lengths stay exact), int16 PCM when asked for.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, replace
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -104,9 +116,11 @@ def ar_route(device_type: str, *, b: int, resident: bool, eligible: bool, use_st
 
 def configure_cuda_numerics() -> None:
     """Full float32 on the card: TF32 in matmuls or cuDNN convs would break
-    the port's fp32 tolerances."""
+    the port's fp32 tolerances. The bfloat16 products left to `torch.matmul`
+    accumulate in float32, as XLA's do (no reduced-precision reduction)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class Engine:
@@ -116,11 +130,17 @@ class Engine:
         mimi: Optional[MimiCodec],
         runtime: Optional[RuntimeConfig] = None,
     ):
+        self.rt = runtime or RuntimeConfig()
+        self.dtype = torch.bfloat16 if self.rt.compute_dtype == "bfloat16" else torch.float32
+        if self.dtype != torch.float32:
+            # every floating leaf, cast into a copy as the JAX engine casts into new
+            # arrays: the caller's model and codec keep their dtype; the kernel caches rebuild
+            model = copy.deepcopy(model).to(self.dtype)
+            mimi = None if mimi is None else copy.deepcopy(mimi).to(self.dtype)
         self.model = model
         self.cfg: SoproTTSConfig = model.cfg
         self.mimi = mimi
         self.mimi_cfg = mimi.cfg if mimi is not None else None
-        self.rt = runtime or RuntimeConfig()
         self.device = model.device()
         cuda = self.device.type == "cuda"
         if cuda:
@@ -162,7 +182,7 @@ class Engine:
         own limit, not the TPU's VMEM budget of the JAX package: B and the
         step count do not bound it (one cluster per row, the steps loop
         inside the kernel)."""
-        smem = smem_bytes(self.cfg, l)
+        smem = smem_bytes(self.cfg, l, self.dtype)
         return self.use_pallas_resident and smem is not None and smem <= SMEM_PER_BLOCK
 
     def _ar_kv(
@@ -207,7 +227,7 @@ class Engine:
         """[T, Q] tokens -> speaker embedding [sv_dim] (padded to a ref
         bucket, masked)."""
         toks, mask = self._padded([ref_tokens_tq], self.rt.ref_buckets)
-        return self.model.token2sv(toks, mask=mask)[0].cpu().numpy()
+        return self.model.token2sv(toks, mask=mask)[0].float().cpu().numpy()
 
     @torch.inference_mode()
     def prepare_conditioning(
@@ -257,7 +277,7 @@ class Engine:
         mask = torch.arange(tb, device=cond_ar.device)[None, :] < int(t)
         toks = M.nar_refine(self.model, cond_ar[:, :tb], tokens_dev[:, :tb], mask=mask)
         wav = self.codec(toks)
-        wav = (_pcm16(wav) if pcm16 else wav).cpu().numpy()
+        wav = (_pcm16(wav) if pcm16 else wav.float()).cpu().numpy()
         return wav[:, : t * int(self.mimi_cfg.hop_length)]
 
     @torch.inference_mode()
@@ -274,7 +294,7 @@ class Engine:
         t = int(tokens_tq.shape[0])
         toks = _pad_axis(np.asarray(tokens_tq, np.int32), 0, self._frame_bucket(t))[None]
         wav = self.codec(torch.from_numpy(toks).to(self.device))
-        return wav[:, : t * int(self.mimi_cfg.hop_length)].cpu().numpy()
+        return wav[:, : t * int(self.mimi_cfg.hop_length)].float().cpu().numpy()
 
     # -- the batch plan (the fused plan is its B = 1 case) -------------------
 
@@ -290,7 +310,8 @@ class Engine:
             self.model, ids, mask, ref, max_frames=max_frames, style_strength=strength
         )
         ctx = self._ar_kv(prep["txt_seq"], mask, True, s)
-        carry = replace(M.init_ar_carry(self.cfg, ids.shape[0], s, 0, self.device), key=keys)
+        carry = replace(M.init_ar_carry(self.cfg, ids.shape[0], s, 0, self.device, self.dtype),
+                        key=keys)
         carry = M.ar_chunk(carry, prep["cond_ar"], ctx, settings, s)
         lengths = torch.minimum(carry.first_eos, carry.t)
         frame_mask = torch.arange(s, device=self.device)[None, :] < lengths[:, None]
@@ -326,7 +347,7 @@ class Engine:
             ids, mask, ref, float(style_strength), self._row_keys([seed]),
             _settings(top_p, temperature, anti_loop, min_gen), max_frames=max_frames,
         )
-        flat = torch.cat([wav[0], t.float()]).cpu().numpy()
+        flat = torch.cat([wav[0].float(), t.float()]).cpu().numpy()
         t = int(flat[-1])
         return flat[:-1][None, : t * int(self.mimi_cfg.hop_length)], t
 
@@ -354,8 +375,7 @@ class Engine:
             ids, mask, ref_batched, float(style_strength), self._row_keys(seeds),
             _settings(top_p, temperature, anti_loop, min_gen), max_frames=max_frames,
         )
-        if pcm16:
-            wav = _pcm16(wav)
+        wav = _pcm16(wav) if pcm16 else wav.float()
         return torch.cat([wav, lengths[:, None].to(wav.dtype)], dim=1)
 
     def synthesize_batch_read(self, packed: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
@@ -378,7 +398,7 @@ class Engine:
         s = carry.tokens.shape[1]
         valid = torch.minimum(carry.first_eos, carry.t)[:1].float()
         done = (~((carry.t < s) & (carry.stopped == 0)).any()).float()[None]
-        flat = torch.cat([wav[0], valid, done]).cpu().numpy()
+        flat = torch.cat([wav[0].float(), valid, done]).cpu().numpy()
         return flat[:-2][None], int(flat[-2]), bool(flat[-1])
 
     @torch.inference_mode()
@@ -409,14 +429,14 @@ class Engine:
         )
         cond = prep["cond_ar"]
         ctx = self._ar_kv(prep["txt_seq"], mask, True, s)
-        carry = M.init_ar_carry(self.cfg, 1, s, int(seed), self.device)
+        carry = M.init_ar_carry(self.cfg, 1, s, int(seed), self.device, self.dtype)
         carry = M.ar_chunk(carry, cond, ctx, _settings(top_p, temperature, anti_loop, min_gen), cf)
         valid = torch.minimum(carry.first_eos, carry.t)
         frame_mask = torch.arange(cf, device=self.device)[None, :] < valid[:, None]
         toks = M.nar_refine(self.model, cond[:, :cf], carry.tokens[:, :cf], mask=frame_mask)
         codec = self.codec
         wav, mstate = mimi_decode_step(
-            codec.p, codec.cfg, toks, init_mimi_stream_state(codec.cfg, 1, self.device),
+            codec.p, codec.cfg, toks, init_mimi_stream_state(codec.cfg, 1, self.device, self.dtype),
             packed=codec.packed_decoder(),
         )
         return (*self._chunk_out(wav, carry), carry, ctx, cond, mstate)
@@ -470,18 +490,20 @@ class Engine:
         cfg, dev = self.cfg, self.device
         b, s, l, d = int(slots), int(max_frames) + 1, int(text_bucket), int(cfg.d_model)
         a = sum(xp is not None for xp in self.model.ar.p["xattn"])
-        carry = M.init_ar_carry(cfg, b, s, 0, dev)
+        carry = M.init_ar_carry(cfg, b, s, 0, dev, self.dtype)
         carry.stopped.fill_(1)
-        kv = lambda: torch.zeros((a, b, G.TEXT_HEADS, l, d // G.TEXT_HEADS), device=dev)
+        kv = lambda: torch.zeros((a, b, G.TEXT_HEADS, l, d // G.TEXT_HEADS), dtype=self.dtype,
+                                 device=dev)
         f32 = lambda v: torch.full((b,), v, dtype=torch.float32, device=dev)
         i32 = lambda v: torch.full((b,), v, dtype=torch.int32, device=dev)
         st = ServeState(
-            carry=carry, cond=torch.zeros((b, s, d), device=dev), kv_k=kv(), kv_v=kv(),
+            carry=carry, cond=torch.zeros((b, s, d), dtype=self.dtype, device=dev), kv_k=kv(),
+            kv_v=kv(),
             text_mask=torch.ones((b, l), dtype=torch.bool, device=dev),
             rows={"top_p": f32(0.9), "temperature": f32(1.05), "recovery_top_p": f32(0.85),
                   "recovery_temp": f32(1.2), "min_gen": i32(cfg.min_gen_frames),
                   "max_frames": i32(int(max_frames))},
-            mstate=init_mimi_stream_state(self.codec.cfg, b, dev),
+            mstate=init_mimi_stream_state(self.codec.cfg, b, dev, self.dtype),
             emitted=torch.zeros((b,), dtype=torch.int32, device=dev), ctx=None,
         )
         route = ar_route(dev.type, b=b, resident=True, eligible=self.resident_eligible(b, l),

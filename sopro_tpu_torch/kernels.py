@@ -11,9 +11,11 @@ turns into an exception.
 `KERNELS` names the kernels, each counted on its own; `SOURCES` the files
 they are built from (K1 `ar_loop` and K5 `ar_step` share `ar_loop.cu`, K3
 `seanet` and K4 `seanet_chunk` share `seanet.cu`).
-`LAUNCHES` counts, per kernel, the wrapper calls that launched it on the
-device; `reset_launches()` zeroes the counts. `LAUNCH_INFO` keeps what a
-kernel chose at launch time (the AR kernels' cluster size).
+`LAUNCHES` counts, per kernel, the wrapper calls that launched its float32
+instantiation on the device, `LAUNCHES_BF16` those of its bfloat16
+instantiation (`count(name, dtype)`; `LAUNCHES_BY_DTYPE` maps the dtype
+name to the dict); `reset_launches()` zeroes both. `LAUNCH_INFO` keeps
+what a kernel chose at launch time (the AR kernels' cluster size).
 """
 
 from __future__ import annotations
@@ -37,13 +39,22 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES_BF16: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES_BY_DTYPE = {"float32": LAUNCHES, "bfloat16": LAUNCHES_BF16}
 LAUNCH_INFO: Dict[str, dict] = {}  # launch shape a kernel chose at run time
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in LAUNCHES_BY_DTYPE.values():
+        for name in counts:
+            counts[name] = 0
+
+
+def count(name: str, dtype) -> None:
+    """One launch of kernel `name`'s instantiation for `dtype` (a torch
+    dtype): float32 or bfloat16."""
+    LAUNCHES_BY_DTYPE[str(dtype).replace("torch.", "")][name] += 1
 
 
 def _nvcc() -> str:

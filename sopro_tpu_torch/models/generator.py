@@ -8,6 +8,12 @@ Conv state: the port keeps every block's ring buffer in ONE packed tensor
 of the JAX package's fused kernels, `pallas_ar.pack_conv_state`). Each block
 reads only its last (k-1)*dilation+1 entries, so the longer buffer holds
 older history that no tap reads and the step equals the per-block one.
+
+`ar_step` is the plain version of one step of kernels K1 and K5: it
+computes as they do in either dtype (the residual stream in float32, each
+product's input rounded to the weights' dtype with float32 accumulation and
+a float32 bias, `ops.blocks.linear_f32`; the ring buffers in their own
+dtype), which in float32 is the plain float32 step.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import torch.nn.functional as F
 from sopro_tpu_torch.config import SoproTTSConfig
 from sopro_tpu_torch.models.base import ParamModule
 from sopro_tpu_torch.ops.attention import build_kv_cache, text_xattn
-from sopro_tpu_torch.ops.blocks import linear, rmsnorm, ssmlite, ssmlite_step
+from sopro_tpu_torch.ops.blocks import linear, linear_f32, rmsnorm, ssmlite, ssmlite_step
 
 Params = Dict
 TEXT_HEADS = 4
@@ -65,17 +71,21 @@ def ar_step(
     bufs: torch.Tensor,
     kv_caches: List[Optional[Dict]],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decode step over [B, D] -> (logits [B, V+1], new packed bufs)."""
+    """One decode step over [B, D] -> (logits float32 [B, V+1], new packed
+    bufs in bufs' dtype), as kernels K1 and K5 compute it: h = x in float32
+    through every block (`ssmlite_step`), every product through
+    `linear_f32`; the text attention's softmax in float32 over the KV, the
+    gate tanh(gate) in float32."""
     dils = cfg.ar_dilations()
-    h = x_bd
+    h = x_bd.float()
     new_bufs = []
     for i, bp in enumerate(p["blocks"]):
         h, buf = ssmlite_step(bp, h, bufs[i], kernel_size=cfg.ar_kernel, dilation=dils[i])
         new_bufs.append(buf)
         if p["xattn"][i] is not None and kv_caches[i] is not None:
-            h = text_xattn(p["xattn"][i], h[:, None, :], kv_caches[i], heads=TEXT_HEADS)[:, 0]
-    h = rmsnorm(p["norm"], h)
-    return linear(p["head"], h), torch.stack(new_bufs)
+            h = text_xattn(p["xattn"][i], h[:, None, :], kv_caches[i], heads=TEXT_HEADS,
+                           mm=linear_f32)[:, 0]
+    return linear_f32(p["head"], rmsnorm(p["norm"], h)), torch.stack(new_bufs)
 
 
 def ar_forward(

@@ -152,7 +152,7 @@ class ARCarry:
     """Per-row decode state (rows advance and stop independently)."""
 
     t: torch.Tensor  # [B] int32: next step index
-    bufs: torch.Tensor  # [N, B, CTX, D] packed conv ring buffers
+    bufs: torch.Tensor  # [N, B, CTX, D] packed conv ring buffers, in the weights' dtype
     hist: torch.Tensor  # [B, 50] int32 rolling history
     streak: torch.Tensor  # [B] int32 consecutive-repeat count
     last: torch.Tensor  # [B] int32 previous token
@@ -191,13 +191,14 @@ class ARSettings:
 
 
 def init_ar_carry(
-    cfg: SoproTTSConfig, batch: int, max_steps: int, seed: int, device
+    cfg: SoproTTSConfig, batch: int, max_steps: int, seed: int, device, dtype=torch.float32
 ) -> ARCarry:
-    """Fresh state; row keys are `jax.random.split(PRNGKey(seed), batch)`."""
+    """Fresh state; row keys are `jax.random.split(PRNGKey(seed), batch)`;
+    the ring buffers in `dtype` (the weights')."""
     i32 = dict(dtype=torch.int32, device=device)
     return ARCarry(
         t=torch.zeros(batch, **i32),
-        bufs=G.init_ar_conv_state(cfg, batch, device),
+        bufs=G.init_ar_conv_state(cfg, batch, device, dtype),
         hist=S.init_history(batch, device),
         streak=torch.zeros(batch, **i32),
         last=torch.zeros(batch, **i32),
@@ -335,7 +336,7 @@ def ar_generate(
     loop (with early exit once every row stopped) on the CPU."""
     if ctx is None:
         ctx = ar_context(m, txt_seq, text_mask)
-    carry = init_ar_carry(m.cfg, cond_ar.shape[0], max_steps, seed, cond_ar.device)
+    carry = init_ar_carry(m.cfg, cond_ar.shape[0], max_steps, seed, cond_ar.device, cond_ar.dtype)
     return ar_chunk(carry, cond_ar, ctx, settings, max_steps)
 
 

@@ -54,8 +54,8 @@ def speaker_film(
     x = layernorm(p["norm"], base_btd)
     if isinstance(strength, torch.Tensor):
         s = strength.to(device=x.device, dtype=x.dtype)[:, None, None]
-    else:
-        s = float(strength)
+    else:  # rounded to x's dtype, as the JAX package's `jnp.asarray(strength, x.dtype)`
+        s = float(torch.tensor(float(strength), dtype=x.dtype))
     return x * (1 + s * torch.tanh(gamma)[:, None, :]) + s * torch.tanh(beta)[:, None, :]
 
 

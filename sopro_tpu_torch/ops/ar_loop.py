@@ -10,10 +10,17 @@ PyTorch ops with the semantics of the JAX package's `ar_single_step`.
 in its logits-only mode) shares its sampler and per-row freeze.
 
 State: {t, last, streak, stopped, first_eos: int32 [B]; key: int64 [B, 2]
-holding uint32 words; hist: int32 [B, HIST_LEN]; bufs: f32 [N, B, CTX, D]}.
-Settings: {top_p, temperature, recovery_top_p, recovery_temp: f32 [B];
-min_gen: int32 [B]}. Returns (tokens int32 [B, n_steps], new state); a
-column past a row's stop holds 0.
+holding uint32 words; hist: int32 [B, HIST_LEN]; bufs: [N, B, CTX, D] in the
+weights' dtype}. Settings: {top_p, temperature, recovery_top_p,
+recovery_temp: f32 [B]; min_gen: int32 [B]}. Returns (tokens int32 [B,
+n_steps], new state); a column past a row's stop holds 0.
+
+The weights, the conditioning, the previous-token table, the text KV and
+the ring buffers are float32, or all bfloat16 under the bf16 compute
+policy: bfloat16 CUDA tensors launch the kernels' bfloat16 instantiations
+(`sopro_ar_loop_bf16`, `sopro_ar_step_bf16`), whose weight stream is
+packed in bfloat16; the plain step (`models/generator.py::ar_step`) rounds
+where they do. The logits and the sampler stay float32.
 """
 
 from __future__ import annotations
@@ -157,36 +164,48 @@ MAX_LAYERS = 16
 THREADS = 512  # kThreads in csrc/ar_loop.cu
 RING, STAGE = 3, 8192  # kRing, kStage: the weight ring's stages, floats per stage
 SMEM_PER_BLOCK = 232448  # 227 KB: the most shared memory a Hopper block can have
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _layout(cfg: SoproTTSConfig, cs: int) -> Tuple[int, int, int]:
-    """(cw, fw, vw): channels, FFN columns and logits of one rank."""
+def _esize(dtype) -> int:
+    """Bytes per element of the weight stream (4 or 2)."""
+    if dtype not in STREAM_DTYPES:
+        raise ValueError(f"the AR kernels take float32 or bfloat16 weights, not {dtype}")
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def _layout(cfg: SoproTTSConfig, cs: int, dtype=torch.float32) -> Tuple[int, int, int]:
+    """(cw, fw, vw): channels, FFN columns and logits of one rank (vw a
+    multiple of 16 bytes of `dtype`)."""
     d, v = int(cfg.d_model), int(cfg.ar_vocab)
     vp = v + (-v) % 4
-    return d // cs, 4 * d // cs, ((vp + cs - 1) // cs + 3) // 4 * 4
+    align = 16 // _esize(dtype)
+    return d // cs, 4 * d // cs, ((vp + cs - 1) // cs + align - 1) // align * align
 
 
-def _qualifies(cfg: SoproTTSConfig, cs: int) -> bool:
+def _qualifies(cfg: SoproTTSConfig, cs: int, dtype=torch.float32) -> bool:
     """csrc/ar_loop.cu `configure`: cs divides D, the conv products fit the
-    partial-sum buffer, every stream slice is a multiple of 4 floats wide and
+    partial-sum buffer, every stream slice is a multiple of 16 bytes wide and
     fits a ring stage and the gemv's threads, and a buffer idle during the
     sampler holds the penalized logits."""
     d, k, v = int(cfg.d_model), int(cfg.ar_kernel), int(cfg.ar_vocab)
     if d % cs:
         return False
-    cw, fw, vw = _layout(cfg, cs)
-    return (cw * k <= 4 * THREADS and not (cw | fw | vw | d) & 3
-            and max(d, fw, vw) <= min(STAGE, 4 * THREADS) and (cs * d >= v or v <= 4 * THREADS))
+    cw, fw, vw = _layout(cfg, cs, dtype)
+    esize = _esize(dtype)
+    return (cw * k <= 4 * THREADS and not (cw | fw | vw | d) & (16 // esize - 1)
+            and max(d, fw, vw) <= min(STAGE * 4 // esize, 4 * THREADS)
+            and (cs * d >= v or v <= 4 * THREADS))
 
 
-def stream_slices(cfg: SoproTTSConfig, cs: int) -> List[Tuple[str, int, int, int]]:
+def stream_slices(cfg: SoproTTSConfig, cs: int, dtype=torch.float32) -> List[Tuple[str, int, int, int]]:
     """(name, layer or attention index, rows, width) of the weight slices a
     rank reads in one step, in order (csrc/ar_loop.cu `stream_schedule`):
     per layer its GLU columns (a then b), ff1 columns and ff2 rows, after
     every freq-th layer its x_q columns and x_out rows; then its head
     columns (zero past Vp)."""
     d, n, freq = int(cfg.d_model), int(cfg.n_layers_ar), int(cfg.ar_text_attn_freq)
-    cw, fw, vw = _layout(cfg, cs)
+    cw, fw, vw = _layout(cfg, cs, dtype)
     out = []
     for li in range(n):
         out += [("glu_w", li, d, 2 * cw), ("ff1_w", li, d, fw), ("ff2_w", li, fw, d)]
@@ -195,12 +214,16 @@ def stream_slices(cfg: SoproTTSConfig, cs: int) -> List[Tuple[str, int, int, int
     return out + [("head_w", 0, d, vw)]
 
 
-def stream_schedule(cfg: SoproTTSConfig, cs: int) -> Tuple[List[Tuple[int, int]], int]:
-    """([(offset, floats)] per ring chunk of a step, floats per rank): each
-    slice in chunks of STAGE // width whole rows."""
+def stream_schedule(
+    cfg: SoproTTSConfig, cs: int, dtype=torch.float32
+) -> Tuple[List[Tuple[int, int]], int]:
+    """([(offset, elements)] per ring chunk of a step, elements per rank):
+    each slice in chunks of whole rows that fill at most one 32 KB stage
+    (STAGE floats, twice as many bfloat16 elements)."""
     chunks, off = [], 0
-    for _, _, rows, width in stream_slices(cfg, cs):
-        rpc = STAGE // width
+    stage = STAGE * 4 // _esize(dtype)
+    for _, _, rows, width in stream_slices(cfg, cs, dtype):
+        rpc = stage // width
         for r0 in range(0, rows, rpc):
             n = min(rpc, rows - r0) * width
             chunks.append((off, n))
@@ -210,7 +233,7 @@ def stream_schedule(cfg: SoproTTSConfig, cs: int) -> Tuple[List[Tuple[int, int]]
 
 def _rank_slice(w: Dict[str, torch.Tensor], name: str, i: int, r: int, cfg, cs: int):
     d = int(cfg.d_model)
-    cw, fw, vw = _layout(cfg, cs)
+    cw, fw, vw = _layout(cfg, cs, w["head_w"].dtype)
     c0, f0 = r * cw, r * fw
     if name == "glu_w":
         return torch.cat([w[name][i][:, c0:c0 + cw], w[name][i][:, d + c0:d + c0 + cw]], 1)
@@ -230,31 +253,31 @@ def _rank_slice(w: Dict[str, torch.Tensor], name: str, i: int, r: int, cfg, cs: 
 
 def pack_ar_stream(w: Dict[str, torch.Tensor], cfg: SoproTTSConfig, cs: int) -> Dict:
     """The stacked weights (`ARGenerator.stacked()`) as K1/K5 stream them at
-    cluster size cs: {"w": [cs, len] float32, rank r's slices back to back
-    in `stream_slices` order, row-major; "len"; "cs"}."""
-    slices = stream_slices(cfg, cs)
+    cluster size cs: {"w": [cs, len] in the weights' dtype, rank r's slices
+    back to back in `stream_slices` order, row-major; "len"; "cs"}."""
+    slices = stream_slices(cfg, cs, w["head_w"].dtype)
     ranks = [torch.cat([_rank_slice(w, name, i, r, cfg, cs).reshape(-1)
                         for name, i, _, _ in slices]) for r in range(cs)]
     return {"w": torch.stack(ranks).contiguous(), "len": int(ranks[0].numel()), "cs": cs}
 
 
-def smem_bytes(cfg: SoproTTSConfig, text_len: int) -> Optional[int]:
+def smem_bytes(cfg: SoproTTSConfig, text_len: int, dtype=torch.float32) -> Optional[int]:
     """Shared memory per block that csrc/ar_loop.cu asks for at text length
-    `text_len`: a host mirror of its `smem_floats` / `smem_ints` at the
-    first cluster size its launch tries (16, 8, ... that `_qualifies`).
-    None when no cluster size qualifies. K1 and K5 take the same amount; the
-    batch size and step count do not enter (one cluster per row, the steps
-    loop inside)."""
+    `text_len` for weights of `dtype`: a host mirror of its `smem_floats` /
+    `smem_ints` at the first cluster size its launch tries (16, 8, ... that
+    `_qualifies`). None when no cluster size qualifies. K1 and K5 take the
+    same amount; the batch size and step count do not enter (one cluster per
+    row, the steps loop inside)."""
     d, n, k, v = int(cfg.d_model), int(cfg.n_layers_ar), int(cfg.ar_kernel), int(cfg.ar_vocab)
     ctx = conv_ctx(cfg)
     for cs in (16, 8, 4, 2, 1):
-        if not _qualifies(cfg, cs):
+        if not _qualifies(cfg, cs, dtype):
             continue
-        cw, fw, vw = _layout(cfg, cs)
+        cw, fw, vw = _layout(cfg, cs, dtype)
         mine = n * (ctx + 3 + k) * cw + n * fw
         floats = (32 + RING * STAGE + 7 * d + max(fw, vw) + cs * d + int(text_len) + 2 * v
                   + 4 * THREADS + mine + 64)
-        ints = v + S.HIST_LEN + 64 + 16 + 2 * len(stream_schedule(cfg, cs)[0])
+        ints = v + S.HIST_LEN + 64 + 16 + 2 * len(stream_schedule(cfg, cs, dtype)[0])
         return 4 * (floats + ints)
     return None
 
@@ -303,7 +326,8 @@ def block_args(
 ) -> _Args:
     """The fields K1 and K5 share, checked: sizes, dilations, the stacked
     weights, the text KV [A, B, H, L, hd], the int32 mask [B, L] and the
-    ring buffers [N, B, CTX, D] going in."""
+    ring buffers [N, B, CTX, D] going in, all in the weights' dtype
+    (float32 or bfloat16)."""
     dev = bufs.device
     n, b, ctx_len, d = (int(x) for x in bufs.shape)
     k, v, freq = int(cfg.ar_kernel), int(cfg.ar_vocab), int(cfg.ar_text_attn_freq)
@@ -315,7 +339,8 @@ def block_args(
         raise ValueError(f"{kernel}: unsupported layer/attention layout")
     if ctx_len < conv_ctx(cfg):
         raise ValueError(f"{kernel}: conv buffer shorter than the receptive field")
-    f32 = torch.float32
+    f32 = w["head_w"].dtype
+    _esize(f32)
     checks = [
         (kv_k, "kv_k", f32, (a_n, b, TEXT_HEADS, l_txt, hd)),
         (kv_v, "kv_v", f32, (a_n, b, TEXT_HEADS, l_txt, hd)),
@@ -356,36 +381,50 @@ _ARGTYPES = {
     "sopro_ar_loop": [ctypes.POINTER(_Args), ctypes.c_void_p],
     "sopro_ar_step": [ctypes.POINTER(_Args), ctypes.c_void_p],
 }
+_ARGTYPES.update({
+    "sopro_ar_loop_bf16": _ARGTYPES["sopro_ar_loop"], "sopro_ar_step_bf16": _ARGTYPES["sopro_ar_step"],
+})
 _CLUSTER: Dict[tuple, int] = {}
 
 
-def cluster_size(args: _Args, logits_only: bool) -> int:
-    """The cluster size csrc/ar_loop.cu takes for these shapes (asked once
-    per library and shape): the weight stream is packed for it."""
+def _mode(logits_only: bool, dtype) -> int:
+    """csrc/ar_loop.cu's `mode`: bit 0 K5, bit 1 the bfloat16 instantiation."""
+    return int(logits_only) | (2 if dtype == torch.bfloat16 else 0)
+
+
+def cluster_size(args: _Args, logits_only: bool, dtype=torch.float32) -> int:
+    """The cluster size csrc/ar_loop.cu takes for these shapes and weight
+    dtype (asked once per library and shape): the weight stream is packed
+    for it."""
     lib = kernels.lib("ar_loop")
-    key = (id(lib), logits_only) + tuple(getattr(args, f) for f in
-                                         ("L", "D", "N", "K", "CTX", "H", "V", "freq", "hist_len"))
+    mode = _mode(logits_only, dtype)
+    key = (id(lib), mode) + tuple(getattr(args, f) for f in
+                                  ("L", "D", "N", "K", "CTX", "H", "V", "freq", "hist_len"))
     if key not in _CLUSTER:
         cs = ctypes.c_int(0)
         fn = kernels.entry("ar_loop", "sopro_ar_cluster", _ARGTYPES["sopro_ar_cluster"])
-        kernels.check(fn(ctypes.byref(args), int(logits_only), ctypes.byref(cs)), "ar_loop cluster")
+        kernels.check(fn(ctypes.byref(args), mode, ctypes.byref(cs)), "ar_loop cluster")
         _CLUSTER[key] = cs.value
     return _CLUSTER[key]
 
 
-def launch(kernel: str, entry: str, args: _Args, device, stream) -> None:
-    """Call C entry point `entry` of csrc/ar_loop.cu on the current stream
-    with the weight stream packed for its cluster size (`stream(cs)`,
+def launch(kernel: str, entry: str, args: _Args, device, stream, dtype=torch.float32) -> None:
+    """Call C entry point `entry` of csrc/ar_loop.cu (its `_bf16`
+    instantiation for bfloat16 weights) on the current stream with the
+    weight stream packed for its cluster size (`stream(cs)`,
     `ARGenerator.stream`), raise on a refused launch, count it under
-    `kernel`."""
+    `kernel` and `dtype`."""
     if stream is None:
         raise ValueError(f"{kernel}: the context carries no weight stream (built on the CPU?)")
-    cs = cluster_size(args, entry == "sopro_ar_step")
+    cs = cluster_size(args, entry == "sopro_ar_step", dtype)
     pack = stream(cs)
+    if pack["w"].dtype != dtype:
+        raise ValueError(f"{kernel}: the weight stream is {pack['w'].dtype}, the weights {dtype}")
     args.wstream, args.stream_len, args.cs = pack["w"].data_ptr(), pack["len"], cs
-    fn = kernels.entry("ar_loop", entry, _ARGTYPES[entry])
+    name = entry + ("_bf16" if dtype == torch.bfloat16 else "")
+    fn = kernels.entry("ar_loop", name, _ARGTYPES[name])
     kernels.check(fn(ctypes.byref(args), kernels.stream_ptr(device)), kernel)
-    kernels.LAUNCHES[kernel] += 1
+    kernels.count(kernel, dtype)
     kernels.LAUNCH_INFO[kernel] = {"cluster_blocks_per_row": cs}
 
 
@@ -404,8 +443,8 @@ def _loop_args(ctx, cond, state, settings, n_steps, anti_loop):
     mask = ctx.mask.to(torch.int32).contiguous()
     args = block_args("ar_loop", ctx.cfg, ctx.stacked, kv_k, kv_v, mask, state["bufs"])
 
-    i32, f32 = torch.int32, torch.float32
-    checks = [(cond, "cond", f32, (b, s_max, d)), (ctx.emb, "emb", f32, (v + 1, d))]
+    i32, f32, wdt = torch.int32, torch.float32, ctx.stacked["head_w"].dtype
+    checks = [(cond, "cond", wdt, (b, s_max, d)), (ctx.emb, "emb", wdt, (v + 1, d))]
     for name in ("t", "last", "streak", "stopped", "first_eos"):
         checks.append((state[name], name, i32, (b,)))
     checks += [
@@ -440,7 +479,7 @@ def _loop_args(ctx, cond, state, settings, n_steps, anti_loop):
 
 def _ar_loop_cuda(ctx, cond, state, settings, n_steps, anti_loop):
     args, tokens, out, _keep = _loop_args(ctx, cond, state, settings, n_steps, anti_loop)
-    launch("ar_loop", "sopro_ar_loop", args, cond.device, ctx.stream)
+    launch("ar_loop", "sopro_ar_loop", args, cond.device, ctx.stream, cond.dtype)
     return tokens, out
 
 
@@ -449,8 +488,9 @@ def active_clusters(ctx: ARLoopContext, cond, state, settings) -> Tuple[int, int
     these shapes (`cudaOccupancyMaxActiveClusters`): a cluster must fit in
     one GPC, so rows past the count run in later waves. Launches nothing."""
     args, _, _, _keep = _loop_args(ctx, cond, state, settings, 1, True)
-    cs = cluster_size(args, False)
+    cs = cluster_size(args, False, cond.dtype)
     args.cs, n = cs, ctypes.c_int(0)
     fn = kernels.entry("ar_loop", "sopro_ar_active_clusters", _ARGTYPES["sopro_ar_active_clusters"])
-    kernels.check(fn(ctypes.byref(args), 0, ctypes.byref(n)), "ar_loop active clusters")
+    kernels.check(fn(ctypes.byref(args), _mode(False, cond.dtype), ctypes.byref(n)),
+                  "ar_loop active clusters")
     return cs, n.value

@@ -9,8 +9,10 @@ RMSNorm and the head. CUDA tensors launch `sopro_ar_step` of
 take `ar_step_plain`, the generator's plain step (`models/generator.py`).
 The caller samples between steps (`ops/ar_loop.py::ar_loop_step`).
 
-x: f32 [B, D]; bufs: f32 [N, B, CTX, D] oldest-first. Returns (logits f32
-[B, V], bufs shifted by one: oldest dropped, the new GLU output last).
+x: [B, D] and bufs: [N, B, CTX, D] oldest-first, in the weights' dtype
+(float32, or bfloat16: the kernel's bfloat16 instantiation). Returns
+(logits f32 [B, V], bufs shifted by one: oldest dropped, the new GLU output
+last).
 """
 
 from __future__ import annotations
@@ -72,10 +74,10 @@ def _ar_step_cuda(ctx, x, bufs):
     b, d = x.shape
     mask = ctx.mask.to(torch.int32).contiguous()
     args = block_args("ar_step", ctx.cfg, ctx.stacked, ctx.kv_k, ctx.kv_v, mask, bufs)
-    need("ar_step", x, "x", torch.float32, (b, d), bufs.device)
+    need("ar_step", x, "x", bufs.dtype, (b, d), bufs.device)
     logits = torch.empty((b, int(ctx.cfg.ar_vocab)), dtype=torch.float32, device=x.device)
     bufs_out = torch.empty_like(bufs)
     args.S = args.n_steps = 1
     args.x_in, args.logits, args.bufs_out = x.data_ptr(), logits.data_ptr(), bufs_out.data_ptr()
-    launch("ar_step", "sopro_ar_step", args, x.device, ctx.stream)
+    launch("ar_step", "sopro_ar_step", args, x.device, ctx.stream, bufs.dtype)
     return logits, bufs_out

@@ -13,7 +13,7 @@ from typing import Dict, Optional
 
 import torch
 
-from sopro_tpu_torch.ops.blocks import Params, rmsnorm
+from sopro_tpu_torch.ops.blocks import Params, linear, rmsnorm
 
 
 def _to_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -67,12 +67,13 @@ def text_xattn(
     kv: Dict[str, Optional[torch.Tensor]],
     *,
     heads: int = 4,
+    mm=linear,
 ) -> torch.Tensor:
-    """Text cross-attention with tanh-gated residual."""
-    q = _to_heads(rmsnorm(p["nq"], x) @ p["q"]["w"], heads)
+    """Text cross-attention with tanh-gated residual; `mm` computes the
+    products, the gate's tanh is taken in float32."""
+    q = _to_heads(mm(p["q"], rmsnorm(p["nq"], x)), heads)
     a = _from_heads(_attend_fp32(q, kv["k"], kv["v"], kv["mask"])).to(x.dtype)
-    a = a @ p["out"]["w"]
-    return x + torch.tanh(p["gate"]).to(x.dtype) * a
+    return x + torch.tanh(p["gate"].float()).to(x.dtype) * mm(p["out"], a)
 
 
 def _rms_per_token(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -29,6 +29,18 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def linear_f32(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ w (+ b) as the AR kernels K1 and K5 compute it (the TPU kernels'
+    `mm`): x rounded to the weights' dtype, the product accumulated in
+    float32, the bias added in float32; float32 out. On float32 inputs and
+    weights this is `linear`."""
+    w = p["w"]
+    y = x.to(w.dtype).float() @ w.float()
+    if "b" in p:
+        y = y + p["b"].float()
+    return y
+
+
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
@@ -45,9 +57,9 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def glu(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """a * sigmoid(b) gating."""
-    a, b = torch.chunk(linear(p["pro"], x), 2, dim=-1)
+def glu(p: Params, x: torch.Tensor, mm=linear) -> torch.Tensor:
+    """a * sigmoid(b) gating; `mm` computes the product."""
+    a, b = torch.chunk(mm(p["pro"], x), 2, dim=-1)
     return a * torch.sigmoid(b)
 
 
@@ -86,21 +98,22 @@ def dwconv1d_step(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One causal step. x_bd [B, D]; buf [B, ctx, D] oldest-first with
     ctx >= (k-1)*dilation+1 (a longer buffer only holds older history the
-    taps never read). Returns (y [B, D], the shifted buffer)."""
+    taps never read). x joins the buffer in the buffer's dtype, and the
+    taps are summed in float32. Returns (y float32 [B, D], the shifted
+    buffer)."""
     k, d = int(kernel_size), int(dilation)
-    buf = torch.cat([buf[:, 1:], x_bd[:, None, :]], dim=1)
+    buf = torch.cat([buf[:, 1:], x_bd.to(buf.dtype)[:, None, :]], dim=1)
     span = dwconv_ctx_len(k, d)
     taps = buf[:, buf.shape[1] - span :: d, :]  # [B, k, D] oldest-first
-    w = p["w"].reshape(k, -1).to(x_bd.dtype)  # [k, D]
-    y = torch.einsum("bkd,kd->bd", taps, w)
+    y = torch.einsum("bkd,kd->bd", taps.float(), p["w"].reshape(k, -1).float())
     if "b" in p:
-        y = y + p["b"].to(y.dtype)
+        y = y + p["b"].float()
     return y, buf
 
 
-def _ssmlite_ff(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _ssmlite_ff(p: Params, x: torch.Tensor, mm=linear) -> torch.Tensor:
     h = rmsnorm(p["ff_norm"], x)
-    return linear(p["ff2"], gelu(linear(p["ff1"], h)))
+    return mm(p["ff2"], gelu(mm(p["ff1"], h)))
 
 
 def ssmlite(
@@ -130,11 +143,16 @@ def ssmlite_step(
     kernel_size: int,
     dilation: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One causal step over [B, D]."""
-    h = glu(p["glu"], rmsnorm(p["norm"], x_bd))
+    """One causal step over [B, D] as kernels K1 and K5 compute it in either
+    dtype: x in float32, every product through `linear_f32`, the GLU output
+    stored in the ring buffer's dtype and the depthwise conv summed in
+    float32 over it. On float32 weights and buffer this is the plain step.
+    Returns (float32 [B, D], the shifted buffer)."""
+    x = x_bd.float()
+    h = glu(p["glu"], rmsnorm(p["norm"], x), mm=linear_f32)
     y, buf = dwconv1d_step(p["dw"], h, buf, kernel_size=kernel_size, dilation=dilation)
-    x = x_bd + y
-    return x + _ssmlite_ff(p, x), buf
+    x = x + y
+    return x + _ssmlite_ff(p, x, mm=linear_f32), buf
 
 
 def attentive_stats_pool(

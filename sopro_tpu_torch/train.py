@@ -156,7 +156,13 @@ def fill_missing_grads(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
 def make_train_step(model: M.SoproModel, optimizer: torch.optim.Optimizer):
     """-> step(batch) -> metrics (detached scalars): one forward and
     backward over `batch`, one optimizer step, then the model's kernel-side
-    caches are dropped."""
+    caches are dropped. The model must be float32: the JAX training graph
+    has no dtype policy (a model an Engine cast to bfloat16 raises
+    ValueError)."""
+    low = sorted({str(p.dtype) for p in model.parameters() if p.dtype != torch.float32})
+    if low:
+        raise ValueError(f"make_train_step: the model has {low} parameters; training runs in "
+                         "float32 only (the JAX training graph has no dtype policy)")
 
     def step(batch: TrainBatch) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=False)

@@ -49,11 +49,13 @@ def sopro_params_from_jax(tree: Tree, cfg: SoproTTSConfig, device) -> SoproModel
 
 def sopro_tree(model: SoproModel) -> Tree:
     """The model's parameter tree (the layout `sopro_params_from_jax`
-    takes) as numpy arrays on the host."""
+    takes) as numpy arrays on the host; bfloat16 leaves widen (exactly) to
+    float32."""
     tree = dict(model.shared.p)
     for name in ("text_enc", "token2sv", "spk_film", "ar", "nar"):
         tree[name] = getattr(model, name).p
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    widen = lambda t: t.float() if t.dtype == torch.bfloat16 else t
+    return tree_map(lambda t: widen(t.detach()).cpu().numpy(), tree)
 
 
 def mimi_params_from_jax(tree: Tree, cfg: MimiConfig, device) -> MimiCodec:

@@ -11,7 +11,8 @@ It also holds the small configurations and the training batch the other
 test_torch_* files share.
 Tolerances on the card: ids and tokens exact (argmax and sampler decisions
 away from near-ties), waveforms within 1e-4 of their peak (fp32, summation
-order differs from cuBLAS/cuDNN).
+order differs from cuBLAS/cuDNN). The bfloat16 instantiations are held
+against their bfloat16 plain versions at the bars stated above their tests.
 """
 
 import numpy as np
@@ -661,3 +662,221 @@ def test_weights_changed_rebuilds_the_kernel_packs(cuda):
     assert kernels.LAUNCHES["ar_loop"] > 0 and kernels.LAUNCHES["nar_heads"] > 0, kernels.LAUNCHES
     fresh = W.sopro_params_from_jax(W.sopro_tree(model), model.cfg, cuda)
     np.testing.assert_array_equal(got, tts_of(fresh).synthesize("after the step", **kw))
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 instantiations (RuntimeConfig(compute_dtype="bfloat16"))
+# ---------------------------------------------------------------------------
+# Tolerances: each kernel rounds to bfloat16 at the points its plain version
+# rounds, but sums in another order, so a value can land one bfloat16 step
+# (2^-8 relative) away and carry that on: waveforms and logits within 1e-2
+# of their peak, ids equal away from a 1e-4 top-2 margin, AR tokens equal up
+# to the first step where the plain run's penalized top-2 margin is within
+# 1e-2 of its peak logit (`chip_smoke.first_divergence`).
+
+BF16_TOL = 1e-2
+
+
+def _bf16(tree):
+    from sopro_tpu_torch.models.base import tree_map
+
+    return tree_map(lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t, tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,h,hd,v", [(37, 3, 64, 256), (401, 16, 256, 2048)])
+def test_nar_heads_bf16_kernel_matches_plain(cuda, rows, h, hd, v):
+    """K2's bfloat16 instantiation (one TF32 pass on bfloat16 operands)
+    against its plain version: ids equal wherever the float64 top-2 margin
+    of the rounded z + hid exceeds 1e-4; an exact tie goes to the lowest
+    index; the bfloat16 counter counts the launch."""
+    from sopro_tpu_torch.ops.nar_heads import (
+        nar_heads_argmax, nar_heads_argmax_plain, pack_nar_heads,
+    )
+
+    g = torch.Generator().manual_seed(rows)
+    z, hid = torch.randn(1, rows, hd, generator=g), torch.randn(h, hd, generator=g) * 0.1
+    w = torch.randn(h, hd, v, generator=g) * 0.05
+    bias = torch.randn(h, v, generator=g) * 0.05
+    w[0, :, v - 3] = w[0, :, 5]
+    bias[0, 5] = bias[0, v - 3] = 30.0
+    z, hid, w, bias = (x.to(cuda, torch.bfloat16) for x in (z, hid, w, bias))
+    kernels.reset_launches()
+    got = nar_heads_argmax(z, hid, w, bias, pack_nar_heads(w))
+    assert kernels.LAUNCHES_BF16["nar_heads"] == 1 and kernels.LAUNCHES["nar_heads"] == 0
+    want = nar_heads_argmax_plain(z, hid, w, bias)
+    zh = (z[:, :, None] + hid[None, None]).double()
+    logits = torch.einsum("bthd,hdv->bthv", zh, w.double()) + bias.double()[None, None]
+    top2 = torch.topk(logits, 2, dim=-1).values
+    assert not bool(((got != want) & (top2[..., 0] - top2[..., 1] > 1e-4)).any())
+    assert bool((got[..., 0] == 5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,t", [("small", 13), ("full", 100)])
+def test_seanet_bf16_kernel_matches_plain(cuda, width, t):
+    """K3's bfloat16 instantiation (the conv kernel, and at full width the
+    fused residual blocks of the 128- and 64-channel stages) against the
+    bfloat16 plain version: a bfloat16 waveform within 1e-2 of its peak."""
+    from sopro_tpu_torch.codec.mimi import seanet_apply
+    from sopro_tpu_torch.codec.mimi_config import decoder_plan
+    from sopro_tpu_torch.codec.vocoder import pack_seanet_decoder, seanet_decode
+
+    mcfg = MimiConfig(**SMALL_MIMI) if width == "small" else MimiConfig()
+    mtree = W.init_mimi_params(3, mcfg)
+    W.fill_zero_inits(None, mtree, 4)
+    dec = _bf16(W.to_torch(mtree["decoder"], cuda))
+    emb = torch.randn(2, t, mcfg.hidden_size, generator=torch.Generator().manual_seed(1))
+    emb = emb.to(cuda, torch.bfloat16)
+    kernels.reset_launches()
+    got = seanet_decode(pack_seanet_decoder(dec, mcfg), mcfg, emb)
+    assert kernels.LAUNCHES_BF16["seanet"] == 1 and kernels.LAUNCHES["seanet"] == 0
+    want = seanet_apply(dec, decoder_plan(mcfg), emb)[..., 0]
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    peak = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= BF16_TOL * peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,b,m25,hist", [("small", 2, 4, (0, 6)), ("full", 2, 12, (3, 40))])
+def test_seanet_chunk_bf16_kernel_matches_plain(cuda, width, b, m25, hist):
+    """K4's bfloat16 instantiation (valid mode over [halo ++ chunk], rows
+    with partial histories) against its bfloat16 plain version: within 1e-2
+    of peak, and a repeated call bit-identical."""
+    from sopro_tpu_torch.codec.mimi_config import required_halo
+    from sopro_tpu_torch.codec.vocoder import (
+        pack_seanet_decoder, seanet_decode_chunk, seanet_decode_chunk_plain,
+    )
+
+    mcfg = MimiConfig(**SMALL_MIMI) if width == "small" else MimiConfig()
+    mtree = W.init_mimi_params(3, mcfg)
+    W.fill_zero_inits(None, mtree, 4)
+    dec = _bf16(W.to_torch(mtree["decoder"], cuda))
+    packed = pack_seanet_decoder(dec, mcfg)
+    g = torch.Generator().manual_seed(b * 100 + m25)
+    ext = torch.randn(b, required_halo(mcfg) + m25, mcfg.hidden_size, generator=g)
+    ext = ext.to(cuda, torch.bfloat16)
+    n_hist = torch.tensor(hist, dtype=torch.int32, device=cuda)
+    got = seanet_decode_chunk(packed, mcfg, ext, n_hist)
+    assert torch.equal(got, seanet_decode_chunk(packed, mcfg, ext, n_hist))
+    want = seanet_decode_chunk_plain(dec, mcfg, ext, n_hist)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    peak = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= BF16_TOL * peak
+
+
+def _bf16_tts(dev):
+    from sopro_tpu_torch.config import RuntimeConfig
+
+    return _tts_pair(dev, RuntimeConfig(compute_dtype="bfloat16"))[1]
+
+
+@pytest.mark.cuda
+def test_ar_loop_bf16_kernel_matches_plain(cuda):
+    """K1's bfloat16 instantiation against the plain loop (the generator's
+    step, rounding where K1 rounds) over 25 near-greedy steps: tokens equal
+    up to the first near-tie; with no divergence the bfloat16 ring buffers
+    within 1e-2 of their peak."""
+    from chip_smoke import RecordingContext, first_divergence
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.ops.ar_loop import ar_loop, ar_loop_plain
+
+    tts = _bf16_tts(cuda)
+    model, cfg = tts.engine.model, tts.cfg
+    g = torch.Generator().manual_seed(2)
+    txt = torch.randn(1, 12, cfg.d_model, generator=g).to(cuda, torch.bfloat16)
+    mask = (torch.arange(12) < 9)[None].to(cuda)
+    cond = (torch.randn(1, 25, cfg.d_model, generator=g) * 0.1).to(cuda, torch.bfloat16)
+    ctx = M.ar_context(model, txt, mask)
+
+    def fresh():
+        c = M.init_ar_carry(cfg, 1, 25, 7, cuda, torch.bfloat16)
+        return {k: getattr(c, k) for k in ("t", "last", "streak", "stopped",
+                                           "first_eos", "key", "hist", "bufs")}
+
+    per_row = M.ARSettings(temperature=1e-4, anti_loop=False).per_row(1, cuda)
+    kernels.reset_launches()
+    got, gs = ar_loop(ctx, cond, fresh(), per_row, 25, False)
+    assert kernels.LAUNCHES_BF16["ar_loop"] == 1 and kernels.LAUNCHES["ar_loop"] == 0
+    assert gs["bufs"].dtype == torch.bfloat16
+    rec = RecordingContext(ctx)
+    want, ws = ar_loop_plain(rec, cond, fresh(), per_row, 25, False)
+    first_divergence(got, want, rec.logits, 0, "K1 bf16 against its plain version")
+    if torch.equal(got, want):
+        peak = float(ws["bufs"].float().abs().max())
+        assert float((gs["bufs"].float() - ws["bufs"].float()).abs().max()) <= BF16_TOL * peak
+
+
+@pytest.mark.cuda
+def test_ar_step_bf16_kernel_matches_plain(cuda):
+    """K5's bfloat16 instantiation against its plain version at B = 2 (one
+    row partly masked) over 5 chained steps: float32 logits and bfloat16
+    ring buffers within 1e-2 of their peak."""
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.ops.ar_step import ar_step, ar_step_plain
+
+    tts = _bf16_tts(cuda)
+    model, cfg = tts.engine.model, tts.cfg
+    g = torch.Generator().manual_seed(5)
+    txt = torch.randn(2, 12, cfg.d_model, generator=g).to(cuda, torch.bfloat16)
+    mask = (torch.arange(12)[None, :] < torch.tensor([12, 5])[:, None]).to(cuda)
+    ctx = M.ar_step_context(model, txt, mask)
+    bufs = torch.randn(cfg.n_layers_ar, 2, 9, cfg.d_model, generator=g).to(cuda, torch.bfloat16)
+    kernels.reset_launches()
+    for _ in range(5):
+        x = torch.randn(2, cfg.d_model, generator=g).to(cuda, torch.bfloat16)
+        (lg, bg), (lw, bw) = ar_step(ctx, x, bufs), ar_step_plain(ctx, x, bufs)
+        assert lg.dtype == torch.float32 and bg.dtype == torch.bfloat16
+        assert float((lg - lw).abs().max()) <= BF16_TOL * float(lw.abs().max())
+        assert float((bg.float() - bw.float()).abs().max()) <= BF16_TOL * float(bw.float().abs().max())
+        bufs = bw
+    assert kernels.LAUNCHES_BF16["ar_step"] == 5 and kernels.LAUNCHES["ar_step"] == 0
+
+
+@pytest.mark.cuda
+def test_bf16_tensors_do_not_reach_a_float32_pack(cuda):
+    """A bfloat16 tensor given with float32 weights (a float32 pack or
+    context) raises, as does float16: no upcast, no fallback."""
+    from sopro_tpu_torch.codec.vocoder import pack_seanet_decoder, seanet_decode
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.ops.ar_loop import ar_loop
+    from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax
+
+    z, hid = torch.randn(1, 6, 32, device=cuda), torch.randn(2, 32, device=cuda)
+    w, b = torch.randn(2, 32, 64, device=cuda), torch.randn(2, 64, device=cuda)
+    for zz in (z.to(torch.bfloat16), z.half()):
+        with pytest.raises(ValueError):
+            nar_heads_argmax(zz, hid, w, b)
+    mcfg = MimiConfig(**SMALL_MIMI)
+    packed = pack_seanet_decoder(W.to_torch(W.init_mimi_params(3, mcfg)["decoder"], cuda), mcfg)
+    with pytest.raises(ValueError):
+        seanet_decode(packed, mcfg, torch.randn(1, 5, mcfg.hidden_size, device=cuda).to(torch.bfloat16))
+    _, tts = _tts_pair(cuda)
+    model, cfg = tts.engine.model, tts.cfg
+    txt, mask = torch.randn(1, 12, cfg.d_model, device=cuda), torch.ones(1, 12, dtype=torch.bool, device=cuda)
+    ctx = M.ar_context(model, txt, mask)
+    c = M.init_ar_carry(cfg, 1, 8, 7, cuda, torch.bfloat16)
+    state = {k: getattr(c, k) for k in ("t", "last", "streak", "stopped", "first_eos", "key",
+                                        "hist", "bufs")}
+    with pytest.raises(ValueError):
+        ar_loop(ctx, torch.randn(1, 8, cfg.d_model, device=cuda).to(torch.bfloat16), state,
+                M.ARSettings().per_row(1, cuda), 8, True)
+
+
+@pytest.mark.cuda
+def test_bf16_slice_on_cuda_launches_the_bf16_kernels(cuda):
+    """Under RuntimeConfig(compute_dtype="bfloat16") synthesize launches
+    K1, K2 and K3 in bfloat16 and no float32 kernel, stream launches K4 in
+    bfloat16, and the outputs are finite float32 of whole frames."""
+    tts = _bf16_tts(cuda)
+    ref = np.random.default_rng(12).integers(0, 32, (40, 8)).astype(np.int32)
+    kernels.reset_launches()
+    wav = tts.synthesize("hello there", ref_tokens_tq=ref, max_frames=24, seed=3, fused=True)
+    assert all(kernels.LAUNCHES_BF16[k] > 0 for k in ("ar_loop", "nar_heads", "seanet"))
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert wav.dtype == np.float32 and np.isfinite(wav).all() and wav.shape[1] % 12 == 0
+    kernels.reset_launches()
+    chunks = list(tts.stream("hello there", ref_tokens_tq=ref, max_frames=24, seed=3,
+                             chunk_frames=4))
+    assert kernels.LAUNCHES_BF16["seanet_chunk"] > 0 and not any(kernels.LAUNCHES.values())
+    assert all(c.dtype == np.float32 and np.isfinite(c).all() for c in chunks)

@@ -246,14 +246,16 @@ def test_mimi_adapter_matches_jax(snapshot, tmp_path):
 
 
 def test_runtime_config_takes_the_jax_fields():
-    """C3: the four JAX fields are accepted; another dtype than float32
-    raises; use_pallas_vocoder=False takes the plain version on the CPU."""
+    """C3: the four JAX fields are accepted; bfloat16 is accepted and a
+    dtype other than float32 or bfloat16 raises; use_pallas_vocoder=False
+    takes the plain version on the CPU."""
     rt = RuntimeConfig(compute_dtype="float32", param_dtype="float32", ar_chunk=4,
                        use_pallas_vocoder=False)
     assert rt.ar_chunk == 4
     for name in ("compute_dtype", "param_dtype"):
+        assert getattr(RuntimeConfig(**{name: "bfloat16"}), name) == "bfloat16"
         with pytest.raises(ValueError, match=name):
-            RuntimeConfig(**{name: "bfloat16"})
+            RuntimeConfig(**{name: "float16"})
     tree, mimi, _, cfg, _, mcfg = make_trees(seed=2)
     model, codec = W.sopro_params_from_jax(tree, cfg, "cpu"), W.mimi_params_from_jax(mimi, mcfg, "cpu")
     from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
