@@ -77,7 +77,7 @@ Phases (each raises, so the script exits non-zero, on failure):
    profiler trace of two more steps for the kernels' busy share, launches
    and synchronisations per step and the largest kernels; one more step split
    into forward, backward and optimizer). With deterministic algorithms on: the step through
-   `parallel.py` at world size 1 on NCCL (`file://` rendezvous) equals the
+   `parallel/data.py` at world size 1 on NCCL (`file://` rendezvous) equals the
    plain step; 2 steps, a train checkpoint, a restore into a fresh model
    and a third step equal 3 straight steps (the checkpoint also restores
    onto the CPU). The trained model's `synthesize` (its kernel caches built
@@ -102,6 +102,21 @@ Phases (each raises, so the script exits non-zero, on failure):
    session as long as its `generate_tokens`); the bf16 Mimi decode of the
    fp32 path's codes against the fp32 one (SNR, beside the JAX package's
    TPU claim of 41 dB; not gated).
+14. mesh: the card count and each card's name and power limit; shards
+   dp = 4 over 4 cards (2 over 2 or 3), else dp = 2 with both shards on
+   cuda:0 (printed). A `ContinuousBatcher(mesh=)` and an unsharded one (8
+   slots, chunk 16, ramp 4, pcm16, text bucket 256, max_frames 96) each
+   take an 8-way burst with caps 96 x 4, 32, 48, 64, 80 and 4 joins
+   mid-flight (counters zeroed before, read after: K1, K2, K4 launched, K3
+   and K5 not; K1 launches = the ticks the shards ran); each session's
+   frame count equal, PCM within 1 int16 LSB, AR tokens equal for the
+   sessions still in their slot (a differing token only at a top-2 margin
+   below 1e-5 of the peak logit); `measure_tick_device_ms` of both, per
+   shard; tick dispatch p50 per shard; burst TTFA p50; seconds of audio per
+   second of both. `synthesize_batch(mesh=)` of phase 7's 4 texts at 400
+   frames (K1, K2, K3 launched): every row within 1e-4 of its peak of the
+   unsharded batch's row, lengths equal; seconds of audio per second of
+   both, in turns.
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}. Per kernel the record holds its
 launches in its path's counted run and per request of that run (K1, K2 and
@@ -187,12 +202,16 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def gpu_line() -> str:
-    out = subprocess.run(
+def gpu_lines() -> list:
+    """`nvidia-smi --query-gpu=name,power.limit`, a line per card."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
-    return out[0]
+
+
+def gpu_line() -> str:
+    return gpu_lines()[0]
 
 
 def build_models(dev, seed: int, cfg, mcfg):
@@ -1509,7 +1528,7 @@ def drive_train(tts, ref_tokens, dev, rng, cfg, mcfg):
                launches_per_step=launches, syncs_per_step=syncs, phases=phases)
 
     with deterministic(), tempfile.TemporaryDirectory() as tmp:
-        # the step through parallel.py at world size 1 on NCCL
+        # the step through parallel/data.py at world size 1 on NCCL
         os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
         P.init_process_group(0, 1, "file://" + os.path.join(tmp, "rendezvous"), device=dev)
         try:
@@ -2089,6 +2108,189 @@ def drive_bf16(cfg, mcfg, dev, rng, ref_tokens, tts32, ref32):
     return stats, out
 
 
+# phase 14: serving and batch synthesis over a mesh
+MESH_MAX_FRAMES = 96
+# the burst's caps: the short ones free slots early, so the 4 later sessions join mid-flight
+MESH_CAPS = (96, 96, 96, 96, 32, 48, 64, 80, 96, 96, 96, 96)
+MESH_TOKEN_GAP = 1e-5  # a token may differ only at a top-2 margin below this of the peak logit
+
+
+def mesh_layout():
+    """dp = 4 over the first 4 cards where there are 4 or more, dp = 2 over
+    2 cards where there are 2 or 3, else dp = 2 with both shards on cuda:0
+    (slots 8 and the batch's 4 rows must divide by dp)."""
+    from sopro_tpu_torch.parallel import make_mesh
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        dp = 4 if count >= 4 else 2
+        return make_mesh(dp, dp=dp, tp=1), f"dp = {dp}, one card each (cuda:0 .. cuda:{dp - 1})"
+    return (make_mesh(2, dp=2, tp=1, devices=[torch.device("cuda", 0)] * 2),
+            "dp = 2, both shards on cuda:0 (one card: a correctness rehearsal; the shards "
+            "take turns on one stream, so its throughput is no multi-card number)")
+
+
+def serve_burst(b, ref, hop, sr):
+    """MESH_CAPS' first 8 sessions as a burst, the last 4 once the burst
+    decodes -> (handles, chunks per session, wall s, audio s)."""
+    t0 = time.perf_counter()
+    handles = [b.submit(SERVE_TEXTS[i], ref, seed=SERVE_SEEDS[i], max_frames=MESH_CAPS[i])
+               for i in range(8)]
+    runs = [collect(h) for h in handles]
+    while len(runs[0][0]) < 2 and runs[0][1].is_alive():  # the burst is decoding
+        time.sleep(0.002)
+    handles += [b.submit(SERVE_TEXTS[i], ref, seed=SERVE_SEEDS[i], max_frames=MESH_CAPS[i])
+                for i in range(8, 12)]
+    runs += [collect(h) for h in handles[8:]]
+    for _, th in runs:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("mesh serve: a session did not finish")
+    wall = time.perf_counter() - t0
+    chunks = [[c for _, c in got] for got, _ in runs]
+    audio = sum(sum(c.shape[1] for c in cs) for cs in chunks) / sr
+    for i, cs in enumerate(chunks):
+        if cs[0].shape[1] != 4 * hop or any(c.shape[1] != 16 * hop for c in cs[1:-1]):
+            raise AssertionError(f"mesh serve session {i}: chunk grid {[c.shape[1] // hop for c in cs]}")
+    return handles, chunks, wall, audio
+
+
+def final_tokens(b, handles, frames):
+    """{session: its AR tokens} for the sessions still holding their slot's
+    state (a later join into the slot overwrote the others)."""
+    last = {h.slot: i for i, h in enumerate(handles)}
+    out = {}
+    for slot, i in last.items():
+        st = b.states[slot // b.per]
+        out[i] = st.carry.tokens[slot % b.per, : frames[i]].cpu()
+    return out, last
+
+
+def token_margin(tts, st, row, seed, got, want, what):
+    """Where `got` leaves `want` (the unsharded batcher's tokens of the
+    session in `row` of state `st`), the plain loop's penalized top-2 margin
+    there, replayed from the row's conditioning and key; raises unless it
+    is below MESH_TOKEN_GAP of the peak logit."""
+    from dataclasses import replace
+
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.ops.ar_loop import ar_loop_plain
+
+    eng, n = tts.engine, int(want.shape[0])
+    ctx = M.ar_context_from_kv(eng.model, st.kv_k[:, row: row + 1], st.kv_v[:, row: row + 1],
+                               st.text_mask[row: row + 1])
+    c = replace(M.init_ar_carry(tts.cfg, 1, st.cond.shape[1], 0, eng.device), key=eng._row_keys([seed]))
+    fresh = {k: getattr(c, k) for k in ("t", "last", "streak", "stopped", "first_eos", "key", "hist",
+                                        "bufs")}
+    rec = RecordingContext(ctx)
+    plain, _ = ar_loop_plain(rec, st.cond[row: row + 1], fresh, M.ARSettings(
+        min_gen_frames=tts.cfg.min_gen_frames).per_row(1, eng.device), n, True)
+    if not torch.equal(plain[0, :n].cpu(), want):
+        raise AssertionError(f"{what}: the plain replay differs from the unsharded batcher")
+    return first_divergence(got[None], want[None], rec.logits, 0, what, tol=MESH_TOKEN_GAP)
+
+
+def drive_mesh(tts, ref, hop, sr):
+    """Phase 14: `ContinuousBatcher(mesh=)` and `synthesize_batch(mesh=)`
+    against the unsharded batcher and batch in the same call."""
+    from sopro_tpu_torch import kernels
+    from sopro_tpu_torch.serve import ContinuousBatcher
+
+    count = torch.cuda.device_count()
+    log(f"  torch.cuda.device_count() = {count}; cards: {gpu_lines()}")
+    mesh, layout = mesh_layout()
+    dp, per = mesh.shape["dp"], 8 // mesh.shape["dp"]
+    log(f"  shards: {layout}")
+    prod = dict(slots=8, chunk_frames=16, ramp_frames=4, text_bucket=SERVE_TEXT_BUCKET,
+                max_frames=MESH_MAX_FRAMES, pcm16=True)
+    out = {"dp": dp, "cards": count, "layout": layout}
+    runs = {}
+    for name, kw in (("unsharded", {}), ("mesh", {"mesh": mesh})):
+        b = ContinuousBatcher(tts, **prod, **kw)
+        t0 = time.perf_counter()
+        b.warmup(ref)
+        for eng in b.engines:
+            torch.cuda.synchronize(eng.device)
+        log(f"  {name} batcher ({len(b.engines)} shard(s)): warmup {time.perf_counter() - t0:.2f} s")
+        b.reset_stats()
+        kernels.reset_launches()
+        handles, chunks, wall, audio = serve_burst(b, ref, hop, sr)
+        launches = launched(f"{name} serve", ("ar_loop", "nar_heads", "seanet_chunk"))
+        stats = b.stats()
+        if launches["seanet"] or launches["ar_step"]:
+            raise AssertionError(f"{name} serve launched K3 or K5: {launches}")
+        if launches["ar_loop"] != sum(stats["shard_ticks"]) or stats["sessions_done"] != 12:
+            raise AssertionError(f"{name} serve: K1 launched {launches['ar_loop']} times, the shards "
+                                 f"ran {stats['shard_ticks']} ticks, {stats['sessions_done']} sessions")
+        frames = [sum(c.shape[1] for c in cs) // hop for cs in chunks]
+        tokens, last = final_tokens(b, handles, frames)
+        ttfa = statistics.median(h.first_chunk_s * 1e3 for h in handles[:8])
+        runs[name] = dict(b=b, chunks=chunks, frames=frames, tokens=tokens, last=last)
+        out[name] = dict(audio_s_per_s=audio / wall, wall_s=wall, audio_s=audio, ticks=stats["ticks"],
+                         shard_ticks=stats["shard_ticks"], k1_launches=launches["ar_loop"],
+                         launches=launches, burst_ttfa_p50_ms=ttfa,
+                         tick_dispatch_ms_p50=stats["tick_dispatch_ms_p50"],
+                         shard_dispatch_ms_p50=stats["shard_dispatch_ms_p50"])
+        log(f"  {name} serve: 12 sessions (caps {MESH_CAPS}) on 8 slots, {audio:.2f} s of audio in "
+            f"{wall:.3f} s = {audio / wall:.1f} s of audio per second; ticks {stats['ticks']}, per "
+            f"shard {stats['shard_ticks']} (= K1 launches {launches['ar_loop']}); tick dispatch p50 "
+            f"{stats['tick_dispatch_ms_p50']} ms, per shard {stats['shard_dispatch_ms_p50']} ms; burst "
+            f"TTFA p50 {ttfa:.2f} ms")
+
+    one, sharded = runs["unsharded"], runs["mesh"]
+    worst = 0
+    for i in range(12):
+        a, m = np.concatenate(one["chunks"][i], axis=1), np.concatenate(sharded["chunks"][i], axis=1)
+        if one["frames"][i] != sharded["frames"][i] or a.shape != m.shape:
+            raise AssertionError(f"mesh session {i}: {sharded['frames'][i]} frames, unsharded "
+                                 f"{one['frames'][i]}")
+        diff = int(np.abs(a.astype(np.int32) - m.astype(np.int32)).max(initial=0))
+        worst = max(worst, diff)
+        if diff > 1:
+            raise AssertionError(f"mesh session {i}: PCM differs from the unsharded batcher by {diff} LSB")
+    both = sorted(set(one["tokens"]) & set(sharded["tokens"]))
+    for i in both:
+        got, want = sharded["tokens"][i], one["tokens"][i]
+        if not torch.equal(got, want):
+            slot = [s for s, j in one["last"].items() if j == i][0]
+            token_margin(tts, one["b"].states[0], slot, SERVE_SEEDS[i], got, want, f"mesh session {i}")
+    log(f"  per session against the unsharded batcher: frame counts equal for all 12, PCM within "
+        f"{worst} LSB, AR tokens equal for the {len(both)} sessions still in their slot {both}")
+    out["pcm_max_lsb"], out["token_sessions"] = worst, both
+
+    out["tick_probe_unsharded"] = one["b"].measure_tick_device_ms(ref)
+    out["tick_probe_mesh"] = sharded["b"].measure_tick_device_ms(ref)
+    for name in ("unsharded", "mesh"):
+        runs[name]["b"].stop()
+        probe = out[f"tick_probe_{name}"]
+        shards = probe.get("shards", [probe])
+        log(f"  measure_tick_device_ms {name}: " + "; ".join(
+            f"{x.get('device', 'cuda:0')} {x['rows']} rows: device {x['tick_device_ms']:.3f} ms, "
+            f"CUDA-event span {x['tick_span_ms']:.3f} ms ({x['path']})" for x in shards))
+
+    texts, seeds = BATCH
+    rows = {}
+    for name, kw in (("unsharded", {}), ("mesh", {"mesh": mesh}), ("mesh again", {"mesh": mesh}),
+                     ("unsharded again", {})):
+        tts.synthesize_batch(texts[:dp], ref=ref, max_frames=8, seeds=seeds[:dp], **kw)  # warm
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rows[name] = tts.synthesize_batch(texts, ref=ref, max_frames=MAX_FRAMES, seeds=seeds, **kw)
+        sec = time.perf_counter() - t0
+        launches = launched(f"{name} batch", ("ar_loop", "nar_heads", "seanet"))
+        audio = sum(w.shape[1] for w in rows[name]) / sr
+        out[f"batch_{name.replace(' ', '_')}"] = dict(seconds=sec, audio_s_per_s=audio / sec,
+                                                      launches=launches)
+        log(f"  batch {name}: B = {len(texts)} x {MAX_FRAMES} frames, {sec:.3f} s, "
+            f"{audio / sec:.1f} s of audio per second")
+    errs = [close_to(g, w, f"mesh batch row {i}")[0] / max(float(np.abs(w).max()), 1e-30)
+            for i, (g, w) in enumerate(zip(rows["mesh"], rows["unsharded"]))]
+    log(f"  mesh batch rows against the unsharded batch: lengths equal, max|err| / peak per row "
+        f"{[f'{e:.2e}' for e in errs]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2149,6 +2351,9 @@ def main() -> int:
     log("[13] bf16: RuntimeConfig(compute_dtype=\"bfloat16\"), kernels and paths")
     bf16_stats, bf16_paths = drive_bf16(cfg, mcfg, dev, rng, ref_tokens, tts, ref)
     log(f"  bf16 summary: {json.dumps(bf16_paths)}")
+    log("[14] mesh: ContinuousBatcher(mesh=) and synthesize_batch(mesh=) against one shard")
+    mesh_out = drive_mesh(tts, ref, tts.engine.mimi_cfg.hop_length, tts.engine.mimi_cfg.sampling_rate)
+    log(f"  mesh summary: {json.dumps(mesh_out)}")
 
     # each kernel's count from the path it belongs to (K4: the stream, K5: the per-step
     # route), and per request of that path's counted run
@@ -2162,9 +2367,13 @@ def main() -> int:
     for name in ("ar_loop", "nar_heads", "seanet_chunk"):
         n = serve["launches"][name]
         stats[name].update(serve_launches=n, serve_launches_per_session=n / serve["sessions"])
+    for name in ("ar_loop", "nar_heads", "seanet_chunk"):
+        n = mesh_out["mesh"]["launches"][name]
+        stats[name].update(mesh_serve_launches=n, mesh_serve_launches_per_session=n / 12)
     stats["ar_loop"]["serve_rows"] = serve["k1_rows"]
     stats["nar_heads"]["serve_tick"] = serve["k2_tick"]
-    extra += ("serve_launches", "serve_launches_per_session", "serve_rows", "serve_tick")
+    extra += ("serve_launches", "serve_launches_per_session", "serve_rows", "serve_tick",
+              "mesh_serve_launches", "mesh_serve_launches_per_session")
     # the bf16 instantiations: launches from the bf16 path each belongs to
     bf16_launches = dict(bf16_paths["synthesize"], seanet_chunk=bf16_paths["stream"]["seanet_chunk"],
                          ar_step=bf16_paths["per_step"]["ar_step"])

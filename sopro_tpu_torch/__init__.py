@@ -9,8 +9,9 @@ with nvcc at first use and bound through ctypes (`kernels.py`).
 `SoproTTS` (from_pretrained / from_random, synthesize, stream, batch) is
 imported on first access; importing this package loads only the
 configuration classes. Serving is `sopro_tpu_torch.serve`, the command line
-`python -m sopro_tpu_torch.cli`, training `sopro_tpu_torch.train` (data
-parallel: `sopro_tpu_torch.parallel`).
+`python -m sopro_tpu_torch.cli`, training `sopro_tpu_torch.train`; several
+cards (a data-parallel train step, the mesh that serving and batch
+synthesis split their rows over) `sopro_tpu_torch.parallel`.
 """
 
 from sopro_tpu_torch.config import RuntimeConfig, SoproTTSConfig

@@ -393,8 +393,10 @@ def stream_floor(dev) -> list:
             reps = 20
 
             def run():
-                kernels.check(fn(big.data_ptr(), per_block, chunk, stages, reps, blocks,
-                                 sink.data_ptr(), bulk, kernels.stream_ptr(dev).value), "stream_rate")
+                with kernels.on_device(dev) as stream:
+                    rc = fn(big.data_ptr(), per_block, chunk, stages, reps, blocks,
+                            sink.data_ptr(), bulk, stream)
+                kernels.check(rc, "stream_rate")
 
             ms = cuda_ms(run, 5)
             us = ms * 1e3 / reps

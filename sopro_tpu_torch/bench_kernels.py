@@ -325,11 +325,12 @@ def conv_valid_old(lib, op, x, residual, keep=None):
     fn = lib.sopro_seanet_conv_valid
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p, ctypes.c_int,
                                                                  ctypes.c_void_p]
-    kernels.check(fn(x.data_ptr(), op["w"].data_ptr(), op["b"].data_ptr(),
-                     None if residual is None else residual.data_ptr(), y.data_ptr(), b, t_in,
-                     t_out, t_valid - t_out, cin, cout, taps, dil, int(op["elu_in"]), phases,
-                     res_t, res_t - t_out, None, 0, kernels.stream_ptr(x.device).value),
-                  "seanet_chunk (old)")
+    with kernels.on_device(x.device) as stream:
+        rc = fn(x.data_ptr(), op["w"].data_ptr(), op["b"].data_ptr(),
+                None if residual is None else residual.data_ptr(), y.data_ptr(), b, t_in,
+                t_out, t_valid - t_out, cin, cout, taps, dil, int(op["elu_in"]), phases,
+                res_t, res_t - t_out, None, 0, stream)
+    kernels.check(rc, "seanet_chunk (old)")
     return y
 
 

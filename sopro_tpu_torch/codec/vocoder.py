@@ -216,8 +216,12 @@ def _conv_cuda(launch: Dict[str, Any], x: torch.Tensor, residual, start=None, t_
     T_in); input rows before `start` [B] (a column of the start table; None:
     row 0) read as zero; a residual adds its last t_out rows. Returned as
     [B, t_out * phases, N / phases] (a transpose's phase-major columns are
-    its output rows). `stream`: the current stream's handle (looked up when
-    None)."""
+    its output rows). `stream`: the ctypes handle of x's device's current
+    stream, passed inside `kernels.on_device(x.device)` (None: entered
+    here)."""
+    if stream is None:
+        with kernels.on_device(x.device) as s:
+            return _conv_cuda(launch, x, residual, start, t_out, max_splits, s)
     b, t_in, cin = x.shape
     t_out = t_in if t_out is None else int(t_out)
     if cin != launch["cin"]:
@@ -228,8 +232,7 @@ def _conv_cuda(launch: Dict[str, Any], x: torch.Tensor, residual, start=None, t_
         _ptr(residual), y.data_ptr(), b, t_in, t_out,
         0 if residual is None else int(residual.shape[1]), cin, int(launch["hi"].shape[1]),
         launch["n"], int(launch["hi"].shape[2]), launch["taps"], launch["dil"],
-        int(launch["elu_in"]), *_start_arg(start), max_splits,
-        kernels.stream_ptr(x.device).value if stream is None else stream,
+        int(launch["elu_in"]), *_start_arg(start), max_splits, stream,
     )
     kernels.check(rc, "seanet")
     return y.view(b, t_out * launch["phases"], launch["n"] // launch["phases"])
@@ -240,7 +243,10 @@ def _resblock_cuda(launch: Dict[str, Any], x: torch.Tensor, start=None, t_out=No
     """The fused residual block: [B, T_in, C] -> [B, t_out, C], or -> wav
     [B, t_out] when it carries the final conv; output row t the causal
     result at input row T_in - t_out + t, input rows (and the final conv's
-    input rows) before `start` zero."""
+    input rows) before `start` zero. `stream` as for `_conv_cuda`."""
+    if stream is None:
+        with kernels.on_device(x.device) as s:
+            return _resblock_cuda(launch, x, start, t_out, s)
     b, t_in, c = x.shape
     t_out = t_in if t_out is None else int(t_out)
     if c != launch["c"]:
@@ -252,8 +258,7 @@ def _resblock_cuda(launch: Dict[str, Any], x: torch.Tensor, start=None, t_out=No
         x.data_ptr(), launch["w1hi"].data_ptr(), opt("w1lo"),
         launch["b1"].data_ptr(), launch["w2hi"].data_ptr(), opt("w2lo"),
         launch["b2"].data_ptr(), opt("wf"), opt("bf"), y.data_ptr(), b, t_in, t_out, c,
-        int(launch["final"]), *_start_arg(start),
-        kernels.stream_ptr(x.device).value if stream is None else stream,
+        int(launch["final"]), *_start_arg(start), stream,
     )
     kernels.check(rc, "seanet")
     return y
@@ -276,23 +281,23 @@ def run_launches(launches: List[Dict[str, Any]], x: torch.Tensor,
     as zero, and the last one writes only its last `keep` rows."""
     x, block_in = x.contiguous(), None
     splits = K4_MAX_SPLITS if valid else 1
-    stream = kernels.stream_ptr(x.device).value
-    for i, launch in enumerate(launches):
-        start = None if starts is None else starts[:, launch["op"]]
-        t_out = None
-        if valid:
-            t_out = valid_rows(launch, int(x.shape[1]))
-            if keep is not None and i == len(launches) - 1:
-                if not 0 < keep <= t_out or launch.get("phases", 1) != 1:
-                    raise ValueError(f"seanet_decode_chunk: {t_out} valid rows, {keep} asked for")
-                t_out = keep
-        if launch["kind"] == "resblock":
-            x = _resblock_cuda(launch, x, start, t_out, stream)
-        elif launch["residual"]:
-            x = _conv_cuda(launch, x, block_in, start, t_out, splits, stream)
-        else:
-            block_in = x
-            x = _conv_cuda(launch, x, None, start, t_out, splits, stream)
+    with kernels.on_device(x.device) as stream:
+        for i, launch in enumerate(launches):
+            start = None if starts is None else starts[:, launch["op"]]
+            t_out = None
+            if valid:
+                t_out = valid_rows(launch, int(x.shape[1]))
+                if keep is not None and i == len(launches) - 1:
+                    if not 0 < keep <= t_out or launch.get("phases", 1) != 1:
+                        raise ValueError(f"seanet_decode_chunk: {t_out} valid rows, {keep} asked for")
+                    t_out = keep
+            if launch["kind"] == "resblock":
+                x = _resblock_cuda(launch, x, start, t_out, stream)
+            elif launch["residual"]:
+                x = _conv_cuda(launch, x, block_in, start, t_out, splits, stream)
+            else:
+                block_in = x
+                x = _conv_cuda(launch, x, None, start, t_out, splits, stream)
     return x if x.dim() == 2 else x[..., 0]
 
 

@@ -153,6 +153,22 @@ class Engine:
         knob = lambda v: cuda if v is None else bool(v)  # None: on for a CUDA device
         self.use_pallas_ar = knob(self.rt.use_pallas_ar)
         self.use_pallas_resident = knob(self.rt.use_pallas_resident)
+        self._replicas: Dict[torch.device, "Engine"] = {}
+
+    def replica(self, device) -> "Engine":
+        """This engine on `device`, for a mesh's dp shard: the engine itself
+        on its own device, else an Engine over copies of its model and codec
+        moved there, built once per device (its kernel packs build on that
+        card) from the weights as they are then, with the same runtime and
+        compute dtype."""
+        dev = torch.device(device)
+        if dev == self.device:
+            return self
+        if dev not in self._replicas:
+            model = copy.deepcopy(self.model).to(dev)
+            mimi = None if self.mimi is None else copy.deepcopy(self.mimi).to(dev)
+            self._replicas[dev] = Engine(model, mimi, self.rt)
+        return self._replicas[dev]
 
     @property
     def codec(self) -> MimiCodec:
@@ -164,10 +180,11 @@ class Engine:
             )
         return self.mimi
 
-    def _padded(self, rows: Sequence[np.ndarray], buckets) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _padded(self, rows: Sequence[np.ndarray], buckets,
+                min_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         """B rows of [T_i, ...] ints -> ([B, Tb, ...] int32, mask [B, Tb]) on
-        the device; Tb is the longest row's bucket."""
-        tb = pick_bucket(max(int(r.shape[0]) for r in rows), buckets)
+        the device; Tb is the bucket of the longest row (or of `min_len`)."""
+        tb = pick_bucket(max([int(min_len)] + [int(r.shape[0]) for r in rows]), buckets)
         ids = np.stack([_pad_axis(np.asarray(r, np.int32), 0, tb) for r in rows])
         mask = np.arange(tb)[None, :] < np.array([int(r.shape[0]) for r in rows])[:, None]
         return (torch.from_numpy(ids).to(self.device),
@@ -365,12 +382,14 @@ class Engine:
         anti_loop: bool,
         min_gen: int,
         pcm16: bool = False,
+        text_len: int = 0,
     ) -> torch.Tensor:
-        """The batch plan for B rows padded to the longest row's text
-        bucket, one mask row each; returns the packed [B, S*hop + 1] device
+        """The batch plan for B rows padded to the text bucket of the longest
+        row (or of `text_len` tokens: a mesh's shards pad to their group's
+        bucket), one mask row each; returns the packed [B, S*hop + 1] device
         tensor (float32, or int16 with `pcm16`) with each row's length in
         the last column, without a sync."""
-        ids, mask = self._padded(ids_rows, self.rt.text_buckets)
+        ids, mask = self._padded(ids_rows, self.rt.text_buckets, text_len)
         wav, lengths = self.batch_synth_graph(
             ids, mask, ref_batched, float(style_strength), self._row_keys(seeds),
             _settings(top_p, temperature, anti_loop, min_gen), max_frames=max_frames,

@@ -16,10 +16,16 @@ instantiation on the device, `LAUNCHES_BF16` those of its bfloat16
 instantiation (`count(name, dtype)`; `LAUNCHES_BY_DTYPE` maps the dtype
 name to the dict); `reset_launches()` zeroes both. `LAUNCH_INFO` keeps
 what a kernel chose at launch time (the AR kernels' cluster size).
+
+Every C entry point runs inside `on_device(tensor.device)`: the CUDA runtime
+launches, sets a kernel's shared-memory attribute and answers occupancy
+queries for the *current* device only, so a call for tensors on another card
+than the current one would be refused or configured from the wrong card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -149,3 +155,18 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@contextlib.contextmanager
+def on_device(device):
+    """Make CUDA `device` the current device for the calls inside and yield
+    the handle of its current stream. A CPU device enters nothing and
+    yields the null handle (plain code and emulated launches run there)."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield ctypes.c_void_p(0)
+        return
+    with torch.cuda.device(device):
+        yield stream_ptr(device)

@@ -103,15 +103,23 @@ def prepare_reference(
     return PreparedReference(sv_ref=sv_ref, ref_seq=ref_seq, ref_kv=ref_kv)
 
 
+def _map_reference(ref: PreparedReference, fn) -> PreparedReference:
+    """`fn` applied to every tensor of the reference."""
+    f = lambda x: fn(x) if isinstance(x, torch.Tensor) else x
+    return PreparedReference(
+        sv_ref=f(ref.sv_ref), ref_seq=f(ref.ref_seq),
+        ref_kv=tuple({k: f(v) for k, v in kv.items()} for kv in ref.ref_kv),
+    )
+
+
 def tile_reference(ref: PreparedReference, n: int) -> PreparedReference:
     """A one-row reference broadcast to `n` rows (views, no copies)."""
-    def tile(x):
-        return x.expand(n, *x.shape[1:]) if isinstance(x, torch.Tensor) and x.shape[0] == 1 else x
+    return _map_reference(ref, lambda x: x.expand(n, *x.shape[1:]) if x.shape[0] == 1 else x)
 
-    return PreparedReference(
-        sv_ref=tile(ref.sv_ref), ref_seq=tile(ref.ref_seq),
-        ref_kv=tuple({k: tile(v) for k, v in kv.items()} for kv in ref.ref_kv),
-    )
+
+def reference_to(ref: PreparedReference, device) -> PreparedReference:
+    """The reference on `device` (its own tensors where they are there)."""
+    return _map_reference(ref, lambda x: x.to(device))
 
 
 def prepare_conditioning(

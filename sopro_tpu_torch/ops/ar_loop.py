@@ -392,14 +392,15 @@ def _mode(logits_only: bool, dtype) -> int:
     return int(logits_only) | (2 if dtype == torch.bfloat16 else 0)
 
 
-def cluster_size(args: _Args, logits_only: bool, dtype=torch.float32) -> int:
+def cluster_size(args: _Args, logits_only: bool, dtype, device) -> int:
     """The cluster size csrc/ar_loop.cu takes for these shapes and weight
-    dtype (asked once per library and shape): the weight stream is packed
-    for it."""
+    dtype on CUDA `device` (the current device: call inside
+    `kernels.on_device`), asked once per library, card model and shape:
+    the weight stream is packed for it."""
     lib = kernels.lib("ar_loop")
     mode = _mode(logits_only, dtype)
-    key = (id(lib), mode) + tuple(getattr(args, f) for f in
-                                  ("L", "D", "N", "K", "CTX", "H", "V", "freq", "hist_len"))
+    key = (id(lib), torch.cuda.get_device_name(device), mode) + tuple(
+        getattr(args, f) for f in ("L", "D", "N", "K", "CTX", "H", "V", "freq", "hist_len"))
     if key not in _CLUSTER:
         cs = ctypes.c_int(0)
         fn = kernels.entry("ar_loop", "sopro_ar_cluster", _ARGTYPES["sopro_ar_cluster"])
@@ -410,20 +411,21 @@ def cluster_size(args: _Args, logits_only: bool, dtype=torch.float32) -> int:
 
 def launch(kernel: str, entry: str, args: _Args, device, stream, dtype=torch.float32) -> None:
     """Call C entry point `entry` of csrc/ar_loop.cu (its `_bf16`
-    instantiation for bfloat16 weights) on the current stream with the
-    weight stream packed for its cluster size (`stream(cs)`,
+    instantiation for bfloat16 weights) on `device` and its current stream
+    with the weight stream packed for its cluster size (`stream(cs)`,
     `ARGenerator.stream`), raise on a refused launch, count it under
     `kernel` and `dtype`."""
     if stream is None:
         raise ValueError(f"{kernel}: the context carries no weight stream (built on the CPU?)")
-    cs = cluster_size(args, entry == "sopro_ar_step", dtype)
-    pack = stream(cs)
-    if pack["w"].dtype != dtype:
-        raise ValueError(f"{kernel}: the weight stream is {pack['w'].dtype}, the weights {dtype}")
-    args.wstream, args.stream_len, args.cs = pack["w"].data_ptr(), pack["len"], cs
-    name = entry + ("_bf16" if dtype == torch.bfloat16 else "")
-    fn = kernels.entry("ar_loop", name, _ARGTYPES[name])
-    kernels.check(fn(ctypes.byref(args), kernels.stream_ptr(device)), kernel)
+    with kernels.on_device(device) as cuda_stream:
+        cs = cluster_size(args, entry == "sopro_ar_step", dtype, device)
+        pack = stream(cs)
+        if pack["w"].dtype != dtype:
+            raise ValueError(f"{kernel}: the weight stream is {pack['w'].dtype}, the weights {dtype}")
+        args.wstream, args.stream_len, args.cs = pack["w"].data_ptr(), pack["len"], cs
+        name = entry + ("_bf16" if dtype == torch.bfloat16 else "")
+        fn = kernels.entry("ar_loop", name, _ARGTYPES[name])
+        kernels.check(fn(ctypes.byref(args), cuda_stream), kernel)
     kernels.count(kernel, dtype)
     kernels.LAUNCH_INFO[kernel] = {"cluster_blocks_per_row": cs}
 
@@ -488,9 +490,11 @@ def active_clusters(ctx: ARLoopContext, cond, state, settings) -> Tuple[int, int
     these shapes (`cudaOccupancyMaxActiveClusters`): a cluster must fit in
     one GPC, so rows past the count run in later waves. Launches nothing."""
     args, _, _, _keep = _loop_args(ctx, cond, state, settings, 1, True)
-    cs = cluster_size(args, False, cond.dtype)
-    args.cs, n = cs, ctypes.c_int(0)
-    fn = kernels.entry("ar_loop", "sopro_ar_active_clusters", _ARGTYPES["sopro_ar_active_clusters"])
-    kernels.check(fn(ctypes.byref(args), _mode(False, cond.dtype), ctypes.byref(n)),
-                  "ar_loop active clusters")
+    with kernels.on_device(cond.device):
+        cs = cluster_size(args, False, cond.dtype, cond.device)
+        args.cs, n = cs, ctypes.c_int(0)
+        fn = kernels.entry("ar_loop", "sopro_ar_active_clusters",
+                           _ARGTYPES["sopro_ar_active_clusters"])
+        kernels.check(fn(ctypes.byref(args), _mode(False, cond.dtype), ctypes.byref(n)),
+                      "ar_loop active clusters")
     return cs, n.value

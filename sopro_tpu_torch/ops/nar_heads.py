@@ -97,8 +97,8 @@ def nar_heads_argmax(
         fn = kernels.entry("nar_heads", "sopro_nar_heads_argmax",
                            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         ptrs.append(kernels.ptr(packed["lo"]))
-    rc = fn(*ptrs, kernels.ptr(b_stack), kernels.ptr(out), b * t, h, hd, kp, v, vp,
-            kernels.stream_ptr(z.device))
+    with kernels.on_device(z.device) as stream:
+        rc = fn(*ptrs, kernels.ptr(b_stack), kernels.ptr(out), b * t, h, hd, kp, v, vp, stream)
     kernels.check(rc, "nar_heads")
     kernels.count("nar_heads", z.dtype)
     return out

@@ -21,6 +21,13 @@ have not emitted yet, so every established row keeps its chunk grid and a
 join never changes a co-resident's waveform. A session alone in a batcher
 ships what `SoproTTS.stream` ships with the same chunk, seed and reference,
 where the ramp is off (ramp_frames >= chunk_frames).
+
+Over a mesh (`mesh=`, `parallel.make_mesh`) the slots split over its dp
+axis: slot i lives on shard i // (slots / dp), each shard a `ServeState` of
+slots / dp rows on its dp group's replica engine (`parallel.replicas`), so
+K1 runs slots / dp rows a launch. A join group is split by shard; a tick
+issues every shard that has a live row (its own device and stream) before
+it reads any, and reassembles the [slots] view from the shards' copies.
 """
 
 from __future__ import annotations
@@ -28,12 +35,16 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from contextlib import nullcontext
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from sopro_tpu_torch import kernels
+from sopro_tpu_torch.models.sopro import PreparedReference, tile_reference
+from sopro_tpu_torch.ops.ar_loop import ARLoopContext
+from sopro_tpu_torch.parallel.mesh import replicas
 
 INT32_MIN, INT32_MAX = -(2 ** 31), 2 ** 31 - 1
 
@@ -52,7 +63,8 @@ class SessionHandle:
     TTFA split (perf_counter stamps): created -> prep_done (host-side
     request build in `submit`) -> admitted (the group's join issued) ->
     first_tick (the first tick carrying the row issued) -> first chunk
-    handed to the client (`first_chunk_s`: seconds since created)."""
+    handed to the client (`first_chunk_s`: seconds since created). `slot`:
+    the slot the session was admitted to."""
 
     sid: int
     out: "queue.Queue[Optional[np.ndarray]]" = field(default_factory=queue.Queue)
@@ -63,6 +75,7 @@ class SessionHandle:
     first_tick_s: Optional[float] = None
     first_chunk_s: Optional[float] = None
     frames: int = 0
+    slot: Optional[int] = None
     cancelled: bool = False
 
     def cancel(self):
@@ -89,11 +102,11 @@ class _Slot:
 
 @dataclass
 class _Tick:
-    """An issued tick: its packed output (on the host once `event` has
-    passed), the slot list when it was issued, and its chunk size."""
+    """An issued tick: per shard its packed output (on the host once the
+    event has passed), or None for a shard with no live row; the slot list
+    when it was issued, and its chunk size."""
 
-    packed: torch.Tensor
-    event: Optional[torch.cuda.Event]
+    parts: List[Optional[Tuple[torch.Tensor, Optional[torch.cuda.Event]]]]
     snap: List[Optional[_Slot]]
     cf: int
 
@@ -109,10 +122,14 @@ class ContinuousBatcher:
         text_bucket: int = 256,
         max_frames: int = 400,
         nar_context_frames: Optional[int] = None,
+        mesh=None,
         pcm16: bool = False,
         admit_grace_ms: float = 6.0,
     ):
-        """`ramp_frames`: the first-chunk ramp (see the module docstring);
+        """`mesh`: a `parallel.Mesh` whose dp axis the slots split over (see
+        the module docstring); `slots` must divide by dp.
+
+        `ramp_frames`: the first-chunk ramp (see the module docstring);
         >= chunk_frames disables it. Established rows carry the ramp frames
         as backlog, and ramp ticks are skipped while any established row is
         more than `2 * chunk_frames` frames ahead of its emissions.
@@ -124,8 +141,13 @@ class ContinuousBatcher:
         self.tts = tts
         self.eng = tts.engine
         self.cfg = tts.cfg
+        self.mesh = mesh
         self.pcm16 = bool(pcm16)
         self.B = int(slots)
+        if mesh is not None and self.B % int(mesh.shape["dp"]) != 0:
+            raise ValueError(f"slots={self.B} must divide by dp={mesh.shape['dp']}")
+        self.engines = [self.eng] if mesh is None else replicas(self.eng, mesh)
+        self.per = self.B // len(self.engines)  # slots per shard
         self.cf = int(chunk_frames)
         self.ramp = max(1, min(int(ramp_frames), self.cf))
         self.ramp_backlog_cap = 2 * self.cf
@@ -137,7 +159,7 @@ class ContinuousBatcher:
                            else tts.cfg.rf_nar())
         self.hop = int(self.eng.codec.cfg.hop_length)
         self.sr = int(self.eng.codec.cfg.sampling_rate)
-        self.state = self.eng.serve_state(self.B, self.L, self.max_frames_cap)
+        self.states = [e.serve_state(self.per, self.L, self.max_frames_cap) for e in self.engines]
 
         self._slots: List[Optional[_Slot]] = [None] * self.B
         self._waiting: "queue.Queue" = queue.Queue()
@@ -162,6 +184,17 @@ class ContinuousBatcher:
         self._ttfa_tick_chunk_ms: List[float] = []  # first tick -> chunk out
         self._dispatch_ms: List[float] = []  # host wall of issuing a tick
         self._read_ms: List[float] = []  # host wall of waiting for a tick's copy
+        # per shard: the ticks it ran (one K1 launch each), the host wall of issuing them
+        self.shard_ticks = [0] * len(self.engines)
+        self._shard_dispatch_ms: List[List[float]] = [[] for _ in self.engines]
+
+    @property
+    def state(self):
+        """The serving state of a batcher without a mesh (`states` holds one
+        per shard)."""
+        if len(self.states) != 1:
+            raise AttributeError("a batcher over a mesh has one state per shard: use .states")
+        return self.states[0]
 
     # ------------------------------------------------------------- lifecycle
 
@@ -182,7 +215,10 @@ class ContinuousBatcher:
         allocator's pools, both tick sizes) before traffic: one short
         session per entry of `runtime.ref_buckets` (a reference of that
         many frames, as conditioning runs at the reference's bucket), or one
-        with the given `ref`."""
+        with the given `ref`. That session runs on shard 0; under a mesh
+        every other shard then joins and ticks a scratch state of its own
+        (`bench_state`) at both tick sizes, so no card pays its first use
+        (module loads, weight packs, library handles) under traffic."""
         rt = self.eng.rt
         if ref is not None:
             refs = [ref]
@@ -194,6 +230,81 @@ class ContinuousBatcher:
             h = self.submit("warmup", r, max_frames=self.cf, min_gen_frames=1)
             for _ in h.chunks():
                 pass
+            for eng in self.engines[1:]:
+                st = self._full_state(eng, r, "warmup")
+                with kernels.on_device(eng.device), torch.inference_mode():
+                    for cf in sorted({self.ramp, self.cf}):
+                        eng.serve_tick(st, chunk=cf, nar_ctx=self.nar_ctx,
+                                       first_only=cf < self.cf, pcm16=self.pcm16).cpu()
+
+    def bench_state(self, ref, text: str = "benchmark tick"):
+        """Every slot live on `text` (seed 42, the style strength of the
+        config, the default row settings): fresh serving states, one per
+        shard on its replica's device (a list under a mesh, else the one
+        state). The batcher's own state is not touched."""
+        states = [self._full_state(eng, ref, text) for eng in self.engines]
+        return states if self.mesh is not None else states[0]
+
+    def _full_state(self, eng, ref, text: str):
+        """A fresh serving state of one shard on `eng` with every row live
+        on `text` (seed 42, default settings)."""
+        enc = self.tts.encode_text(text)
+        ids = np.zeros((self.per, self.L), np.int32)
+        ids[:, : len(enc)] = enc
+        mask = np.zeros((self.per, self.L), bool)
+        mask[:, : len(enc)] = True
+        with kernels.on_device(eng.device):
+            st = eng.serve_state(self.per, self.L, self.max_frames_cap)
+            eng.serve_join(st, range(self.per), ids, mask, tile_reference(ref, self.per),
+                           [float(self.cfg.style_strength)] * self.per, [42] * self.per, {})
+        return st
+
+    def measure_tick_device_ms(self, ref, text: str = "benchmark tick", reps: int = 3) -> dict:
+        """The device cost of one full tick with every slot live
+        (`bench_state`), per shard: 1 + 2 * reps chained ticks on the card,
+        the first one a warm-up. `tick_device_ms` is the device time of the
+        kernels and copies per tick (torch.profiler's CUDA rows),
+        `tick_span_ms` the CUDA-event span per tick (the port's tick is
+        bound by the host's issue, so the two differ), `path` "resident"
+        when K1 runs the AR chunk ("ar_step": K5), `rows` the tick's rows.
+        Under a mesh the two times are the largest over the shards, and
+        "shards" lists each shard's keys with its rows and device (shards
+        that share a card take turns: there neither time is the tick's).
+        Call while no session is live. Raises on a CPU engine:
+        a device metric is not taken on the CPU."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        if any(e.device.type != "cuda" for e in self.engines):
+            raise RuntimeError("measure_tick_device_ms: the batcher's engines are not on a CUDA "
+                               "device; a device time is measured on the card only")
+        shards = []
+        for eng in self.engines:
+            st = self._full_state(eng, ref, text)
+            with kernels.on_device(eng.device), torch.inference_mode():
+                tick = lambda: eng.serve_tick(st, chunk=self.cf, nar_ctx=self.nar_ctx,
+                                              pcm16=self.pcm16)
+                tick()
+                torch.cuda.synchronize(eng.device)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    start.record()
+                    for _ in range(2 * reps):
+                        tick()
+                    end.record()
+                    torch.cuda.synchronize(eng.device)
+            device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                            and not getattr(e, "is_user_annotation", False) and "#" not in e.key)
+            shards.append({
+                "tick_device_ms": device_us / 1e3 / (2 * reps),
+                "tick_span_ms": start.elapsed_time(end) / (2 * reps),
+                "path": "resident" if isinstance(st.ctx, ARLoopContext) else "ar_step",
+                "rows": self.per, "device": str(eng.device),
+            })
+        out = {k: max(x[k] for x in shards) for k in ("tick_device_ms", "tick_span_ms")}
+        out.update(path=shards[0]["path"], rows=self.B)
+        return dict(out, shards=shards) if self.mesh is not None else out
 
     # ------------------------------------------------------------- interface
 
@@ -272,6 +383,8 @@ class ContinuousBatcher:
             "ttfa_tick_chunk_p50_ms": _p50(self._ttfa_tick_chunk_ms),
             "tick_dispatch_ms_p50": _p50(self._dispatch_ms),
             "tick_read_ms_p50": _p50(self._read_ms),
+            "shard_ticks": list(self.shard_ticks),
+            "shard_dispatch_ms_p50": [_p50(x) for x in self._shard_dispatch_ms],
         }
 
     # -------------------------------------------------------------- internals
@@ -313,18 +426,24 @@ class ContinuousBatcher:
                 return True, None
             slots = free[: len(group)]
             try:
-                self.eng.serve_join(
-                    self.state, slots,
-                    np.concatenate([r["ids"] for r in group]),
-                    np.concatenate([r["mask"] for r in group]),
-                    _cat_refs([r["ref"] for r in group]),
-                    [r["strength"] for r in group], [r["seed"] for r in group],
-                    {k: [r["settings"][k] for r in group] for k in group[0]["settings"]},
-                )
+                for g, eng in enumerate(self.engines):
+                    part = [j for j, slot in enumerate(slots) if slot // self.per == g]
+                    if not part:
+                        continue
+                    reqs = [group[j] for j in part]
+                    with kernels.on_device(eng.device):
+                        eng.serve_join(
+                            self.states[g], [slots[j] % self.per for j in part],
+                            np.concatenate([r["ids"] for r in reqs]),
+                            np.concatenate([r["mask"] for r in reqs]),
+                            _cat_refs([r["ref"] for r in reqs]),
+                            [r["strength"] for r in reqs], [r["seed"] for r in reqs],
+                            {k: [r["settings"][k] for r in reqs] for k in reqs[0]["settings"]},
+                        )
                 now = time.perf_counter()
                 self.admit_groups += 1
                 for req, slot in zip(group, slots):
-                    req["handle"].admitted_s = now
+                    req["handle"].admitted_s, req["handle"].slot = now, slot
                     self._slots[slot] = _Slot(handle=req["handle"],
                                               max_frames=req["settings"]["max_frames"])
                 if self.ramp < self.cf and self._backlog_ok():
@@ -337,9 +456,7 @@ class ContinuousBatcher:
                         self._slots[slot] = None
 
     def _run(self):
-        dev = self.eng.device
-        with torch.inference_mode(), (torch.cuda.device(dev) if dev.type == "cuda"
-                                      else nullcontext()):
+        with torch.inference_mode():
             self._loop()
 
     def _loop(self):
@@ -378,11 +495,13 @@ class ContinuousBatcher:
         row awaits its first chunk and the backlog allows it) or a full one.
         Cancelled sessions are stopped and their slots freed first."""
         cancelled = [i for i, s in enumerate(self._slots) if s is not None and s.handle.cancelled]
-        if cancelled:
-            self.eng.serve_stop(self.state, cancelled)
-            for i in cancelled:
-                self._slots[i].handle.out.put(None)
-                self._slots[i] = None
+        for g, eng in enumerate(self.engines):
+            rows = [i % self.per for i in cancelled if i // self.per == g]
+            if rows:
+                eng.serve_stop(self.states[g], rows)
+        for i in cancelled:
+            self._slots[i].handle.out.put(None)
+            self._slots[i] = None
         fresh = [s for s in self._slots if s is not None and s.emitted == 0 and not s.ramped]
         if ramp is None:
             ramp = self.ramp < self.cf and bool(fresh) and self._backlog_ok()
@@ -393,36 +512,57 @@ class ContinuousBatcher:
                 if s is not None and s.emitted == 0:
                     s.ramped = True
         cf = self.ramp if ramp else self.cf
+        snap = list(self._slots)
         t0 = time.perf_counter()
-        packed = self.eng.serve_tick(self.state, chunk=cf, nar_ctx=self.nar_ctx,
-                                     first_only=ramp, pcm16=self.pcm16)
-        event = None
-        if packed.is_cuda:
-            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            packed = host
+        parts = []
+        for g, (eng, st) in enumerate(zip(self.engines, self.states)):
+            if all(s is None for s in snap[g * self.per: (g + 1) * self.per]):
+                parts.append(None)  # only stopped rows: nothing to advance
+                continue
+            t1 = time.perf_counter()
+            with kernels.on_device(eng.device):
+                packed = eng.serve_tick(st, chunk=cf, nar_ctx=self.nar_ctx, first_only=ramp,
+                                        pcm16=self.pcm16)
+                event = None
+                if packed.is_cuda:
+                    # PyTorch's pinned pool hands this block out again only after the
+                    # copy's event has passed and the tick has been read
+                    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+                    host.copy_(packed, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(eng.device))
+                    packed = host
+            parts.append((packed, event))
+            self.shard_ticks[g] += 1
+            self._shard_dispatch_ms[g] = (self._shard_dispatch_ms[g]
+                                          + [(time.perf_counter() - t1) * 1000.0])[-100:]
         now = time.perf_counter()
         self._dispatch_ms = (self._dispatch_ms + [(now - t0) * 1000.0])[-100:]
         for s in self._slots:
             if s is not None and s.handle.first_tick_s is None:
                 s.handle.first_tick_s = now
-        self.ticks += 1
+        self.ticks += int(any(p is not None for p in parts))
         self.ramp_ticks += int(ramp)
-        return _Tick(packed, event, list(self._slots), cf)
+        return _Tick(parts, snap, cf)
 
     def _process_tick(self, tick: _Tick) -> None:
         """Wait for an issued tick's host copy and route its chunks. A slot
         freed or refilled since the tick was issued gets none of its rows."""
         t0 = time.perf_counter()
-        if tick.event is not None:
-            tick.event.synchronize()
-        flat = tick.packed.numpy()
+        n, per = tick.cf * self.hop, self.per
+        wav = np.zeros((self.B, n), np.int16 if self.pcm16 else np.float32)
+        info = np.zeros((4, self.B), np.int64)  # t, first_eos, stopped, n_new
+        for g, part in enumerate(tick.parts):
+            if part is None:
+                continue
+            packed, event = part
+            if event is not None:
+                event.synchronize()
+            flat = packed.numpy()
+            wav[g * per: (g + 1) * per] = flat[: per * n].reshape(per, n)
+            info[:, g * per: (g + 1) * per] = flat[per * n:].reshape(4, per)
         self._read_ms = (self._read_ms + [(time.perf_counter() - t0) * 1000.0])[-100:]
-        nwav = self.B * tick.cf * self.hop
-        wav = flat[:nwav].reshape(self.B, tick.cf * self.hop)
-        t, first_eos, stopped, n_new = flat[nwav:].reshape(4, self.B).astype(np.int64)
+        t, first_eos, stopped, n_new = info
         snap = tick.snap
         for i, s in enumerate(snap):
             if s is not None and self._slots[i] is s:
@@ -465,8 +605,6 @@ def _ref_leaves(ref) -> list:
 
 def _cat_refs(refs):
     """One-row references of one shape -> a reference with a row each."""
-    from sopro_tpu_torch.models.sopro import PreparedReference
-
     dev = refs[0].sv_ref.device if isinstance(refs[0].sv_ref, torch.Tensor) else "cpu"
     cat = lambda xs: torch.cat([torch.as_tensor(x).to(dev) for x in xs])
     return PreparedReference(

@@ -16,8 +16,11 @@ Configuration by environment, as the JAX package's server reads it:
   (default 8), SOPRO_ADMIT_GRACE_MS (default 6; 0 disables),
   SOPRO_MAX_FRAMES (default 2000), SOPRO_REF_SECONDS (default 12),
   SOPRO_RANDOM_INIT=1 (random weights), SOPRO_DEVICE ("cpu" runs on the
-  CPU; else the card). The Mimi snapshot is SOPRO_MIMI_REPO_ID (a local
-  directory, default the JAX package's "kyutai/mimi").
+  CPU; else the card), SOPRO_DP (> 1: the slots split over a mesh of that
+  many dp shards, `make_mesh(dp, dp=dp, tp=1)`: one card each, or dp shards
+  of the CPU under SOPRO_DEVICE=cpu). The Mimi snapshot is
+  SOPRO_MIMI_REPO_ID (a local directory, default the JAX package's
+  "kyutai/mimi").
 """
 
 from __future__ import annotations
@@ -141,6 +144,7 @@ class ServerConfig:
         self.random_init = os.environ.get("SOPRO_RANDOM_INIT", "") not in ("", "0")
         self.default_ref_seconds = float(os.environ.get("SOPRO_REF_SECONDS", "12.0"))
         self.device = "cpu" if os.environ.get("SOPRO_DEVICE") == "cpu" else "cuda"
+        self.dp = int(os.environ.get("SOPRO_DP", "0"))
 
 
 CFG = ServerConfig()
@@ -153,10 +157,12 @@ _ref_cache_lock = threading.Lock()
 def get_tts():
     """The server's (SoproTTS, started ContinuousBatcher), built on first
     use: random weights with SOPRO_RANDOM_INIT, else the SOPRO_REPO_ID
-    snapshot."""
+    snapshot; the batcher over a dp mesh when SOPRO_DP > 1."""
     global _tts, _batcher
     with _state_lock:
         if _tts is None:
+            import torch
+
             from sopro_tpu_torch.serve.scheduler import ContinuousBatcher
             from sopro_tpu_torch.tts import SoproTTS
 
@@ -165,9 +171,15 @@ def get_tts():
             else:
                 _tts = SoproTTS.from_pretrained(CFG.repo_id, mimi_repo_id=CFG.mimi_repo_id,
                                                 device=CFG.device)
+            mesh = None
+            if CFG.dp > 1:
+                from sopro_tpu_torch.parallel import make_mesh
+
+                cpu = [torch.device("cpu")] * CFG.dp if CFG.device == "cpu" else None
+                mesh = make_mesh(CFG.dp, dp=CFG.dp, tp=1, devices=cpu)
             _batcher = ContinuousBatcher(
                 _tts, slots=CFG.slots, chunk_frames=CFG.chunk_size, ramp_frames=CFG.ramp_frames,
-                max_frames=CFG.max_frames, admit_grace_ms=CFG.admit_grace_ms,
+                max_frames=CFG.max_frames, admit_grace_ms=CFG.admit_grace_ms, mesh=mesh,
                 pcm16=True,  # the wire is 16-bit: half the tick's copy
             )
             _batcher.start()

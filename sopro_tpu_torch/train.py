@@ -18,7 +18,7 @@ Training runs none of the port's kernels: the forward is plain PyTorch (the
 JAX training graph reaches no Pallas kernel either). After each step the
 model's kernel-side caches are dropped (`SoproModel.weights_changed`), so
 serving from the same model decodes with the new weights. Data parallelism
-over several processes is `parallel.py`.
+over several processes is `parallel/data.py`.
 """
 
 from __future__ import annotations

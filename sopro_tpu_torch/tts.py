@@ -33,7 +33,8 @@ from sopro_tpu_torch.codec.mimi_config import MimiConfig
 from sopro_tpu_torch.config import RuntimeConfig, SoproTTSConfig
 from sopro_tpu_torch.constants import DEFAULT_MIMI_ID, TARGET_SR
 from sopro_tpu_torch.engine import Engine
-from sopro_tpu_torch.models.sopro import PreparedReference, tile_reference
+from sopro_tpu_torch.models.sopro import PreparedReference, reference_to, tile_reference
+from sopro_tpu_torch.parallel.mesh import Mesh, replicas, row_blocks
 from sopro_tpu_torch.tokenizer import SimpleCharTokenizer, TextTokenizer
 
 
@@ -324,6 +325,7 @@ class SoproTTS:
         seeds: Optional[Sequence[int]] = None,
         pcm16: bool = False,
         pipeline_group: Optional[int] = None,
+        mesh: Optional[Mesh] = None,
     ) -> List[np.ndarray]:
         """Batched synthesis with one reference: the texts decode as padded
         batches, each row with its own seed (default: its index) and its own
@@ -332,26 +334,38 @@ class SoproTTS:
         enqueued before the first is copied to the host. Returns one
         [1, S_i] waveform per text (float32, or int16 with `pcm16=True`,
         converted on the device); row i equals `synthesize(texts[i],
-        seed=seeds[i], fused=True)`."""
+        seed=seeds[i], fused=True)`.
+
+        `mesh` (`parallel.make_mesh`): each group's rows split over the
+        mesh's dp axis (`parallel.row_blocks`; a group of rows that dp does
+        not divide raises ValueError), every shard on its dp group's replica
+        (`parallel.replicas`) padded to its group's text bucket; the group
+        size rounds as JAX's does, to a multiple of dp and at least dp. All
+        shards of all groups are enqueued before the first is read."""
         ref = self._ref(ref, ref_audio_path, ref_tokens_tq, ref_seconds)
         b = len(texts)
         seeds = list(seeds) if seeds is not None else list(range(b))
         g = int(pipeline_group or self.rt.batch_pipeline_group or b) or b
+        engines = [self.engine] if mesh is None else replicas(self.engine, mesh)
+        g = max(len(engines), (g // len(engines)) * len(engines))
         ids_rows = [self.encode_text(t) for t in texts]
         hop = int(self.engine.codec.cfg.hop_length)
-        packed = [
-            self.engine.synthesize_batch_dispatch(
-                ids_rows[lo: lo + g], tile_reference(ref, len(ids_rows[lo: lo + g])),
-                max_frames=max_frames, style_strength=self._style(style_strength),
-                seeds=seeds[lo: lo + g], top_p=top_p, temperature=temperature,
-                anti_loop=anti_loop, min_gen=int(min_gen_frames or self.cfg.min_gen_frames),
-                pcm16=pcm16,
-            )
-            for lo in range(0, b, g)
-        ]
+        refs = [reference_to(ref, eng.device) for eng in engines]
+        packed = []
+        for lo in range(0, b, g):
+            rows = ids_rows[lo: lo + g]
+            text_len = max(int(r.shape[0]) for r in rows)
+            for eng, eng_ref, (a, z) in zip(engines, refs, row_blocks(len(rows), len(engines))):
+                packed.append((eng, eng.synthesize_batch_dispatch(
+                    rows[a:z], tile_reference(eng_ref, z - a),
+                    max_frames=max_frames, style_strength=self._style(style_strength),
+                    seeds=seeds[lo + a: lo + z], top_p=top_p, temperature=temperature,
+                    anti_loop=anti_loop, min_gen=int(min_gen_frames or self.cfg.min_gen_frames),
+                    pcm16=pcm16, text_len=text_len,
+                )))
         outs = []
-        for p in packed:
-            wav, lengths = self.engine.synthesize_batch_read(p)
+        for eng, p in packed:
+            wav, lengths = eng.synthesize_batch_read(p)
             outs.extend(wav[i: i + 1, : int(lengths[i]) * hop] for i in range(wav.shape[0]))
         return outs
 

@@ -1,7 +1,10 @@
 """The five CUDA kernels against their plain PyTorch versions on the card,
 at small shapes; the synthesize, batch, per-step and stream paths and a
 training step on the card against the CPU; serving after a training step
-from rebuilt weight packs. Each test skips without a CUDA device.
+from rebuilt weight packs; every kernel launched on tensors of another card
+than the current one, and serving and batch synthesis over a mesh against
+one shard. Each test skips without a CUDA device (the launch-device test
+also with fewer than 2 cards).
 
 This file imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -589,6 +592,127 @@ def test_seanet_chunk_kernel_at_8_rows_with_a_mask(cuda):
             else:
                 assert torch.equal(new.emb_hist[r], st.emb_hist[r])
         st, st_cpu = new, to(new, "cpu")
+
+
+def _kernel_outputs(dev):
+    """K1, K5, K2, K3 and K4 launched on tensors of `dev` (the small
+    models, fixed inputs) -> their outputs on the CPU."""
+    from sopro_tpu_torch.codec.mimi_config import required_halo
+    from sopro_tpu_torch.codec.vocoder import seanet_decode, seanet_decode_chunk
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.ops.ar_loop import ar_loop
+    from sopro_tpu_torch.ops.ar_step import ar_step
+    from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax
+
+    _, tts = _tts_pair(dev)
+    model, cfg, codec = tts.engine.model, tts.cfg, tts.engine.codec
+    g = torch.Generator().manual_seed(9)
+    txt = torch.randn(2, 12, cfg.d_model, generator=g).to(dev)
+    mask = torch.stack([torch.arange(12) < 9, torch.arange(12) < 5]).to(dev)
+    cond = (torch.randn(2, 25, cfg.d_model, generator=g) * 0.1).to(dev)
+    carry = M.init_ar_carry(cfg, 2, 25, 7, dev)
+    state = {k: getattr(carry, k) for k in ("t", "last", "streak", "stopped", "first_eos", "key",
+                                            "hist", "bufs")}
+    out = dict(zip(("k1_tokens", "k1_state"),
+                   ar_loop(M.ar_context(model, txt, mask), cond, state,
+                           M.ARSettings().per_row(2, dev), 25, True)))
+    out["k1_state"] = out["k1_state"]["bufs"]
+    x = torch.randn(2, cfg.d_model, generator=g).to(dev)
+    out["k5_logits"], out["k5_bufs"] = ar_step(M.ar_step_context(model, txt, mask), x, state["bufs"])
+    hid, w, b, packed = next(iter(model.nar.head_stacks().values()))
+    out["k2"] = nar_heads_argmax(torch.randn(1, 37, w.shape[1], generator=g).to(dev), hid, w, b,
+                                 packed)
+    mcfg = codec.cfg
+    out["k3"] = seanet_decode(codec.packed_decoder(), mcfg,
+                              torch.randn(2, 13, mcfg.hidden_size, generator=g).to(dev))
+    ext = torch.randn(2, required_halo(mcfg) + 4, mcfg.hidden_size, generator=g).to(dev)
+    out["k4"] = seanet_decode_chunk(codec.packed_decoder(), mcfg, ext,
+                                    torch.tensor([0, 6], dtype=torch.int32, device=dev))
+    return {k: v.cpu() for k, v in out.items()}
+
+
+@pytest.mark.cuda
+def test_launch_device_kernels_run_on_their_tensors_card(cuda):
+    """With cuda:0 current, K1, K5, K2, K3 and K4 on tensors of the last
+    card launch there (each entry point runs inside `kernels.on_device`)
+    and equal the same launches on cuda:0: ids and tokens exact, floats
+    within 1e-6 of their peak (one card model, one kernel). Skips with
+    fewer than 2 cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 or more CUDA devices")
+    torch.cuda.set_device(0)
+    want = _kernel_outputs(torch.device("cuda", 0))
+    kernels.reset_launches()
+    got = _kernel_outputs(torch.device("cuda", n - 1))
+    assert torch.cuda.current_device() == 0
+    assert all(kernels.LAUNCHES[k] > 0 for k in kernels.KERNELS), kernels.LAUNCHES
+    for k, w in want.items():
+        if w.is_floating_point():
+            assert float((got[k] - w).abs().max()) <= 1e-6 * float(w.abs().max()), k
+        else:
+            assert torch.equal(got[k], w), k
+
+
+MESH_CAPS = (20, 20, 20, 20, 4, 8, 12, 16, 20, 20, 20, 20)
+
+
+@pytest.mark.cuda
+def test_mesh_serve_and_batch_match_one_shard(cuda):
+    """chip_smoke phase 14's bars at the small config: dp = 4 over 4 cards
+    (2 over 2 or 3), else 2 shards on cuda:0. A `ContinuousBatcher(mesh=)`
+    (8 slots, chunk 4, ramp 2, pcm16) takes an 8-way burst and 4 later
+    sessions as the unsharded batcher does: each session's frame count
+    equal, PCM within 1 LSB, AR tokens equal for the sessions still in
+    their slot; K1 launches = the shards' ticks. `synthesize_batch(mesh=)`
+    rows within 1e-4 of their peak of the unsharded batch's, lengths equal."""
+    from sopro_tpu_torch.parallel import make_mesh
+    from sopro_tpu_torch.serve import ContinuousBatcher
+
+    n = torch.cuda.device_count()
+    dp = 4 if n >= 4 else 2
+    devices = [torch.device("cuda", i) for i in range(dp)] if n >= 2 else [torch.device("cuda", 0)] * 2
+    mesh = make_mesh(dp, dp=dp, tp=1, devices=devices)
+    _, tts = _tts_pair(cuda)
+    ref = tts.prepare_reference(ref_tokens_tq=np.random.default_rng(2).integers(
+        0, 32, (10, 8)).astype(np.int32))
+    kw = dict(slots=8, chunk_frames=4, ramp_frames=2, text_bucket=16, max_frames=CFG["max_frames"],
+              pcm16=True)
+    runs = {}
+    for name, extra in (("one", {}), ("mesh", {"mesh": mesh})):
+        b = ContinuousBatcher(tts, **kw, **extra)
+        kernels.reset_launches()
+        try:
+            hs = [b.submit(f"row {i}", ref, seed=100 + i, max_frames=MESH_CAPS[i]) for i in range(8)]
+            first = hs[0].out.get(timeout=300)
+            hs += [b.submit(f"row {i}", ref, seed=100 + i, max_frames=MESH_CAPS[i])
+                   for i in range(8, 12)]
+            outs = [np.concatenate(([first] if i == 0 else []) + list(h.chunks()), axis=1)
+                    for i, h in enumerate(hs)]
+        finally:
+            b.stop()
+        assert kernels.LAUNCHES["ar_loop"] == sum(b.stats()["shard_ticks"]) > 0
+        last = {h.slot: i for i, h in enumerate(hs)}
+        toks = {i: b.states[slot // b.per].carry.tokens[slot % b.per].cpu()
+                for slot, i in last.items()}
+        runs[name] = (outs, toks)
+    (one, one_toks), (sharded, mesh_toks) = runs["one"], runs["mesh"]
+    for a, m in zip(one, sharded):
+        assert a.shape == m.shape
+        assert int(np.abs(a.astype(np.int32) - m.astype(np.int32)).max(initial=0)) <= 1
+    common = set(one_toks) & set(mesh_toks)
+    assert common
+    for i in common:
+        frames = one[i].shape[1] // tts.engine.mimi_cfg.hop_length
+        assert torch.equal(one_toks[i][:frames], mesh_toks[i][:frames]), i
+    texts, seeds = ("hello there", "a second, longer request", "hello there", "short one"), (3, 5, 3, 4)
+    want = tts.synthesize_batch(texts, ref=ref, max_frames=24, seeds=seeds)
+    kernels.reset_launches()
+    got = tts.synthesize_batch(texts, ref=ref, max_frames=24, seeds=seeds, mesh=mesh)
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("ar_loop", "nar_heads", "seanet")), kernels.LAUNCHES
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=1e-4 * float(np.abs(w).max()), rtol=0)
 
 
 def _train_models(dev):

@@ -301,6 +301,7 @@ def test_package_surface_and_imports_leave_jax_out():
         "import sopro_tpu_torch.hub, sopro_tpu_torch.tokenizer, sopro_tpu_torch.codec.convert\n"
         "import sopro_tpu_torch.codec.adapter, sopro_tpu_torch.serve, sopro_tpu_torch.serve.scheduler\n"
         "import sopro_tpu_torch.serve.server, sopro_tpu_torch.serve.server_stdlib\n"
+        "from sopro_tpu_torch.parallel import Mesh, make_mesh, replicas, make_train_step\n"
         "from sopro_tpu_torch.serve import ContinuousBatcher, SessionHandle\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'sopro_tpu' or m.startswith('sopro_tpu.') or m == 'transformers']\n"

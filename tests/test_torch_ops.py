@@ -184,7 +184,7 @@ def test_import_leaves_jax_out():
         "import sys, sopro_tpu_torch.tts, sopro_tpu_torch.engine, "
         "sopro_tpu_torch.codec.vocoder, sopro_tpu_torch.ops.ar_loop, sopro_tpu_torch.ops.ar_step, "
         "sopro_tpu_torch.ops.nar_heads, sopro_tpu_torch.streaming, "
-        "sopro_tpu_torch.codec.streaming, sopro_tpu_torch.audio\n"
+        "sopro_tpu_torch.codec.streaming, sopro_tpu_torch.audio, sopro_tpu_torch.parallel.mesh\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'sopro_tpu' or m.startswith('sopro_tpu.')]\n"
         "assert not bad, bad\n"
