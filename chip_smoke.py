@@ -49,6 +49,9 @@ Phases (each raises, so the script exits non-zero, on failure):
    400-frame `synthesize` requests equal phase 4's bit for bit; where
    `transformers` imports, a WordLevel tokenizer in the snapshot goes through
    `from_pretrained`'s `TextTokenizer` (the route taken is printed);
+   `from_pretrained(warmup=True)` launches K1-K4, and a request and a stream
+   after it build nothing (the same kernel libraries, K1 weight streams, K2
+   head stacks and SEANet pack) and equal phase 4's;
 10. serve: `ContinuousBatcher` at 8 slots, text bucket 256, max_frames 400.
    Pass A (chunk 16, ramp 4, pcm16, after `warmup` and `reset_stats`): an
    8-way burst, then 4 sessions mid-flight (12 on 8 slots; counters zeroed
@@ -117,6 +120,16 @@ Phases (each raises, so the script exits non-zero, on failure):
    frames (K1, K2, K3 launched): every row within 1e-4 of its peak of the
    unsharded batch's row, lengths equal; seconds of audio per second of
    both, in turns.
+15. tp training (`parallel/tensor.py`): phase 11's model and batch on
+   (dp = 1, tp = 2) with both shards on cuda:0 (a rehearsal), tp = 2 over 2
+   cards and (dp = 2, tp = 2) over 4 where present: the loss within 2e-5
+   relative and each leaf's gathered gradient within 1e-4 of its peak
+   (plus 1e-6 of the largest) of the unsharded step's; after 2 steps of
+   each the parameters within the TP_PARAM tolerances; the sharded state
+   saved and restored onto an unsharded model bit for bit, and a third step
+   of both within the same tolerances; no kernel of K1-K5 launched; step
+   ms (CUDA events), host ms, valid frames/s and peak memory per card
+   beside the unsharded step timed in the same turn and phase 11's.
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}. Per kernel the record holds its
 launches in its path's counted run and per request of that run (K1, K2 and
@@ -909,6 +922,7 @@ def drive_checkpoint(tts, ref, ref_tokens, dev, mcfg):
                 raise AssertionError(f"checkpoint: the reloaded model's synthesize (seed={seed}) "
                                      "differs from from_random's")
             log(f"  reloaded synthesize seed={seed}: {got.shape[1]} samples, bit-identical")
+        check_warmup(tts, ref, ref_tokens, dev, sdir, mdir)
         try:
             import transformers  # noqa: F401
         except ImportError:
@@ -926,6 +940,50 @@ def drive_checkpoint(tts, ref, ref_tokens, dev, mcfg):
             raise AssertionError("checkpoint: the BPE route differs from the reloaded model")
         log(f"  tokenizer route: transformers AutoTokenizer (TextTokenizer), ids {ids}; "
             f"synthesize {got.shape[1]} samples, equal to the reloaded model fed the same ids")
+
+
+def check_warmup(tts, ref, ref_tokens, dev, sdir, mdir):
+    """`from_pretrained(warmup=True)` launches K1-K4; the request and the
+    stream after it build nothing (the kernel libraries loaded, K1's weight
+    streams, K2's head stacks and the SEANet pack are the objects warmup
+    made) and equal phase 4's model."""
+    from sopro_tpu_torch import kernels
+    from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
+    from sopro_tpu_torch.tts import SoproTTS
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    warm = SoproTTS.from_pretrained(sdir, mimi_repo_id=mdir, device=dev,
+                                    tokenizer=SimpleCharTokenizer(), warmup=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launched("from_pretrained(warmup=True)", ("ar_loop", "nar_heads", "seanet", "seanet_chunk"))
+
+    def built():
+        m = warm.engine.model
+        return (dict(m.ar._streams), m.ar._stacked, m.nar._stacks, warm.engine.mimi._packed,
+                dict(kernels._LIBS))
+
+    before = built()
+    text, seed = REQUESTS[0]
+    wref = warm.prepare_reference(ref_tokens_tq=ref_tokens)
+    t2 = time.perf_counter()
+    got = warm.synthesize(text, ref=wref, max_frames=MAX_FRAMES, seed=seed)
+    t3 = time.perf_counter()
+    chunks, _, _ = run_stream(warm, STREAM_REQUESTS[0][0], wref, STREAM_REQUESTS[0][1])
+    after = built()
+    same = (after[0].keys() == before[0].keys() and all(after[0][k] is v for k, v in before[0].items())
+            and all(a is b for a, b in zip(after[1:4], before[1:4]))
+            and after[4].keys() == before[4].keys())
+    if not same:
+        raise AssertionError("warmup: the first request after from_pretrained(warmup=True) built "
+                             "a kernel library or a weight pack")
+    want = tts.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=seed)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError("warmup: the warmed model's synthesize differs from phase 4's")
+    log(f"  from_pretrained(warmup=True): {t1 - t0:.2f} s (K1-K4 launched); the first request "
+        f"{(t3 - t2) * 1e3:.1f} ms and a {len(chunks)}-chunk stream after it built nothing "
+        "(same libraries, K1 streams, K2 stacks, SEANet pack); synthesize bit-identical to phase 4")
 
 
 SERVE_TEXTS = [f"Session number {i} speaks on a shared card, each with its own seed." for i in range(12)]
@@ -1594,6 +1652,181 @@ def drive_train(tts, ref_tokens, dev, rng, cfg, mcfg):
         raise AssertionError("train: synthesize did not change with the weights")
     log(f"  trained synthesize: {after.shape[1]} samples, bit-identical to the model reloaded "
         "through save_pretrained / from_pretrained (and different from before the steps)")
+    return out, tree, host_batch
+
+
+# phase 15: the (dp, tp) training layout against the unsharded step, phase 11's model and batch
+TP_WARM, TP_STEPS = 2, 6
+TP_LOSS_RTOL = 2e-5
+TP_GRAD_TOL = 1e-4  # of each leaf's largest |gradient|, plus 1e-6 of the largest of all leaves
+# parameters after 2 AdamW steps (lr 3e-4): an element whose gradient is near 0 takes a step
+# whose size its rounding sets, so at most TP_PARAM_SHARE of the elements may differ by more
+# than TP_PARAM_TOL, and none by more than TP_PARAM_MAX
+TP_PARAM_TOL, TP_PARAM_SHARE, TP_PARAM_MAX = 1e-6, 1e-4, 2e-4
+
+
+def tp_layouts():
+    """(name, mesh): tp = 2 with both shards on cuda:0 (a rehearsal: the
+    shards take turns on one card), tp = 2 over 2 cards and (dp = 2, tp = 2)
+    over 4 where they are present."""
+    from sopro_tpu_torch.parallel import make_mesh
+
+    dev0 = torch.device("cuda", 0)
+    out = [("dp=1 tp=2 on cuda:0", make_mesh(2, dp=1, tp=2, devices=[dev0] * 2))]
+    n = torch.cuda.device_count()
+    if n >= 2:
+        out.append(("dp=1 tp=2 over 2 cards", make_mesh(2, dp=1, tp=2)))
+    if n >= 4:
+        out.append(("dp=2 tp=2 over 4 cards", make_mesh(4, dp=2, tp=2)))
+    return out
+
+
+def params_close(state, model, dev, what):
+    """Raise unless the state's gathered parameters are within the TP_PARAM
+    tolerances of `model`'s; -> (largest difference, elements beyond TP_PARAM_TOL)."""
+    full = state.full_leaves(dev)
+    diff = torch.cat([(full[n] - p.detach()).abs().flatten() for n, p in model.named_parameters()])
+    worst, over = float(diff.max()), int((diff > TP_PARAM_TOL).sum())
+    if worst > TP_PARAM_MAX or over > TP_PARAM_SHARE * diff.numel():
+        raise AssertionError(f"{what}: parameters differ by up to {worst:.3e}, {over} of "
+                             f"{diff.numel()} elements beyond {TP_PARAM_TOL}")
+    return worst, over
+
+
+def close_metrics(got, want, what):
+    rel = max(abs(float(got[k]) - float(want[k])) / abs(float(want[k])) for k in want)
+    if not rel <= TP_LOSS_RTOL:
+        raise AssertionError(f"{what}: metrics {({k: float(v) for k, v in got.items()})} vs "
+                             f"{({k: float(v) for k, v in want.items()})}")
+    return rel
+
+
+def timed_steps(step, batch, devs):
+    """TP_WARM + TP_STEPS steps -> (median ms between CUDA events on the
+    first card over the timed steps, host wall ms per timed step)."""
+    events = []
+    for i in range(TP_WARM + TP_STEPS):
+        if i == TP_WARM:
+            for d in devs:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(batch)
+        end.record()
+        events.append((start, end))
+    for d in devs:
+        torch.cuda.synchronize(d)
+    wall = (time.perf_counter() - t0) / TP_STEPS * 1e3
+    return statistics.median(s.elapsed_time(e) for s, e in events[TP_WARM:]), wall
+
+
+def drive_tp(tree, host_batch, cfg, unsharded):
+    """Phase 15: per layout of `tp_layouts`, the sharded loss and gradients
+    against the unsharded ones on the same weights and batch, 2 steps of
+    each, a checkpoint of the sharded state restored onto an unsharded
+    model and a third step of both, then step ms, frames/s and peak memory
+    per card beside the unsharded step's."""
+    from sopro_tpu_torch import kernels
+    from sopro_tpu_torch import train as T
+    from sopro_tpu_torch import weights as W
+    from sopro_tpu_torch.parallel import tensor as TP
+
+    frames = int(host_batch.frame_mask.sum())
+    out = {}
+    for name, mesh in tp_layouts():
+        dev0 = mesh.devices[0, 0]
+        devs = sorted(set(mesh.devices.flat), key=str)
+        batch = host_batch.to(dev0)
+        kernels.reset_launches()
+        model = W.sopro_params_from_jax(tree, cfg, dev0)
+        state, opt = TP.shard_train_state(mesh, model, T.make_optimizer(model))
+        del model
+        plain = W.sopro_params_from_jax(tree, cfg, dev0)
+        plain_opt = T.make_optimizer(plain)
+        whole = sum(lay.dim is not None for lay in state.layouts)
+        where = sorted({str(p.device) for p in state.parameters()})
+        log(f"  {name}: {whole} of {len(state.layouts)} leaves split over tp, masters on {where}")
+
+        # the loss and every leaf's gradient against the unsharded ones
+        got = []
+        for o, f in ((plain_opt, lambda: T.loss_fn(plain, batch)), (opt, lambda: TP.loss_fn(state, batch))):
+            o.zero_grad(set_to_none=False)
+            loss, metrics = f()
+            loss.backward()
+            T.fill_missing_grads(o)
+            got.append({k: v.detach() for k, v in metrics.items()})
+        loss_rel = close_metrics(got[1], got[0], f"{name}: loss")
+        want = {n: p.grad for n, p in plain.named_parameters()}
+        gmax = max(float(g.abs().max()) for g in want.values())
+        ratio, leaf = max(
+            (float((lay.join([p.grad.to(dev0) for p in state.leaves[lay.path]])
+                    - want[lay.name]).abs().max())
+             / (TP_GRAD_TOL * float(want[lay.name].abs().max()) + 1e-6 * gmax), lay.name)
+            for lay in state.layouts)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name}: leaf {leaf}'s gradient at {ratio:.3f} of its tolerance")
+        log(f"  {name}: loss {float(got[1]['loss']):.6f}, rel err {loss_rel:.2e} (tol {TP_LOSS_RTOL}); "
+            f"worst leaf {leaf}: gradient error {ratio:.4f} of its tolerance")
+
+        # 2 steps of each, then a checkpoint restored onto an unsharded model, and a third step
+        step, plain_step = TP.make_train_step(state, opt), T.make_train_step(plain, plain_opt)
+        for i in range(2):
+            close_metrics(step(batch), plain_step(batch), f"{name}: step {i + 1}")
+        worst, over = params_close(state, plain, dev0, f"{name}: 2 steps")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "train.pt")
+            T.save_train_checkpoint(path, state, opt, step=2)
+            resumed = W.sopro_params_from_jax(tree, cfg, dev0)
+            resumed_opt = T.make_optimizer(resumed)
+            if T.restore_train_checkpoint(path, resumed, resumed_opt) != 2:
+                raise AssertionError(f"{name}: the step number was not restored")
+        saved = state.train_state_dict(opt)
+        same = all(torch.equal(p.detach().cpu(), saved["model"][n]) for n, p in resumed.named_parameters())
+        rstate = resumed_opt.state_dict()["state"]
+        same_m = all(torch.equal(rstate[i][k].cpu(), v) for i, st in saved["optimizer"]["state"].items()
+                     for k, v in st.items())
+        if not (same and same_m):
+            raise AssertionError(f"{name}: the unsharded restore differs (params {same}, moments {same_m})")
+        close_metrics(step(batch), T.make_train_step(resumed, resumed_opt)(batch), f"{name}: step 3")
+        worst3, over3 = params_close(state, resumed, dev0, f"{name}: step 3 after the restore")
+        log(f"  {name}: 2 steps: parameters within {worst:.3e} ({over} elements beyond "
+            f"{TP_PARAM_TOL}); saved, restored onto an unsharded model bit for bit (parameters and "
+            f"moments), its step 3 within {worst3:.3e} ({over3} beyond) of the sharded step 3")
+        del resumed, resumed_opt, saved
+
+        # timing: the sharded and the unsharded step in turns on the same batch
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+        # what stays allocated between steps: both models' parameters, gradients and moments
+        held = {str(d): torch.cuda.memory_allocated(d) / 2**30 for d in devs}
+        ms, wall = timed_steps(step, batch, devs)
+        peaks = {str(d): torch.cuda.max_memory_allocated(d) / 2**30 for d in devs}
+        torch.cuda.reset_peak_memory_stats(dev0)
+        plain_ms, plain_wall = timed_steps(plain_step, batch, [dev0])
+        plain_peak = torch.cuda.max_memory_allocated(dev0) / 2**30
+        if any(kernels.LAUNCHES.values()):
+            raise AssertionError(f"{name}: the tp steps launched a serving kernel: {kernels.LAUNCHES}")
+        row = dict(step_ms=ms, host_ms=wall, frames_per_s=frames / (ms / 1e3), peak_gib=peaks, held_gib=held,
+                   plain_step_ms=plain_ms, plain_host_ms=plain_wall, plain_peak_gib=plain_peak,
+                   loss_rel_err=loss_rel, grad_err_of_tol=ratio, param_err_2=worst, param_over_2=over,
+                   param_err_3=worst3)
+        if len(devs) == 1:
+            busy, launches, syncs, top, _ = profile_steps(step, batch)
+            row.update(kernels_busy=busy, launches_per_step=launches, syncs_per_step=syncs)
+            log(f"  {name}: profiler, 2 steps: kernels busy {busy * 100:.1f} %, {launches:.0f} "
+                f"launches and {syncs:.1f} synchronisations per step")
+        log(f"  {name}: step {ms:.3f} ms (CUDA events on cuda:0, median of {TP_STEPS} after "
+            f"{TP_WARM} warm), host wall {wall:.3f} ms; {frames / (ms / 1e3):.0f} valid frames/s; "
+            "peak memory " + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items()) + " (held "
+            "between steps, both models with their gradients and moments: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in held.items()) + ")")
+        log(f"  {name}: the unsharded step in the same turn {plain_ms:.3f} ms (host {plain_wall:.3f}), "
+            f"peak {plain_peak:.2f} GiB; phase 11's {unsharded['step_ms']:.3f} ms, "
+            f"{unsharded['peak_gib']:.2f} GiB")
+        out[name] = row
+        del state, opt, plain, plain_opt, step, plain_step
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2344,7 +2577,7 @@ def main() -> int:
     serve = drive_serve(tts, ref, dev, rng)
     log(f"[11] train: full width, B = {len(TRAIN_LENGTHS)} x S = {TRAIN_S}; card vs CPU, "
         "NCCL world size 1, resume, serving the trained model")
-    train = drive_train(tts, ref_tokens, dev, rng, cfg, mcfg)
+    train, train_tree, train_host = drive_train(tts, ref_tokens, dev, rng, cfg, mcfg)
     log(f"  train summary: {json.dumps(train)}")
     log("[12] CLI: python -m sopro_tpu_torch.cli --random_init --device cuda")
     drive_cli(tts, ref, ref_tokens)
@@ -2354,6 +2587,12 @@ def main() -> int:
     log("[14] mesh: ContinuousBatcher(mesh=) and synthesize_batch(mesh=) against one shard")
     mesh_out = drive_mesh(tts, ref, tts.engine.mimi_cfg.hop_length, tts.engine.mimi_cfg.sampling_rate)
     log(f"  mesh summary: {json.dumps(mesh_out)}")
+    log(f"[15] tp training: phase 11's model and batch on (dp, tp) meshes against the unsharded step")
+    for line in gpu_lines():
+        log(f"  card: {line}")
+    tp_out = drive_tp(train_tree, train_host, cfg, train)
+    log(f"  tp summary: {json.dumps(tp_out)}")
+    del train_tree, train_host
 
     # each kernel's count from the path it belongs to (K4: the stream, K5: the per-step
     # route), and per request of that path's counted run

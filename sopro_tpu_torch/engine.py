@@ -69,6 +69,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sopro_tpu_torch import kernels
 from sopro_tpu_torch import sampling as S
 from sopro_tpu_torch.codec.mimi import MimiCodec, mimi_encode
 from sopro_tpu_torch.codec.streaming import (
@@ -498,6 +499,34 @@ class Engine:
             codec.p, codec.cfg, toks[:, w - cf:], mstate, packed=codec.packed_decoder()
         )
         return (*self._chunk_out(wav, carry), carry, mstate)
+
+    # -- warmup ----------------------------------------------------------------
+
+    def warmup(self, *, text_len: int = 64, max_frames: int = 400, chunk: int = 6) -> None:
+        """Pay the first-call costs before the first request (counterpart:
+        the JAX engine's `warmup`): on a CUDA device the kernels' builds and
+        library loads, then the weight packs (K1's weight stream, K2's head
+        stacks, K3/K4's decoder pack) and one run of each production path at
+        its buckets: a 12 s reference (its ref bucket), a text of `text_len`
+        tokens, `synthesize`'s fused plan in float32 and the batch plan's
+        pcm16 output, a stream's first chunk and one later chunk. A
+        `synthesize` or `stream` call at these buckets then builds
+        nothing. `text_len` and `max_frames` are capped at what the
+        config's position tables hold (`max_text_len`, `pos_emb_max` + 7)."""
+        if self.device.type == "cuda":
+            kernels.build()
+        ref = self.prepare_reference(
+            np.zeros((int(12.0 * self.cfg.mimi_fps), int(self.cfg.num_codebooks)), np.int32))
+        ids = np.ones((min(int(text_len), int(self.cfg.max_text_len)),), np.int32)
+        n = min(int(max_frames), int(self.cfg.pos_emb_max) + 7)
+        kw = dict(top_p=0.9, temperature=1.0, anti_loop=True, min_gen=1)
+        self.synthesize_fused(ids, ref, max_frames=n, style_strength=1.0, seed=0, **kw)
+        self.synthesize_batch_read(self.synthesize_batch_dispatch(
+            [ids], ref, max_frames=n, style_strength=1.0, seeds=[0], pcm16=True, **kw))
+        _, valid, _, carry, ctx, cond, mstate = self.stream_start_fused(
+            ids, ref, max_frames=n, chunk=chunk, style_strength=1.0, seed=0, **kw)
+        self.stream_step_fused(carry, ctx, cond, mstate, int(valid), chunk=chunk,
+                               nar_ctx=int(self.cfg.rf_nar()), **kw)
 
     # -- the serving plan: B slots, each a session at its own age -----------
 

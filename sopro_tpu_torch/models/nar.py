@@ -13,6 +13,7 @@ import torch
 
 from sopro_tpu_torch.config import SoproTTSConfig
 from sopro_tpu_torch.models.base import ParamModule
+from sopro_tpu_torch.ops import tp
 from sopro_tpu_torch.ops.blocks import gelu, linear, rmsnorm, ssmlite
 from sopro_tpu_torch.ops.embeddings import CodebookEmbeddingSpec, cb_sum_embed_subset
 from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax, pack_nar_heads
@@ -79,8 +80,13 @@ def nar_forward_stage(
 ) -> torch.Tensor:
     """One refinement stage -> logits [B, T', n_heads, codebook_size]
     (training; T' = `head_tail` or T). The head product is a plain einsum,
-    as in the JAX package."""
+    as in the JAX package; with the heads' weights split on their vocab
+    axis (`ops.tp.Shards`) the logits come split the same way."""
     z = _stage_hidden(p, cfg, stage, cond, prev_emb, mask, head_tail)
+    heads = p["heads"][stage]
+    if isinstance(heads[0]["w"], tp.Shards):
+        zh = z[:, :, None, :] + p["head_id_emb"][stage]["emb"][None, None, :, :]
+        return tp.head_logits(zh, [hp["w"] for hp in heads], [hp["b"] for hp in heads])
     hid, w_stack, b_stack = _head_weights(p, stage)
     zh = z[:, :, None, :] + hid[None, None, :, :]
     return torch.einsum("bthd,hdv->bthv", zh, w_stack) + b_stack[None, None]

@@ -15,6 +15,7 @@ from sopro_tpu_torch.ops.blocks import (
     layernorm,
     linear,
 )
+from sopro_tpu_torch.ops.tp import take_rows
 
 Params = Dict
 
@@ -30,7 +31,7 @@ def token2sv(
     if mask is None:
         mask = torch.ones((b, t), dtype=torch.bool, device=tokens_btq.device)
     q_idx = torch.arange(q, device=tokens_btq.device)[None, None, :]
-    raw = p["emb"]["emb"][q_idx * vocab_size + tokens_btq.long()]  # [B, T, Q, d]
+    raw = take_rows(p["emb"]["emb"], q_idx * vocab_size + tokens_btq.long())  # [B, T, Q, d]
     raw = raw * mask[:, :, None, None].to(raw.dtype)
     w = torch.softmax(p["cb_weights"].float(), dim=0).to(raw.dtype)
     x = torch.einsum("btqd,q->btd", raw, w)

@@ -13,6 +13,7 @@ from sopro_tpu_torch.config import SoproTTSConfig
 from sopro_tpu_torch.models.base import ParamModule
 from sopro_tpu_torch.ops.blocks import rmsnorm, ssmlite
 from sopro_tpu_torch.ops.embeddings import sinusoidal_table
+from sopro_tpu_torch.ops.tp import take_rows
 
 Params = Dict
 
@@ -27,8 +28,7 @@ def text_encoder(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """text_ids [B, L] int, mask [B, L] bool (True=valid) ->
     (txt_seq [B, L, D], txt_pool [B, D])."""
-    emb = p["embed"]["emb"]
-    x = emb[text_ids.long()]
+    x = take_rows(p["embed"]["emb"], text_ids.long())
     pos = torch.from_numpy(_pos_table(cfg.d_model, cfg.max_text_len + 8)[: x.shape[1]])
     x = x + pos[None].to(device=x.device, dtype=x.dtype)
     x = x * mask[..., None].to(x.dtype)

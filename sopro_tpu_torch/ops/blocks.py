@@ -3,7 +3,9 @@
 
 Parameters are nested dicts of tensors in the JAX package's layouts: linear
 weights are [in, out], depthwise conv weights [k, 1, D], activations [B, T, D].
-Norms compute in float32.
+Norms compute in float32. A leaf may be a `ops.tp.Shards` (a dp group's
+tensor-parallel training tree): `linear`, `glu` and the SSMLite FFN then
+compute on the shards.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from sopro_tpu_torch.ops import tp
 
 Params = Dict[str, torch.Tensor]
 
@@ -23,6 +27,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ w (+ b). Weight layout is [in, out]."""
+    if isinstance(p["w"], tp.Shards):
+        return tp.linear(p, x)
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
@@ -59,6 +65,8 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def glu(p: Params, x: torch.Tensor, mm=linear) -> torch.Tensor:
     """a * sigmoid(b) gating; `mm` computes the product."""
+    if isinstance(p["pro"]["w"], tp.Shards):
+        return tp.glu(p["pro"], x)
     a, b = torch.chunk(mm(p["pro"], x), 2, dim=-1)
     return a * torch.sigmoid(b)
 
@@ -113,6 +121,8 @@ def dwconv1d_step(
 
 def _ssmlite_ff(p: Params, x: torch.Tensor, mm=linear) -> torch.Tensor:
     h = rmsnorm(p["ff_norm"], x)
+    if isinstance(p["ff1"]["w"], tp.Shards):
+        return tp.ffn(p["ff1"], p["ff2"], h)
     return mm(p["ff2"], gelu(mm(p["ff1"], h)))
 
 

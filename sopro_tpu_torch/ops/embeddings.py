@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from sopro_tpu_torch.ops.blocks import Params
+from sopro_tpu_torch.ops.tp import take_rows
 
 
 def sinusoidal_table(d_model: int, max_len: int) -> np.ndarray:
@@ -43,7 +44,7 @@ def cb_embed_tokens(
     p: Params, spec: CodebookEmbeddingSpec, tokens: torch.Tensor, cb_index: int
 ) -> torch.Tensor:
     """Embed tokens of one codebook: row = cb*V + token."""
-    return p["emb"][cb_index * spec.V + tokens.long()]
+    return take_rows(p["emb"], cb_index * spec.V + tokens.long())
 
 
 def cb_sum_embed_subset(
@@ -61,7 +62,7 @@ def cb_sum_embed_subset(
     package's summation order)."""
     table = p["emb"]
     cbs = torch.as_tensor(list(cb_indices), dtype=torch.long, device=table.device)
-    g = table[cbs * spec.V + tokens_btk.long()]  # [B, T, K, D]
+    g = take_rows(table, cbs * spec.V + tokens_btk.long())  # [B, T, K, D]
     w = None
     if cb_weights is not None:
         w = cb_weights

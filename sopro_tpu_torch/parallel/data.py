@@ -10,8 +10,10 @@ takes the step of the global batch, whatever number of valid frames each
 rank's rows hold. (An average of per-rank means, as DDP's gradient
 averaging gives, is another loss whenever the ranks' counts differ.)
 
-JAX's `tp` axis is a layout of the same numerics; the 135M-parameter model
-fits whole on one card, and it is not ported.
+Here every process holds the whole model. The (dp, tp) layout, one
+process driving a mesh with the wide leaves split over `tp`, is
+`parallel/tensor.py`; inside a process group its step sums over the
+processes as this one does, so the two compose.
 
     dev = init_process_group(rank, world, "tcp://localhost:29500")   # or "env://" under torchrun
     model = SoproTTS.from_random(device=dev).engine.model            # the same weights on every rank

@@ -1,8 +1,12 @@
 """The serving app's core (counterpart: sopro_tpu/serve/server.py): the SPRO
 wire helpers, the prepared-reference cache, the server's configuration and
 model, the request handling (`cache_reference`, `speech`), and a FastAPI app
-over it (`build_app`; fastapi is imported only there). `server_stdlib.py`
-serves the same endpoints over the same functions without fastapi.
+over it (`build_app`, built once by `get_app`; fastapi is imported only
+there). `python -m sopro_tpu_torch.serve.server` (`main`) runs that app
+under uvicorn on SOPRO_HOST (default 0.0.0.0) and SOPRO_PORT (default
+8000), and raises ImportError where fastapi or uvicorn is not installed;
+`server_stdlib.py` serves the same endpoints over the same functions
+without either (`python -m sopro_tpu_torch.serve.server_stdlib`).
 
 Endpoints: `POST /v1/reference/cache`, `POST /v1/audio/speech` (a WAV, or
 with stream=true the SPRO framed-PCM stream), `GET /v1/stats`, `GET
@@ -393,3 +397,32 @@ def build_app():
         return StreamingResponse(body, media_type=media, headers=headers)
 
     return app
+
+
+app = None
+
+
+def get_app():
+    """The FastAPI app of this process, built on first use."""
+    global app
+    if app is None:
+        app = build_app()
+    return app
+
+
+def main():
+    """Serve `get_app()` with uvicorn on SOPRO_HOST / SOPRO_PORT."""
+    try:
+        import fastapi  # noqa: F401
+        import uvicorn
+    except ImportError as e:
+        raise ImportError(
+            f"serve.server needs fastapi and uvicorn ({e}); without them run "
+            "`python -m sopro_tpu_torch.serve.server_stdlib`"
+        ) from e
+    uvicorn.run(get_app(), host=os.environ.get("SOPRO_HOST", "0.0.0.0"),
+                port=int(os.environ.get("SOPRO_PORT", "8000")))
+
+
+if __name__ == "__main__":
+    main()

@@ -18,7 +18,9 @@ Training runs none of the port's kernels: the forward is plain PyTorch (the
 JAX training graph reaches no Pallas kernel either). After each step the
 model's kernel-side caches are dropped (`SoproModel.weights_changed`), so
 serving from the same model decodes with the new weights. Data parallelism
-over several processes is `parallel/data.py`.
+over several processes is `parallel/data.py`; the (dp, tp) layout on a
+mesh of devices driven by one process is `parallel/tensor.py`, whose
+sharded leaves the loss reads through `ops/tp.py`.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from sopro_tpu_torch.models import generator as G
 from sopro_tpu_torch.models import nar as N
 from sopro_tpu_torch.models import sopro as M
+from sopro_tpu_torch.ops import tp
 from sopro_tpu_torch.ops.embeddings import cb_sum_embed_subset
 
 
@@ -73,9 +76,13 @@ def loss_norm(batch: TrainBatch) -> LossNorm:
 def _masked_ce(
     logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor, count: torch.Tensor
 ) -> torch.Tensor:
-    """sum of the masked NLL (log-softmax in float32) / max(count, 1)."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    """sum of the masked NLL (log-softmax in float32) / max(count, 1);
+    logits split on the vocab axis (`ops.tp.Shards`) take `tp.nll`."""
+    if isinstance(logits, tp.Shards):
+        nll = tp.nll(logits, targets)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     return torch.sum(nll * mask.float()) / torch.clamp(count, min=1.0)
 
 
@@ -101,7 +108,7 @@ def loss_fn(
     rvq1 = batch.frames[..., 0].long()
     bos = torch.full((b, 1), spec.bos_id, dtype=torch.long, device=rvq1.device)
     prev = torch.cat([bos, rvq1[:, :-1]], dim=1)
-    x = cond + shared["cb_embed"]["emb"][prev]
+    x = cond + tp.take_rows(shared["cb_embed"]["emb"], prev)
     ar_logits = G.ar_forward(
         model.ar.p, cfg, x, prep["txt_seq"], batch.text_mask, frame_mask=batch.frame_mask
     )  # [B, S, V+1]
@@ -142,6 +149,15 @@ def make_optimizer(
     )
 
 
+def require_float32(model: torch.nn.Module, what: str) -> None:
+    """Raise ValueError unless every parameter is float32: the JAX training
+    graph has no dtype policy."""
+    low = sorted({str(p.dtype) for p in model.parameters() if p.dtype != torch.float32})
+    if low:
+        raise ValueError(f"{what}: the model has {low} parameters; training runs in "
+                         "float32 only (the JAX training graph has no dtype policy)")
+
+
 def fill_missing_grads(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
     """Give every parameter that got no gradient a zero one, and return the
     optimizer's parameters: torch's AdamW skips a parameter whose `.grad` is
@@ -159,10 +175,7 @@ def make_train_step(model: M.SoproModel, optimizer: torch.optim.Optimizer):
     caches are dropped. The model must be float32: the JAX training graph
     has no dtype policy (a model an Engine cast to bfloat16 raises
     ValueError)."""
-    low = sorted({str(p.dtype) for p in model.parameters() if p.dtype != torch.float32})
-    if low:
-        raise ValueError(f"make_train_step: the model has {low} parameters; training runs in "
-                         "float32 only (the JAX training graph has no dtype policy)")
+    require_float32(model, "make_train_step")
 
     def step(batch: TrainBatch) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=False)
@@ -176,28 +189,44 @@ def make_train_step(model: M.SoproModel, optimizer: torch.optim.Optimizer):
     return step
 
 
-def save_train_checkpoint(
-    path: str, model: M.SoproModel, optimizer: torch.optim.Optimizer, step: int = 0
-) -> None:
+def save_train_checkpoint(path: str, model, optimizer: torch.optim.Optimizer, step: int = 0) -> None:
     """Write the whole training state (parameters, AdamW moments and step
-    counts, the step number) to one file with `torch.save`. The inference
-    export stays `SoproTTS.save_pretrained` (reference-layout
-    safetensors)."""
+    counts, the step number) to one file with `torch.save`. `model` is a
+    `SoproModel` or a sharded state (`parallel.tensor.ShardedModel`), which
+    writes the same format: its whole leaves, and the optimizer state per
+    whole parameter. The inference export stays `SoproTTS.save_pretrained`
+    (reference-layout safetensors)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
-    torch.save(
-        {"model": model.state_dict(), "optimizer": optimizer.state_dict(), "step": int(step)},
-        path,
-    )
+    if isinstance(model, M.SoproModel):
+        state = {"model": model.state_dict(), "optimizer": optimizer.state_dict()}
+    else:
+        state = model.train_state_dict(optimizer)
+    torch.save(dict(state, step=int(step)), path)
 
 
-def restore_train_checkpoint(
-    path: str, model: M.SoproModel, optimizer: torch.optim.Optimizer, device=None
-) -> int:
-    """Load a state written by `save_train_checkpoint` into `model` and
-    `optimizer` (built as for a fresh run) and return the step number. The
-    tensors are mapped onto `device` (default: the model's), so a state
-    saved on one device resumes on another. The model's kernel-side caches
-    are dropped."""
+def restore_train_checkpoint(path: str, model, optimizer: torch.optim.Optimizer, device=None,
+                             mesh=None):
+    """Load a state written by `save_train_checkpoint`, in whatever layout
+    it was trained, and return the step number.
+
+    - `model` a `SoproModel` (and its optimizer, built as for a fresh run):
+      the tensors are mapped onto `device` (default: the model's), so a
+      state saved on one device resumes on another; the model's kernel-side
+      caches are dropped.
+    - `model` a sharded state (`parallel.tensor.ShardedModel`) and its
+      optimizer: each leaf and moment is split into the state's layout.
+    - `model` a `SoproModel` and `mesh`: the state is restored straight into
+      `mesh`'s layout (`model` and `optimizer` give only the structure and
+      hyperparameters) and (state, optimizer, step) is returned."""
+    if mesh is not None:
+        from sopro_tpu_torch.parallel.tensor import shard_train_state
+
+        state, opt = shard_train_state(mesh, model, optimizer)
+        return state, opt, restore_train_checkpoint(path, state, opt)
+    if not isinstance(model, M.SoproModel):
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        model.load_train_state_dict(saved, optimizer)
+        return int(saved["step"])
     device = torch.device(device) if device is not None else model.device()
     state = torch.load(path, map_location=device, weights_only=True)
     model.load_state_dict(state["model"])

@@ -110,6 +110,7 @@ class SoproTTS:
         device="cuda",
         tokenizer=None,
         on_unconsumed: str = "warn",
+        warmup: bool = False,
     ) -> "SoproTTS":
         """Load local snapshot directories: `repo_id` holds model.safetensors
         (its cfg in the metadata) and the tokenizer files, `mimi_repo_id`
@@ -119,7 +120,8 @@ class SoproTTS:
         is given (e.g. SimpleCharTokenizer() for a snapshot of random
         weights); `on_unconsumed` says what a tensor that no converter reads
         does ("warn", "raise", "ignore"). Built on `device`, the card unless
-        the caller asks for "cpu"."""
+        the caller asks for "cpu". `warmup` runs `Engine.warmup` before
+        returning, so the first request builds nothing."""
         dev = _resolve_device(device)
         local = H.local_dir(repo_id)
         model_path = os.path.join(local, "model.safetensors")
@@ -134,7 +136,10 @@ class SoproTTS:
         tokenizer = tokenizer if tokenizer is not None else TextTokenizer(model_name=local)
         model = W.sopro_params_from_jax(params, cfg, dev)
         mimi = W.mimi_params_from_jax(mimi_params, mimi_cfg, dev)
-        return cls(Engine(model, mimi, runtime), cfg, tokenizer, runtime)
+        tts = cls(Engine(model, mimi, runtime), cfg, tokenizer, runtime)
+        if warmup:
+            tts.engine.warmup()
+        return tts
 
     @classmethod
     def from_random(

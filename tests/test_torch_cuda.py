@@ -1,6 +1,7 @@
 """The five CUDA kernels against their plain PyTorch versions on the card,
 at small shapes; the synthesize, batch, per-step and stream paths and a
-training step on the card against the CPU; serving after a training step
+training step on the card against the CPU; the tp = 2 training step on
+`cuda:0` against the unsharded one; serving after a training step
 from rebuilt weight packs; every kernel launched on tensors of another card
 than the current one, and serving and batch synthesis over a mesh against
 one shard. Each test skips without a CUDA device (the launch-device test
@@ -786,6 +787,51 @@ def test_weights_changed_rebuilds_the_kernel_packs(cuda):
     assert kernels.LAUNCHES["ar_loop"] > 0 and kernels.LAUNCHES["nar_heads"] > 0, kernels.LAUNCHES
     fresh = W.sopro_params_from_jax(W.sopro_tree(model), model.cfg, cuda)
     np.testing.assert_array_equal(got, tts_of(fresh).synthesize("after the step", **kw))
+
+
+@pytest.mark.cuda
+def test_tp_train_step_on_cuda_matches_unsharded(cuda):
+    """The (dp=1, tp=2) layout with both shards on cuda:0 against the
+    unsharded step on the card, TF32 off: the metrics within 2e-5 relative,
+    each leaf's gathered gradient within 1e-4 of its peak plus 1e-6 of the
+    largest gradient, and after 2 steps at most 1e-4 of the parameters'
+    elements beyond 1e-6 and none beyond 5e-5 (lr 1e-3: an element whose
+    gradient is near 0 takes a step whose size its rounding sets). Every
+    master and every gradient stays on the card."""
+    from sopro_tpu_torch import train as T
+    from sopro_tpu_torch.parallel import make_mesh
+    from sopro_tpu_torch.parallel import tensor as TP
+
+    dev = torch.device("cuda", 0)
+    plain, model = _train_models(dev)[1], _train_models(dev)[1]
+    mesh = make_mesh(2, dp=1, tp=2, devices=[dev] * 2)
+    state, opt = TP.shard_train_state(mesh, model, T.make_optimizer(model, lr=1e-3))
+    plain_opt = T.make_optimizer(plain, lr=1e-3)
+    batch = torch_batch(make_batch(), dev)
+    for o, f in ((opt, lambda: TP.loss_fn(state, batch)), (plain_opt, lambda: T.loss_fn(plain, batch))):
+        o.zero_grad(set_to_none=False)
+        loss, _ = f()
+        loss.backward()
+        T.fill_missing_grads(o)
+    want = {n: p.grad for n, p in plain.named_parameters()}
+    floor = 1e-6 * max(float(g.abs().max()) for g in want.values())
+    for lay in state.layouts:
+        parts = state.leaves[lay.path]
+        assert all(p.is_cuda and p.grad.is_cuda for p in parts), lay.path
+        got = lay.join([p.grad for p in parts])
+        ref = want[lay.name]
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max()) + floor, lay.name
+
+    model, plain = _train_models(dev)[1], _train_models(dev)[1]
+    state, opt = TP.shard_train_state(mesh, model, T.make_optimizer(model, lr=1e-3))
+    steps = TP.make_train_step(state, opt), T.make_train_step(plain, T.make_optimizer(plain, lr=1e-3))
+    for _ in range(2):
+        got, want = (s(batch) for s in steps)
+        for k in want:
+            np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=2e-5, err_msg=k)
+    full = state.full_leaves(dev)
+    diff = torch.cat([(full[n] - p.detach()).abs().flatten() for n, p in plain.named_parameters()])
+    assert float(diff.max()) <= 5e-5 and int((diff > 1e-6).sum()) <= 1e-4 * diff.numel()
 
 
 # ---------------------------------------------------------------------------

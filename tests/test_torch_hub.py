@@ -308,3 +308,32 @@ def test_package_surface_and_imports_leave_jax_out():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_from_pretrained_warmup_builds_first_and_changes_nothing(snapshot, monkeypatch):
+    """`from_pretrained(warmup=True)` runs `Engine.warmup`: the weight packs
+    exist before the first request, which then builds none, and synthesize
+    (float32 and pcm16) and a stream equal those of a model loaded without
+    warmup."""
+    from sopro_tpu_torch.engine import Engine
+
+    sopro_dir, mimi_dir, _ = snapshot
+    kw = dict(mimi_repo_id=mimi_dir, runtime=RuntimeConfig(**RT), device="cpu")
+    calls, warmup = [], Engine.warmup
+    monkeypatch.setattr(Engine, "warmup", lambda self, **k: (calls.append(k), warmup(self, **k))[1])
+    warm = SoproTTS.from_pretrained(sopro_dir, warmup=True, **kw)
+    cold = SoproTTS.from_pretrained(sopro_dir, **kw)
+    assert calls == [{}]
+    assert cold.engine.model.nar._stacks is None and cold.engine.mimi._packed is None
+    built = (warm.engine.model.nar._stacks, warm.engine.mimi._packed)
+    assert all(x is not None for x in built)
+    text, n = "hello world voice", CFG["max_frames"]
+    outs = []
+    for tts in (warm, cold):
+        ref = tts.prepare_reference(ref_tokens_tq=REF)
+        outs.append([tts.synthesize(text, ref=ref, max_frames=n, seed=2),
+                     tts.synthesize(text, ref=ref, max_frames=n, seed=3, pcm16=True),
+                     np.concatenate(list(tts.stream(text, ref=ref, max_frames=n, seed=4)), axis=1)])
+    assert warm.engine.model.nar._stacks is built[0] and warm.engine.mimi._packed is built[1]
+    for got, want in zip(*outs):
+        np.testing.assert_array_equal(got, want)

@@ -464,3 +464,35 @@ def test_port_batcher_matches_the_jax_batcher():
     for got, want in zip(outs["port"], outs["jax"]):
         assert got.shape == want.shape and got.shape[1] > 0
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * float(np.abs(want).max()))
+
+
+def test_server_main_needs_fastapi_and_uvicorn(monkeypatch):
+    """Without fastapi or uvicorn (the card's machine has neither),
+    `python -m sopro_tpu_torch.serve.server` raises ImportError naming
+    them and the stdlib server."""
+    import sys
+
+    for name in ("fastapi", "uvicorn"):
+        monkeypatch.setitem(sys.modules, name, None)
+    with pytest.raises(ImportError, match="fastapi and uvicorn.*server_stdlib"):
+        core.main()
+
+
+def test_server_main_runs_get_app_under_uvicorn(monkeypatch):
+    """`get_app` builds the app once; `main` hands it to uvicorn on
+    SOPRO_HOST / SOPRO_PORT."""
+    import sys
+    import types
+
+    _install_fastapi_stub(monkeypatch)
+    runs = []
+    uvicorn = types.ModuleType("uvicorn")
+    uvicorn.run = lambda app, **kw: runs.append((app, kw))
+    monkeypatch.setitem(sys.modules, "uvicorn", uvicorn)
+    monkeypatch.setattr(core, "app", None)
+    monkeypatch.setenv("SOPRO_HOST", "127.0.0.1")
+    monkeypatch.setenv("SOPRO_PORT", "8123")
+    app = core.get_app()
+    assert core.get_app() is app and ("GET", "/healthz") in app.routes
+    core.main()
+    assert runs == [(app, {"host": "127.0.0.1", "port": 8123})]
