@@ -46,7 +46,11 @@ Phases (each raises, so the script exits non-zero, on failure):
    `transformers.MimiModel` names written from the same seed's tree
    (`mimi_checkpoint_state_dict`, the inverse of the port's converter), both
    loaded again by `from_pretrained(..., on_unconsumed="raise")`: two
-   400-frame `synthesize` requests equal phase 4's bit for bit; where
+   400-frame `synthesize` requests equal phase 4's bit for bit; loaded
+   again with `revision=`, `cache_dir=` and `token=` (bit for bit, K1-K3
+   launched, no cache made) and, where `huggingface_hub` imports, by repo
+   id from a hub cache written here, offline (HF_HUB_OFFLINE=1; the route
+   taken is printed); where
    `transformers` imports, a WordLevel tokenizer in the snapshot goes through
    `from_pretrained`'s `TextTokenizer` (the route taken is printed);
    `from_pretrained(warmup=True)` launches K1-K4, and a request and a stream
@@ -66,8 +70,12 @@ Phases (each raises, so the script exits non-zero, on failure):
    co-resident clusters at B = 1, 4, 7, 8, K1 at 7 and 8 rows (each at its
    own age, per-row settings) against the plain loop, and K2 on the tick's
    window gathered across 8 slots (8 x 197 rows, tail 8 x 16) against its
-   plain version. HTTP: `server_stdlib` on 127.0.0.1 answers the reference
-   cache, a SPRO stream, a WAV and the stats with 200.
+   plain version. HTTP: `server_stdlib` on 127.0.0.1 answers `/` and
+   `/static/app.js` with the package's demo files (bytes equal), the
+   reference cache, a SPRO stream (counters zeroed before, read after: K1,
+   K2, K4 launched), a WAV and the stats with 200. Then 12 threads released
+   by one barrier submit into one fresh batcher: one "sopro-batcher" thread
+   at every look, every session as long as its `generate_tokens`.
 11. train (`sopro_tpu_torch.train`, full width, random weights from a seed
    with the zero-initialised leaves filled; rows of S = 401 frames, row 0
    full so it has no EOS target, texts of 33-64 tokens, references of
@@ -922,6 +930,7 @@ def drive_checkpoint(tts, ref, ref_tokens, dev, mcfg):
                 raise AssertionError(f"checkpoint: the reloaded model's synthesize (seed={seed}) "
                                      "differs from from_random's")
             log(f"  reloaded synthesize seed={seed}: {got.shape[1]} samples, bit-identical")
+        check_hub_keywords(tts, ref, ref_tokens, dev, sdir, mdir, tmp)
         check_warmup(tts, ref, ref_tokens, dev, sdir, mdir)
         try:
             import transformers  # noqa: F401
@@ -940,6 +949,76 @@ def drive_checkpoint(tts, ref, ref_tokens, dev, mcfg):
             raise AssertionError("checkpoint: the BPE route differs from the reloaded model")
         log(f"  tokenizer route: transformers AutoTokenizer (TextTokenizer), ids {ids}; "
             f"synthesize {got.shape[1]} samples, equal to the reloaded model fed the same ids")
+
+
+HUB_SHA = "0123456789abcdef" * 2 + "01234567"  # the commit of the hand-built hub cache
+
+
+def hub_cache(root, repo_id, files_from):
+    """A hub cache entry of `repo_id` under `root` as the hub writes it:
+    models--org--name/snapshots/<sha>/ (a copy of `files_from`) and
+    refs/main holding the sha."""
+    import shutil
+
+    entry = os.path.join(root, "models--" + repo_id.replace("/", "--"))
+    shutil.copytree(files_from, os.path.join(entry, "snapshots", HUB_SHA))
+    os.makedirs(os.path.join(entry, "refs"))
+    with open(os.path.join(entry, "refs", "main"), "w") as f:
+        f.write(HUB_SHA)
+
+
+def check_hub_keywords(tts, ref, ref_tokens, dev, sdir, mdir, tmp):
+    """`from_pretrained(dir, revision=, cache_dir=, token=)` on the snapshot
+    directories: synthesize equal to phase 4's bit for bit, K1-K3 launched,
+    no cache made; where huggingface_hub imports, the same from a hand-built
+    hub cache, offline, by repo id (the route taken is printed)."""
+    from sopro_tpu_torch import kernels
+    from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
+    from sopro_tpu_torch.tts import SoproTTS
+
+    text, seed = REQUESTS[0]
+    want = tts.synthesize(text, ref=ref, max_frames=MAX_FRAMES, seed=seed)
+
+    def same(loaded, what):
+        got = loaded.synthesize(text, ref=loaded.prepare_reference(ref_tokens_tq=ref_tokens),
+                                max_frames=MAX_FRAMES, seed=seed)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"checkpoint: {what}'s synthesize differs from phase 4's")
+        return got
+
+    unused = os.path.join(tmp, "unused_cache")
+    kernels.reset_launches()
+    got = same(SoproTTS.from_pretrained(sdir, revision="v1", cache_dir=unused, token="hf_unused",
+                                        mimi_repo_id=mdir, device=dev, tokenizer=SimpleCharTokenizer(),
+                                        on_unconsumed="raise"), "from_pretrained(revision=, cache_dir=, token=)")
+    torch.cuda.synchronize()
+    launched("from_pretrained(dir, revision=, cache_dir=, token=) synthesize",
+             ("ar_loop", "nar_heads", "seanet"))
+    if os.path.exists(unused):
+        raise AssertionError("checkpoint: cache_dir was made for local snapshot directories")
+    log(f"  from_pretrained(dir, revision='v1', cache_dir=..., token=...): {got.shape[1]} samples, "
+        "bit-identical to phase 4; no cache made")
+    try:
+        import huggingface_hub
+        import huggingface_hub.constants
+        from huggingface_hub.utils import reset_sessions
+    except ImportError:
+        log("  hub route: huggingface_hub does not import here; local snapshot directories only")
+        return
+    # the hub is read offline, from the cache written here (main sets HF_HUB_OFFLINE=1 first)
+    huggingface_hub.constants.HF_HUB_OFFLINE = True
+    reset_sessions()
+    cache = os.path.join(tmp, "hub_cache")
+    hub_cache(cache, "org/sopro", sdir)
+    hub_cache(cache, "kyutai/mimi", mdir)  # the Mimi's default repo id
+    kernels.reset_launches()
+    got = same(SoproTTS.from_pretrained("org/sopro", cache_dir=cache, device=dev,
+                                        tokenizer=SimpleCharTokenizer(), on_unconsumed="raise"),
+               "from_pretrained('org/sopro', cache_dir=...)")
+    torch.cuda.synchronize()
+    launched("hub-cache synthesize", ("ar_loop", "nar_heads", "seanet"))
+    log(f"  hub route: huggingface_hub {huggingface_hub.__version__} offline, 'org/sopro' and "
+        f"'kyutai/mimi' from a hand-built cache: {got.shape[1]} samples, bit-identical to phase 4")
 
 
 def check_warmup(tts, ref, ref_tokens, dev, sdir, mdir):
@@ -1334,9 +1413,21 @@ def drive_serve(tts, ref, dev, rng):
             code, _, body = post("/v1/reference/cache", {}, {"ref_audio": ("ref.wav", wav_bytes)})
             rid = json.loads(body)["ref_id"]
             log(f"  POST /v1/reference/cache (10 s WAV): {code}, {time.perf_counter() - t1:.3f} s")
+            for path, name, ctype in (("/", "index.html", "text/html"),
+                                      ("/static/app.js", "app.js", "text/javascript")):
+                with urllib.request.urlopen(base + path, timeout=60) as r:
+                    page, got_type = r.read(), r.headers["Content-Type"]
+                with open(os.path.join(core.STATIC_DIR, name), "rb") as f:
+                    if r.status != 200 or got_type != ctype or page != f.read():
+                        raise AssertionError(f"HTTP GET {path}: {r.status} {got_type}, "
+                                             f"{len(page)} bytes not the package's {name}")
+                log(f"  GET {path}: 200, {got_type}, {len(page)} bytes equal to static/{name}")
             t1 = time.perf_counter()
+            kernels.reset_launches()
             code2, _, data = post("/v1/audio/speech", {"input": SERVE_TEXTS[0], "ref_id": rid,
                                                        "stream": "true", "max_frames": "64"})
+            torch.cuda.synchronize()
+            launched("HTTP speech stream", ("ar_loop", "nar_heads", "seanet_chunk"))
             if data[:4] != b"SPRO" or struct.unpack("<II", data[4:12]) != (sr, 1):
                 raise AssertionError("HTTP stream: bad SPRO header")
             off, total = 12, 0
@@ -1362,7 +1453,66 @@ def drive_serve(tts, ref, dev, rng):
         httpd.shutdown()
         httpd.server_close()
         serve_b.stop()
+    result["concurrent_submits"] = check_concurrent_submits(tts, ref, prod)
     return result
+
+
+CONCURRENT_CAP = 32  # frames per session of the 12 concurrent submits
+
+
+def check_concurrent_submits(tts, ref, prod):
+    """12 client threads released by one barrier submit into one fresh
+    batcher: exactly one scheduler thread ("sopro-batcher") is seen while
+    they run, and every session completes with `generate_tokens`' frame
+    count."""
+    import threading
+
+    from sopro_tpu_torch.serve import ContinuousBatcher
+    from sopro_tpu_torch.serve.scheduler import THREAD_NAME
+
+    hop = tts.engine.mimi_cfg.hop_length
+    running = lambda: [th for th in threading.enumerate() if th.name == THREAD_NAME and th.is_alive()]
+    if running():
+        raise AssertionError(f"concurrent submits: scheduler threads alive before: {running()}")
+    b = ContinuousBatcher(tts, **prod)
+    barrier, handles, seen = threading.Barrier(12), {}, []
+
+    def client(i):
+        barrier.wait()
+        handles[i] = b.submit(SERVE_TEXTS[i], ref, seed=SERVE_SEEDS[i], max_frames=CONCURRENT_CAP)
+        seen.append(len(running()))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(12)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        sys.setswitchinterval(interval)
+        if len(handles) != 12:
+            raise AssertionError(f"concurrent submits: {len(handles)} of 12 submitted")
+        seen.append(len(running()))
+        frames = []
+        for i in range(12):
+            chunks = list(handles[i].chunks())
+            frames.append(sum(c.shape[1] for c in chunks) // hop)
+        seen.append(len(running()))
+        wall = time.perf_counter() - t0
+    finally:
+        sys.setswitchinterval(interval)
+        b.stop()
+    want = [tts.generate_tokens(SERVE_TEXTS[i], ref, max_frames=CONCURRENT_CAP,
+                                seed=SERVE_SEEDS[i]).shape[0] for i in range(12)]
+    if set(seen) != {1} or frames != want or b.stats()["sessions_done"] != 12 or running():
+        raise AssertionError(f"concurrent submits: scheduler threads seen {sorted(set(seen))}, "
+                             f"frames {frames} against {want}, "
+                             f"{b.stats()['sessions_done']} sessions done")
+    log(f"  12 threads submitting at once: one {THREAD_NAME} thread at every look "
+        f"({len(seen)} looks), 12 sessions of {frames[0]} frames done in {wall:.3f} s")
+    return {"sessions": 12, "scheduler_threads": 1, "wall_s": wall}
 
 
 # phase 11: rows of S = 401 frames (row 0 fills S: no EOS target), texts and references cut per row
@@ -2534,6 +2684,7 @@ def main() -> int:
     from sopro_tpu_torch.engine import configure_cuda_numerics
 
     configure_cuda_numerics()
+    os.environ["HF_HUB_OFFLINE"] = "1"  # phase 9 reads the hub only from a cache it writes
     dev = torch.device("cuda", 0)
     card = gpu_line()
     log(f"[1] device: {torch.cuda.get_device_name(0)} ({torch.cuda.device_count()} visible); "

@@ -3,11 +3,10 @@
     python -m sopro_tpu_torch.cli --text "Hello." --ref_tokens ref.npy --out out.wav
 
 The JAX CLI's flags, with these differences: `--device {cuda,cpu}` (the
-card unless the caller asks for the CPU); `--repo` is a local snapshot
-directory and `--mimi_repo` the Mimi snapshot's, as `SoproTTS.from_pretrained`
-takes them; `--revision`, `--cache_dir` and `--token` are parsed so the JAX
-CLI's command lines run, and are unused (nothing is downloaded);
-`--trace_dir` writes a `torch.profiler` Chrome trace of the generation
+card unless the caller asks for the CPU); `--mimi_repo` names the Mimi
+snapshot. `--repo` and `--mimi_repo` are local snapshot directories or hub
+repo ids, and `--revision`, `--cache_dir` and `--token` go to
+`SoproTTS.from_pretrained` as in the JAX CLI; `--trace_dir` writes a `torch.profiler` Chrome trace of the generation
 (`profiling.device_trace`). `--random_init` builds random weights from
 `--seed`; `--stream` runs the chunked path, `--long` the long-form one;
 `--metrics_json` prints the utterance's metrics as JSON on stdout. A bad
@@ -31,12 +30,12 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m sopro_tpu_torch.cli", description="Sopro TTS (PyTorch/CUDA port)"
     )
     p.add_argument("--repo", default="samuel-vitorino/sopro-v1.5",
-                   help="local snapshot directory of the Sopro checkpoint")
+                   help="HF repo id or local snapshot directory of the Sopro checkpoint")
     p.add_argument("--mimi_repo", default=DEFAULT_MIMI_ID,
-                   help="local snapshot directory of the Mimi codec")
-    p.add_argument("--revision", default=None, help="unused: nothing is downloaded")
-    p.add_argument("--cache_dir", default=None, help="unused: nothing is downloaded")
-    p.add_argument("--token", default=None, help="unused: nothing is downloaded")
+                   help="HF repo id or local snapshot directory of the Mimi codec")
+    p.add_argument("--revision", default=None)
+    p.add_argument("--cache_dir", default=None)
+    p.add_argument("--token", default=None)
     p.add_argument("--text", required=True)
     p.add_argument("--ref_audio", default=None, help="reference audio file (wav, mp3, ogg)")
     p.add_argument("--ref_tokens", default=None, help=".npy file of Mimi tokens [T, Q]")
@@ -91,8 +90,9 @@ def main(argv=None) -> int:
         if args.random_init:
             tts = SoproTTS.from_random(seed=args.seed, device=args.device)
         else:
-            tts = SoproTTS.from_pretrained(args.repo, mimi_repo_id=args.mimi_repo,
-                                           device=args.device)
+            tts = SoproTTS.from_pretrained(args.repo, revision=args.revision,
+                                           cache_dir=args.cache_dir, token=args.token,
+                                           mimi_repo_id=args.mimi_repo, device=args.device)
     log(f"model loaded in {timer.sections['load']:.1f}s")
 
     with timer.section("reference"):

@@ -43,10 +43,12 @@ class MimiCodec:
 
     @classmethod
     def from_pretrained(cls, repo_id: str, **kwargs) -> "MimiCodec":
-        """A local Mimi snapshot directory (model.safetensors, config.json)."""
-        from sopro_tpu_torch.hub import load_mimi_checkpoint, local_dir
+        """A Mimi snapshot (model.safetensors, config.json): a local directory
+        or a hub repo id that `hub.download_repo` resolves; `kwargs` go to
+        the constructor."""
+        from sopro_tpu_torch.hub import download_repo, load_mimi_checkpoint
 
-        local = local_dir(repo_id)
+        local = download_repo(repo_id)
         cfg, params = load_mimi_checkpoint(os.path.join(local, "model.safetensors"),
                                            cfg_json=os.path.join(local, "config.json"))
         return cls(params, cfg, **kwargs)

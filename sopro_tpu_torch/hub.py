@@ -11,7 +11,8 @@ Checkpoint contract (the JAX package's and the reference's):
 
 The converters map those names to the parameter tree of the JAX package's
 layout ([k, 1, D] convs, [in, out] linears) that `weights.py` turns into the
-port's modules. Snapshots are local directories: there is no hub download.
+port's modules. A snapshot is a local directory or a hub repo id that
+`download_repo` resolves (through `huggingface_hub`, downloaded or cached).
 
 safetensors: an 8-byte little-endian header length, a JSON header
 {name: {"dtype", "shape", "data_offsets": [begin, end]}, "__metadata__":
@@ -44,15 +45,34 @@ _DTYPES = {
 _NAMES = {dt: name for name, dt in _DTYPES.items()}
 
 
-def local_dir(repo_id: str) -> str:
-    """A snapshot is a local directory; anything else raises
-    FileNotFoundError naming it (the port downloads nothing)."""
-    if not os.path.isdir(repo_id):
+def download_repo(repo_id: str, *, revision: Optional[str] = None,
+                  cache_dir: Optional[str] = None, token: Optional[str] = None) -> str:
+    """A snapshot's local directory: `repo_id` itself where it is a
+    directory, else `huggingface_hub.snapshot_download(repo_id=, revision=,
+    cache_dir=, token=)`, which downloads it or, offline (HF_HUB_OFFLINE=1),
+    finds it in the hub's cache. The hub package is imported only for a
+    name that is not a directory. A name that neither is a directory nor
+    resolves (not cached offline, not a repo id, or no `huggingface_hub`
+    installed) raises FileNotFoundError naming it."""
+    if os.path.isdir(repo_id):
+        return repo_id
+    try:
+        from huggingface_hub import snapshot_download
+        from huggingface_hub.utils import HFValidationError
+    except ImportError as e:
         raise FileNotFoundError(
-            f"{repo_id!r} is not a local snapshot directory (the torch port loads "
-            "checkpoints from local directories only)"
-        )
-    return repo_id
+            f"{repo_id!r} is not a local snapshot directory, and huggingface_hub is not "
+            "installed to fetch it from the hub or its cache"
+        ) from e
+    try:
+        return snapshot_download(repo_id=repo_id, revision=revision, cache_dir=cache_dir,
+                                 token=token)
+    except (FileNotFoundError, HFValidationError) as e:
+        # offline and not cached (LocalEntryNotFoundError), or not a repo id (a missing path)
+        raise FileNotFoundError(
+            f"{repo_id!r} (revision {revision or 'main'}) is not a local snapshot directory "
+            f"and the hub did not resolve it: {e}"
+        ) from e
 
 
 def _read_header(f) -> Tuple[Dict[str, Any], int]:

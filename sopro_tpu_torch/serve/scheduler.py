@@ -28,6 +28,12 @@ slots / dp rows on its dp group's replica engine (`parallel.replicas`), so
 K1 runs slots / dp rows a launch. A join group is split by shard; a tick
 issues every shard that has a live row (its own device and stream) before
 it reads any, and reassembles the [slots] view from the shards' copies.
+
+One scheduler thread ("sopro-batcher") runs all of this; `submit` starts
+it under a lock, so clients that submit at once start one thread. Client
+threads touch only the waiting queue, the wake event and a handle's
+`cancelled` flag; the scheduler counts a chunk or a finished session
+before it hands the chunk or the closing None to the client.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from sopro_tpu_torch.ops.ar_loop import ARLoopContext
 from sopro_tpu_torch.parallel.mesh import replicas
 
 INT32_MIN, INT32_MAX = -(2 ** 31), 2 ** 31 - 1
+THREAD_NAME = "sopro-batcher"  # the scheduler thread's name, one per running batcher
 
 
 def _p50(xs: List[float]) -> Optional[float]:
@@ -162,9 +169,11 @@ class ContinuousBatcher:
         self.states = [e.serve_state(self.per, self.L, self.max_frames_cap) for e in self.engines]
 
         self._slots: List[Optional[_Slot]] = [None] * self.B
-        self._waiting: "queue.Queue" = queue.Queue()
+        self._waiting: "queue.Queue" = queue.Queue()  # client threads put, the scheduler takes
+        self._held: List[dict] = []  # taken from _waiting, not admitted yet (scheduler thread only)
         self._wake = threading.Event()
         self._stop = threading.Event()
+        self._lifecycle = threading.Lock()  # serialises start() and stop()
         self._thread: Optional[threading.Thread] = None
         self.reset_stats()
 
@@ -199,16 +208,30 @@ class ContinuousBatcher:
     # ------------------------------------------------------------- lifecycle
 
     def start(self):
-        if self._thread is None:
-            self._thread = threading.Thread(target=self._run, daemon=True)
+        """Start the scheduler thread ("sopro-batcher") unless it runs.
+        `submit` calls this from the clients' threads: under the lock, any
+        number of concurrent calls start one thread, and a call after
+        `stop()` waits for the stopping thread to end and starts another,
+        which takes up the sessions still queued or live."""
+        with self._lifecycle:
+            if self._thread is not None:
+                if self._thread.is_alive() and not self._stop.is_set():
+                    return
+                self._thread.join()  # a loop that is stopping ends before the next starts
+            self._stop.clear()
+            self._thread = threading.Thread(target=self._run, name=THREAD_NAME, daemon=True)
             self._thread.start()
 
     def stop(self):
-        self._stop.set()
-        self._wake.set()
-        if self._thread is not None:
-            self._thread.join(timeout=30)
-            self._thread = None
+        """Stop the scheduler thread, waiting up to 30 s for it to end; one
+        still running after that stays known, so `start` waits for it."""
+        with self._lifecycle:
+            self._stop.set()
+            self._wake.set()
+            if self._thread is not None:
+                self._thread.join(timeout=30)
+                if not self._thread.is_alive():
+                    self._thread = None
 
     def warmup(self, ref=None):
         """Pay the first-call costs (kernel builds, packed weights, the
@@ -368,7 +391,7 @@ class ContinuousBatcher:
             "slots": self.B,
             "max_frames_cap": self.max_frames_cap,
             "active_sessions": live,
-            "waiting": self._waiting.qsize(),
+            "waiting": self._waiting.qsize() + len(self._held),
             "ticks": self.ticks,
             "ramp_ticks": self.ramp_ticks,
             "admit_groups": self.admit_groups,
@@ -394,36 +417,40 @@ class ContinuousBatcher:
                    for s in self._slots if s is not None and s.emitted > 0)
 
     def _admit(self):
-        """Fill free slots from the waiting queue (scheduler thread only):
-        every waiting session that fits joins in one group. Where the ramp
-        is on and no established row is at the backlog cap, the group's
-        first (ramp) tick is issued right after the join. Returns
-        (deferred, tick): `deferred` when admission waits out the grace,
-        `tick` the issued ramp tick or None."""
+        """Fill free slots from the waiting requests (scheduler thread only):
+        every waiting session that fits joins in one group, in arrival
+        order. Where the ramp is on and no established row is at the
+        backlog cap, the group's first (ramp) tick is issued right after the
+        join. Returns (deferred, tick): `deferred` when admission waits out
+        the grace, `tick` the issued ramp tick or None."""
         while True:
+            while True:  # the clients' queue into `_held`, which keeps arrival order
+                try:
+                    self._held.append(self._waiting.get_nowait())
+                except queue.Empty:
+                    break
             free = [i for i, s in enumerate(self._slots) if s is None]
-            if not free or self._waiting.empty():
+            if not free or not self._held:
                 return False, None
-            group, requeue = [], []
-            while len(group) < len(free) and not self._waiting.empty():
-                req = self._waiting.get()
+            live = []
+            for req in self._held:
                 if req["handle"].cancelled:
                     req["handle"].out.put(None)
-                    continue
-                if group and req["ref_sig"] != group[0]["ref_sig"]:
-                    requeue.append(req)  # mixed reference shapes admit in waves
-                    continue
-                group.append(req)
-            for req in requeue:
-                self._waiting.put(req)
+                else:
+                    live.append(req)
+            group, rest = [], []
+            for req in live:
+                # a group is conditioned as one batch: mixed reference shapes admit in waves
+                fits = len(group) < len(free) and (not group or req["ref_sig"] == group[0]["ref_sig"])
+                (group if fits else rest).append(req)
+            self._held = live
             if not group:
                 continue
             if (self.admit_grace_s > 0.0 and len(group) < len(free) and len(free) == self.B
                     and time.perf_counter() - min(r["arrived_s"] for r in group)
                     < self.admit_grace_s):
-                for req in group:
-                    self._waiting.put(req)
                 return True, None
+            self._held = rest
             slots = free[: len(group)]
             try:
                 for g, eng in enumerate(self.engines):
@@ -450,10 +477,10 @@ class ContinuousBatcher:
                     return False, self._dispatch_tick(ramp=True)
             except Exception as e:  # deliver the failure to the group's callers
                 for req, slot in zip(group, slots):
-                    req["handle"].error = e
-                    req["handle"].out.put(None)
                     if self._slots[slot] is not None and self._slots[slot].handle is req["handle"]:
                         self._slots[slot] = None
+                    req["handle"].error = e
+                    req["handle"].out.put(None)
 
     def _run(self):
         with torch.inference_mode():
@@ -485,9 +512,9 @@ class ContinuousBatcher:
             except Exception as e:  # fail every live session rather than spin
                 for i, s in enumerate(self._slots):
                     if s is not None:
+                        self._slots[i] = None
                         s.handle.error = e
                         s.handle.out.put(None)
-                        self._slots[i] = None
                 pending = None
 
     def _dispatch_tick(self, ramp: Optional[bool] = None) -> _Tick:
@@ -500,8 +527,8 @@ class ContinuousBatcher:
             if rows:
                 eng.serve_stop(self.states[g], rows)
         for i in cancelled:
-            self._slots[i].handle.out.put(None)
-            self._slots[i] = None
+            h, self._slots[i] = self._slots[i].handle, None
+            h.out.put(None)
         fresh = [s for s in self._slots if s is not None and s.emitted == 0 and not s.ramped]
         if ramp is None:
             ramp = self.ramp < self.cf and bool(fresh) and self._backlog_ok()
@@ -567,25 +594,27 @@ class ContinuousBatcher:
         for i, s in enumerate(snap):
             if s is not None and self._slots[i] is s:
                 s.last_t = int(t[i])
+        # the handle's and the batcher's bookkeeping is done before the client
+        # is handed the chunk or the None that it may act on
         for i, s in enumerate(snap):
             if s is None or s.handle.cancelled or n_new[i] <= 0:
                 continue
-            s.handle.out.put(wav[i: i + 1, : int(n_new[i]) * self.hop].copy())
             if s.handle.first_chunk_s is None:
                 self._first_chunk(s.handle)
             s.emitted += int(n_new[i])
             s.handle.frames = s.emitted
+            s.handle.out.put(wav[i: i + 1, : int(n_new[i]) * self.hop].copy())
         for i, s in enumerate(snap):
             if s is None or self._slots[i] is not s:
                 continue
             done = bool(stopped[i]) or int(t[i]) >= self.S
             if done and s.emitted >= min(int(first_eos[i]), int(t[i]), s.max_frames + 1):
-                s.handle.out.put(None)
+                self._slots[i] = None
                 self.sessions_done += 1
                 self.total_audio_s += s.emitted * self.hop / self.sr
                 if s.handle.first_chunk_s is not None:
                     self._ttfa_ms = (self._ttfa_ms + [s.handle.first_chunk_s * 1000.0])[-100:]
-                self._slots[i] = None
+                s.handle.out.put(None)
 
     def _first_chunk(self, h: SessionHandle) -> None:
         now = time.perf_counter()

@@ -10,12 +10,15 @@ without either (`python -m sopro_tpu_torch.serve.server_stdlib`).
 
 Endpoints: `POST /v1/reference/cache`, `POST /v1/audio/speech` (a WAV, or
 with stream=true the SPRO framed-PCM stream), `GET /v1/stats`, `GET
-/healthz`, `GET /`. Every request is a session on the continuous-batching
+/healthz`, and the browser demo: `GET /` answers `static/index.html`, `GET
+/static/<file>` the files beside it (a fixed one-line page at `/` where the
+file is missing). Every request is a session on the continuous-batching
 scheduler (`ContinuousBatcher`).
 
 Configuration by environment, as the JAX package's server reads it:
-  SOPRO_REPO_ID (a local snapshot directory; the port downloads nothing),
-  SOPRO_REF_CACHE_DIR, SOPRO_CHUNK_SIZE (default 16), SOPRO_RAMP_FRAMES
+  SOPRO_REPO_ID (a local snapshot directory or a hub repo id,
+  `hub.download_repo`), SOPRO_REVISION (its revision), HF_TOKEN (the hub's
+  token), SOPRO_REF_CACHE_DIR, SOPRO_CHUNK_SIZE (default 16), SOPRO_RAMP_FRAMES
   (first-chunk ramp tick, default 4; >= chunk size disables), SOPRO_SLOTS
   (default 8), SOPRO_ADMIT_GRACE_MS (default 6; 0 disables),
   SOPRO_MAX_FRAMES (default 2000), SOPRO_REF_SECONDS (default 12),
@@ -23,8 +26,8 @@ Configuration by environment, as the JAX package's server reads it:
   CPU; else the card), SOPRO_DP (> 1: the slots split over a mesh of that
   many dp shards, `make_mesh(dp, dp=dp, tp=1)`: one card each, or dp shards
   of the CPU under SOPRO_DEVICE=cpu). The Mimi snapshot is
-  SOPRO_MIMI_REPO_ID (a local directory, default the JAX package's
-  "kyutai/mimi").
+  SOPRO_MIMI_REPO_ID (a local directory or a hub repo id, default the JAX
+  package's "kyutai/mimi").
 """
 
 from __future__ import annotations
@@ -134,6 +137,8 @@ def load_prepared_reference(path: str, device="cpu"):
 class ServerConfig:
     def __init__(self):
         self.repo_id = os.environ.get("SOPRO_REPO_ID", "samuel-vitorino/sopro-v1.5")
+        self.revision = os.environ.get("SOPRO_REVISION") or None
+        self.token = os.environ.get("HF_TOKEN") or None
         self.mimi_repo_id = os.environ.get("SOPRO_MIMI_REPO_ID", "kyutai/mimi")
         self.ref_cache_dir = os.environ.get(
             "SOPRO_REF_CACHE_DIR", os.path.join(tempfile.gettempdir(), "sopro_tpu_ref_cache")
@@ -161,7 +166,8 @@ _ref_cache_lock = threading.Lock()
 def get_tts():
     """The server's (SoproTTS, started ContinuousBatcher), built on first
     use: random weights with SOPRO_RANDOM_INIT, else the SOPRO_REPO_ID
-    snapshot; the batcher over a dp mesh when SOPRO_DP > 1."""
+    snapshot (at SOPRO_REVISION, with HF_TOKEN); the batcher over a dp mesh
+    when SOPRO_DP > 1."""
     global _tts, _batcher
     with _state_lock:
         if _tts is None:
@@ -173,7 +179,8 @@ def get_tts():
             if CFG.random_init:
                 _tts = SoproTTS.from_random(seed=0, device=CFG.device)
             else:
-                _tts = SoproTTS.from_pretrained(CFG.repo_id, mimi_repo_id=CFG.mimi_repo_id,
+                _tts = SoproTTS.from_pretrained(CFG.repo_id, revision=CFG.revision,
+                                                token=CFG.token, mimi_repo_id=CFG.mimi_repo_id,
                                                 device=CFG.device)
             mesh = None
             if CFG.dp > 1:
@@ -338,6 +345,34 @@ def speech(fields: Dict[str, Any], files: Dict[str, Tuple[str, bytes]]
     return "application/octet-stream", headers, gen()
 
 
+STATIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "static")
+FALLBACK_INDEX = b"<h1>sopro</h1><p>POST /v1/audio/speech</p>"
+STATIC_TYPES = {".html": "text/html", ".js": "text/javascript"}
+
+
+def index_html() -> bytes:
+    """The demo page (`static/index.html`), or a fixed one-line page where
+    the file is missing."""
+    path = os.path.join(STATIC_DIR, "index.html")
+    if not os.path.exists(path):
+        return FALLBACK_INDEX
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def static_file(rel: str) -> Optional[Tuple[bytes, str]]:
+    """A file of the demo under STATIC_DIR -> (bytes, content type), or None
+    for a path that leaves the directory (`..`, a link out) or names no
+    file."""
+    root = os.path.realpath(STATIC_DIR)
+    target = os.path.realpath(os.path.join(root, rel))
+    if not target.startswith(root + os.sep) or not os.path.isfile(target):
+        return None
+    with open(target, "rb") as f:
+        data = f.read()
+    return data, STATIC_TYPES.get(os.path.splitext(target)[1], "application/octet-stream")
+
+
 def build_app():
     """The FastAPI app: a thin transport over `cache_reference` and `speech`."""
     from fastapi import FastAPI, File, Form, HTTPException, UploadFile
@@ -357,9 +392,14 @@ def build_app():
         _, batcher = get_tts()
         return batcher.stats()
 
+    if os.path.isdir(STATIC_DIR):
+        from fastapi.staticfiles import StaticFiles
+
+        app.mount("/static", StaticFiles(directory=STATIC_DIR), name="static")
+
     @app.get("/")
     def index():
-        return HTMLResponse("<h1>sopro</h1><p>POST /v1/audio/speech</p>")
+        return HTMLResponse(index_html().decode("utf-8"))
 
     # plain `def` endpoints: the framework runs them in its thread pool, so
     # the blocking waits inside never stall the event loop

@@ -2,15 +2,16 @@
 sopro_tpu/serve/server_stdlib.py): a threaded `http.server` with the
 endpoints and SPRO wire protocol of serve/server.py.
 
-  GET  /            GET /healthz    GET /v1/stats
+  GET  /            GET /static/<file>   GET /healthz    GET /v1/stats
   POST /v1/reference/cache          (multipart: ref_audio, ref_seconds)
   POST /v1/audio/speech             (multipart or urlencoded form; stream=true
                                      -> chunked SPRO framed PCM)
 
 Run it with `python -m sopro_tpu_torch.serve.server_stdlib` (SOPRO_HOST,
 default 0.0.0.0, and SOPRO_PORT, default 8000; serve/server.py lists the
-model's settings). Every request is a continuous-batching session, so
-concurrent clients stream at once.
+model's settings) and open http://host:port/ for the browser demo. Every
+request is a continuous-batching session, so concurrent clients stream at
+once.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Tuple
-from urllib.parse import parse_qsl
+from urllib.parse import parse_qsl, unquote, urlsplit
 
 from sopro_tpu_torch.serve import server as core
 
@@ -85,13 +86,18 @@ class Handler(BaseHTTPRequestHandler):
         self._bytes(code, json.dumps(obj).encode(), "application/json")
 
     def do_GET(self):
-        if self.path == "/healthz":
+        path = unquote(urlsplit(self.path).path)
+        if path == "/healthz":
             return self._json(200, {"ok": True})
-        if self.path == "/v1/stats":
+        if path == "/v1/stats":
             _, batcher = core.get_tts()
             return self._json(200, batcher.stats())
-        if self.path == "/":
-            return self._bytes(200, b"<h1>sopro</h1><p>POST /v1/audio/speech</p>", "text/html")
+        if path == "/":
+            return self._bytes(200, core.index_html(), "text/html")
+        if path.startswith("/static/"):
+            found = core.static_file(path[len("/static/"):])
+            if found is not None:
+                return self._bytes(200, *found)
         return self._json(404, {"detail": "not found"})
 
     def do_POST(self):

@@ -11,10 +11,11 @@ runs them as one batch; `stream` yields chunks from the stream plan
 as a WAV file (`ref_audio_path`: VAD trim, resample to 24 kHz, centre crop,
 Mimi encode).
 
-`from_pretrained` loads a local snapshot directory (model.safetensors with
-its cfg, the BPE tokenizer, and a Mimi snapshot directory with
-model.safetensors and config.json); `save_pretrained` writes the Sopro
-weights back in the same format; `from_random` draws weights from a seed.
+`from_pretrained` loads a snapshot (model.safetensors with its cfg, the BPE
+tokenizer, and a Mimi snapshot with model.safetensors and config.json): a
+local directory, or a hub repo id that `hub.download_repo` resolves;
+`save_pretrained` writes the Sopro weights back in the same format;
+`from_random` draws weights from a seed.
 """
 
 from __future__ import annotations
@@ -105,6 +106,9 @@ class SoproTTS:
         cls,
         repo_id: str,
         *,
+        revision: Optional[str] = None,
+        cache_dir: Optional[str] = None,
+        token: Optional[str] = None,
         mimi_repo_id: str = DEFAULT_MIMI_ID,
         runtime: Optional[RuntimeConfig] = None,
         device="cuda",
@@ -112,10 +116,13 @@ class SoproTTS:
         on_unconsumed: str = "warn",
         warmup: bool = False,
     ) -> "SoproTTS":
-        """Load local snapshot directories: `repo_id` holds model.safetensors
-        (its cfg in the metadata) and the tokenizer files, `mimi_repo_id`
-        the Mimi model.safetensors and config.json. A name that is not a
-        directory raises FileNotFoundError (nothing is downloaded). The
+        """Load two snapshots: `repo_id` holds model.safetensors (its cfg in
+        the metadata) and the tokenizer files, `mimi_repo_id` the Mimi
+        model.safetensors and config.json. Each is a local directory or a hub
+        repo id that `hub.download_repo` resolves (downloaded, or found in
+        the hub's cache offline) with `cache_dir` and `token`, the Sopro one
+        at `revision` (the Mimi one at its default, as in the JAX package); a
+        name that resolves to nothing raises FileNotFoundError naming it. The
         tokenizer is the snapshot's BPE `TextTokenizer` unless `tokenizer`
         is given (e.g. SimpleCharTokenizer() for a snapshot of random
         weights); `on_unconsumed` says what a tensor that no converter reads
@@ -123,12 +130,12 @@ class SoproTTS:
         the caller asks for "cpu". `warmup` runs `Engine.warmup` before
         returning, so the first request builds nothing."""
         dev = _resolve_device(device)
-        local = H.local_dir(repo_id)
+        local = H.download_repo(repo_id, revision=revision, cache_dir=cache_dir, token=token)
         model_path = os.path.join(local, "model.safetensors")
         if not os.path.exists(model_path):
             raise FileNotFoundError(f"Expected {model_path} in repo snapshot.")
         cfg, params = H.load_sopro_checkpoint(model_path, on_unconsumed=on_unconsumed)
-        mimi_local = H.local_dir(mimi_repo_id)
+        mimi_local = H.download_repo(mimi_repo_id, cache_dir=cache_dir, token=token)
         mimi_cfg, mimi_params = H.load_mimi_checkpoint(
             os.path.join(mimi_local, "model.safetensors"),
             cfg_json=os.path.join(mimi_local, "config.json"), on_unconsumed=on_unconsumed,

@@ -2,7 +2,8 @@
 cases as subprocesses; synthesize, `--stream`, `--long`, `--metrics_json`
 and `--trace_dir` in-process through `cli.main(argv)`, with `from_random`
 building the small test configuration (the WAV equals `SoproTTS.synthesize`
-at the same seed, bit for bit); the FLOP counters equal the JAX package's
+at the same seed, bit for bit); the hub flags and the server's
+SOPRO_REVISION / HF_TOKEN reach `from_pretrained`; the FLOP counters equal the JAX package's
 at the small and the full configuration, and the training step's count
 agrees with torch's own FLOP counter at full width; the new modules and
 chip_smoke.py import no JAX.
@@ -133,6 +134,59 @@ def test_cli_long_equals_synthesize_long(small, tmp_path, monkeypatch):
                                gap_ms=50, pcm16=True)
     assert want.size > 0
     np.testing.assert_array_equal(read_wav(out), want[0])
+
+
+def _record_from_pretrained(monkeypatch, calls):
+    """`SoproTTS.from_pretrained` records its arguments and returns the small
+    configuration's `from_random(seed=SEED)` on the CPU."""
+
+    def from_pretrained(cls, repo_id, **kw):
+        calls.append(dict(kw, repo_id=repo_id))
+        return SoproTTS.from_random(seed=SEED, device="cpu")
+
+    monkeypatch.setattr(SoproTTS, "from_pretrained", classmethod(from_pretrained))
+
+
+@pytest.mark.parametrize("given", [True, False], ids=["flags", "defaults"])
+def test_cli_passes_the_hub_flags_to_from_pretrained(small, tmp_path, monkeypatch, given):
+    """--revision, --cache_dir and --token reach `from_pretrained` as the JAX
+    CLI passes them (None where absent), with --repo and --mimi_repo; the WAV
+    is that model's `synthesize`."""
+    tts, ref, argv = small
+    calls = []
+    _record_from_pretrained(monkeypatch, calls)
+    hub = ["--revision", "v2", "--cache_dir", str(tmp_path / "hub"), "--token", "hf_x"] if given else []
+    out = tmp_path / "p.wav"
+    assert cli.main([a for a in argv if a != "--random_init"] + hub + [
+        "--repo", "org/m", "--mimi_repo", "org/mimi", "--text", TEXT, "--out", str(out)]) == 0
+    want = dict(revision="v2", cache_dir=str(tmp_path / "hub"), token="hf_x") if given else dict(
+        revision=None, cache_dir=None, token=None)
+    assert calls == [dict(want, repo_id="org/m", mimi_repo_id="org/mimi", device="cpu")]
+    np.testing.assert_array_equal(
+        read_wav(out), tts.synthesize(TEXT, ref_tokens_tq=ref, max_frames=MAX_FRAMES, seed=SEED,
+                                      pcm16=True)[0])
+
+
+@pytest.mark.parametrize("env", [{"SOPRO_REVISION": "v3", "HF_TOKEN": "hf_y"},
+                                 {"SOPRO_REVISION": "", "HF_TOKEN": ""}], ids=["set", "empty"])
+def test_server_passes_sopro_revision_and_hf_token(small, monkeypatch, env):
+    """`ServerConfig` reads SOPRO_REVISION and HF_TOKEN (empty -> None, as in
+    the JAX package) and `get_tts` hands them to `from_pretrained` with
+    SOPRO_REPO_ID and SOPRO_MIMI_REPO_ID."""
+    from sopro_tpu_torch.serve import server as core
+
+    for k, v in dict(env, SOPRO_REPO_ID="org/m", SOPRO_MIMI_REPO_ID="org/mimi", SOPRO_DEVICE="cpu",
+                     SOPRO_SLOTS="1", SOPRO_MAX_FRAMES=str(MAX_FRAMES), SOPRO_RANDOM_INIT="").items():
+        monkeypatch.setenv(k, v)
+    calls = []
+    _record_from_pretrained(monkeypatch, calls)
+    monkeypatch.setattr(core, "CFG", core.ServerConfig())
+    monkeypatch.setattr(core, "_tts", None)
+    monkeypatch.setattr(core, "_batcher", None)
+    _, batcher = core.get_tts()
+    batcher.stop()
+    assert calls == [dict(repo_id="org/m", revision=env["SOPRO_REVISION"] or None,
+                          token=env["HF_TOKEN"] or None, mimi_repo_id="org/mimi", device="cpu")]
 
 
 @pytest.mark.parametrize("cfg", [TRAIN_CFG, CFG, {}], ids=["train", "small", "full"])

@@ -8,6 +8,12 @@ plus config.json, the tokenizer a `tokenizers` WordLevel one. Both packages
 load them. Bars: parameters and token ids exact, `synthesize` tokens exact
 and waveforms within 1e-4 of their peak (fp32 stacks summed in another
 order), safetensors bytes interchangeable with the `safetensors` package.
+
+Repo ids resolve through a hub cache built under tmp_path
+(models--org--name/refs/<revision> and snapshots/<sha>/), with the hub
+forced offline for every test here (`hub_offline`): the port's and the JAX
+package's `download_repo` return the same path, and loading by repo id
+equals loading the directory bit for bit.
 """
 
 import json
@@ -45,6 +51,52 @@ TOL = 1e-4
 RT = dict(text_buckets=(16, 32), ref_buckets=(16,), nar_pad_multiple=8)
 REF = np.random.default_rng(7).integers(0, CFG["codebook_size"], (10, CFG["num_codebooks"])
                                         ).astype(np.int32)
+
+
+@pytest.fixture(autouse=True)
+def hub_offline(monkeypatch, tmp_path):
+    """The hub never reaches the network in this module: HF_HUB_OFFLINE=1 in
+    the environment and in `huggingface_hub.constants` (read there at
+    import), its HTTP sessions dropped so the next one is built offline, its
+    default cache under tmp_path, and a socket connect to any host but this
+    one refused."""
+    import socket
+
+    import huggingface_hub.constants as C
+    from huggingface_hub.utils import reset_sessions
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setattr(C, "HF_HUB_OFFLINE", True)
+    monkeypatch.setattr(C, "HF_HUB_CACHE", str(tmp_path / "default_hf_cache"))
+    connect = socket.socket.connect
+
+    def local_only(sock, address):
+        host = address[0] if isinstance(address, tuple) else None
+        if sock.family in (socket.AF_INET, socket.AF_INET6) and host not in (
+                "127.0.0.1", "localhost", "::1"):
+            raise OSError(f"network access refused in this test: {address}")
+        return connect(sock, address)
+
+    monkeypatch.setattr(socket.socket, "connect", local_only)
+    reset_sessions()
+    yield
+    reset_sessions()
+
+
+def hub_cache(root, repo_id, files_from, refs=("main",), sha="0123456789abcdef" * 2 + "01234567"):
+    """A hub cache entry of `repo_id` under `root`, as the hub writes it:
+    models--org--name/snapshots/<sha>/ holding a copy of `files_from`, and
+    refs/<name> holding the sha for each of `refs` -> the snapshot path."""
+    import shutil
+
+    entry = os.path.join(str(root), "models--" + repo_id.replace("/", "--"))
+    snap = os.path.join(entry, "snapshots", sha)
+    shutil.copytree(files_from, snap)
+    os.makedirs(os.path.join(entry, "refs"), exist_ok=True)
+    for ref in refs:
+        with open(os.path.join(entry, "refs", ref), "w") as f:
+            f.write(sha)
+    return snap
 
 
 def peak_close(got, want, tol=TOL):
@@ -337,3 +389,105 @@ def test_from_pretrained_warmup_builds_first_and_changes_nothing(snapshot, monke
     assert warm.engine.model.nar._stacks is built[0] and warm.engine.mimi._packed is built[1]
     for got, want in zip(*outs):
         np.testing.assert_array_equal(got, want)
+
+
+SHA = "0123456789abcdef" * 2 + "01234567"
+
+
+@pytest.mark.parametrize("revision", [None, "v1", SHA], ids=["main", "tag", "sha"])
+def test_download_repo_resolves_the_hub_cache_as_jax_does(snapshot, tmp_path, revision):
+    """On an offline hub cache the port's `download_repo` returns the JAX
+    package's path: the snapshot of refs/main, of a named revision, or of a
+    commit sha; a local directory comes back unchanged from both."""
+    cache = tmp_path / "hub"
+    snap = hub_cache(cache, "org/m", snapshot[0], refs=("main", "v1"))
+    got = H.download_repo("org/m", revision=revision, cache_dir=str(cache))
+    assert got == JH.download_repo("org/m", revision=revision, cache_dir=str(cache))
+    assert os.path.samefile(got, snap)
+    assert H.download_repo(snapshot[0], revision=revision) == snapshot[0] == JH.download_repo(snapshot[0])
+
+
+def test_from_pretrained_through_the_hub_cache_equals_the_directory(snapshot, tmp_path):
+    """`from_pretrained("org/m", cache_dir=...)` with the Mimi under its
+    default id in the same cache: parameters and `synthesize` equal bit for
+    bit to loading the snapshot directories; `MimiCodec.from_pretrained`
+    takes the cached name from the hub's default cache."""
+    import huggingface_hub.constants
+
+    sopro_dir, mimi_dir, _ = snapshot
+    cache = str(tmp_path / "hub")
+    hub_cache(cache, "org/m", sopro_dir)
+    hub_cache(cache, "kyutai/mimi", mimi_dir)
+    kw = dict(runtime=RuntimeConfig(**RT), device="cpu", on_unconsumed="raise")
+    cached = SoproTTS.from_pretrained("org/m", cache_dir=cache, **kw)
+    local = SoproTTS.from_pretrained(sopro_dir, mimi_repo_id=mimi_dir, **kw)
+    for a, b in ((cached.engine.model, local.engine.model), (cached.engine.mimi, local.engine.mimi)):
+        sa, sb = a.state_dict(), b.state_dict()
+        assert sa.keys() == sb.keys()
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), k
+    text = "hello world voice"
+    np.testing.assert_array_equal(
+        cached.synthesize(text, ref_tokens_tq=REF, max_frames=CFG["max_frames"], seed=3),
+        local.synthesize(text, ref_tokens_tq=REF, max_frames=CFG["max_frames"], seed=3))
+    codes = np.random.default_rng(5).integers(0, 32, (6, 8)).astype(np.int32)
+    hub_cache(huggingface_hub.constants.HF_HUB_CACHE, "kyutai/mimi", mimi_dir)
+    np.testing.assert_array_equal(
+        MimiCodec.from_pretrained("kyutai/mimi", device="cpu").decode_full(codes),
+        MimiCodec.from_pretrained(mimi_dir, device="cpu").decode_full(codes))
+
+
+def test_hub_keywords_on_a_local_directory_change_nothing(pair, snapshot, tmp_path):
+    """`revision`, `cache_dir` and `token` are accepted with local
+    directories and change nothing: the same parameters and tokens, and no
+    cache directory made."""
+    sopro_dir, mimi_dir, _ = snapshot
+    unused = tmp_path / "unused_cache"
+    port = SoproTTS.from_pretrained(sopro_dir, revision="v9", cache_dir=str(unused), token="hf_x",
+                                    mimi_repo_id=mimi_dir, runtime=RuntimeConfig(**RT), device="cpu")
+    sa, sb = port.engine.model.state_dict(), pair[1].engine.model.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sb)
+    ref = port.prepare_reference(ref_tokens_tq=REF)
+    np.testing.assert_array_equal(
+        port.generate_tokens("hello world", ref, max_frames=CFG["max_frames"], seed=2),
+        pair[1].generate_tokens("hello world", pair[1].prepare_reference(ref_tokens_tq=REF),
+                                max_frames=CFG["max_frames"], seed=2))
+    assert not unused.exists()
+
+
+@pytest.mark.parametrize("case", ["uncached", "unknown_revision", "missing_path", "no_hub_package"])
+def test_an_unresolvable_name_raises_file_not_found_naming_it(snapshot, tmp_path, monkeypatch, case):
+    """Neither a directory nor resolvable: offline and not cached, cached
+    but not at that revision, a path that does not exist (no repo id), or
+    no `huggingface_hub` installed -> FileNotFoundError naming the repo."""
+    cache = tmp_path / "hub"
+    hub_cache(cache, "org/m", snapshot[0])
+    name, kw = {"uncached": ("org/absent", {}), "unknown_revision": ("org/m", {"revision": "v7"}),
+                "missing_path": (str(tmp_path / "no" / "such" / "dir"), {}),
+                "no_hub_package": ("org/m", {})}[case]
+    if case == "no_hub_package":
+        import sys
+
+        monkeypatch.setitem(sys.modules, "huggingface_hub", None)
+    with pytest.raises(FileNotFoundError, match=name) as e:
+        H.download_repo(name, cache_dir=str(cache), **kw)
+    if case == "no_hub_package":
+        assert "huggingface_hub" in str(e.value)
+    with pytest.raises(FileNotFoundError, match=name):
+        SoproTTS.from_pretrained(name, cache_dir=str(cache), mimi_repo_id=snapshot[1], device="cpu", **kw)
+
+
+def test_the_local_directory_route_imports_no_hub(snapshot):
+    """Loading from local directories imports no `huggingface_hub` (the
+    card's machine may not have it): `download_repo` and
+    `MimiCodec.from_pretrained` in a fresh interpreter."""
+    code = (
+        "import sys\n"
+        "from sopro_tpu_torch.hub import download_repo\n"
+        "from sopro_tpu_torch.codec.adapter import MimiCodec\n"
+        f"assert download_repo({snapshot[0]!r}, revision='v1', token='t') == {snapshot[0]!r}\n"
+        f"MimiCodec.from_pretrained({snapshot[1]!r}, device='cpu')\n"
+        "assert 'huggingface_hub' not in sys.modules, 'the local route imported the hub'\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

@@ -9,6 +9,10 @@ on the same weights: 2 slots, chunk 4, zero decoder conv biases (where the
 JAX stream's zero history is the causal padding) and (max_frames + 1) % 4
 == 0 (where the JAX tick does not clamp its last window).
 
+Also: one scheduler thread however many clients start or submit at once
+(threads released by one barrier, a 1 µs switch interval), a restart after
+`stop()`, and the web demo's files through both transports.
+
 Tolerances: waveforms rtol 1e-4 / atol 1e-5 against the port's own stream
 (the same arithmetic on other batch shapes), 1e-4 of the peak against JAX;
 frame counts and PCM exact. The Mimi decoder is rescaled (`audible_decoder`)
@@ -17,6 +21,7 @@ so waveforms follow the tokens.
 
 import io
 import json
+import os
 import struct
 import urllib.request
 import wave
@@ -216,6 +221,82 @@ def test_submits_from_many_threads(tts, ref):
     assert sorted(outs) == list(range(12)) and b.stats()["sessions_done"] == 12
     for i in (0, 11):
         _close(outs[i], _solo(tts, ref, f"client {i}", 60 + i))
+
+
+def _scheduler_threads(b):
+    """The live threads running `b`'s scheduler loop."""
+    import threading
+
+    return [th for th in threading.enumerate()
+            if th.is_alive() and getattr(th, "_target", None) == b._run]
+
+
+def _at_once(n, fn):
+    """Call fn(i) from n threads released together by one barrier, with a
+    1 µs switch interval (restored after) -> the results by i."""
+    import sys
+    import threading
+
+    barrier, out = threading.Barrier(n), {}
+
+    def run(i):
+        barrier.wait()
+        out[i] = fn(i)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    return out
+
+
+@pytest.mark.parametrize("call", ["start", "submit"])
+def test_concurrent_starts_run_one_scheduler_thread(tts, ref, call):
+    """C11: twelve threads released by one barrier call `start()` (or
+    `submit()`) on one batcher: exactly one scheduler thread runs, named
+    "sopro-batcher", and every submitted session completes."""
+    from sopro_tpu_torch.serve.scheduler import THREAD_NAME
+
+    b = _batcher(tts)
+    try:
+        if call == "start":
+            _at_once(12, lambda i: b.start())
+            handles = []
+        else:
+            handles = list(_at_once(12, lambda i: b.submit(f"at once {i}", ref, seed=80 + i,
+                                                           max_frames=4)).values())
+        running = _scheduler_threads(b)
+        assert len(running) == 1 and running[0].name == THREAD_NAME, running
+        for h in handles:
+            _drain(h)
+        assert b.stats()["sessions_done"] == len(handles)
+    finally:
+        b.stop()
+    assert not _scheduler_threads(b)
+
+
+def test_stop_then_submit_restarts_one_thread(tts, ref):
+    """After `stop()` no scheduler thread runs; a `submit` starts exactly
+    one again, and its session ships what it ships alone."""
+    b = _batcher(tts)
+    try:
+        _drain(b.submit("first", ref, seed=90, max_frames=4))
+        b.stop()
+        assert not _scheduler_threads(b)
+        h = b.submit("after stop", ref, seed=91)
+        assert len(_scheduler_threads(b)) == 1
+        _close(_cat(_drain(h)), _solo(tts, ref, "after stop", 91))
+        assert len(_scheduler_threads(b)) == 1 and b.stats()["sessions_done"] == 2
+    finally:
+        b.stop()
+    assert not _scheduler_threads(b)
 
 
 def test_cancel_frees_the_slot(tts, ref):
@@ -432,6 +513,79 @@ def test_fastapi_routes_execute(tts, monkeypatch, tmp_path):
             raise AssertionError("a malformed ref_id was accepted")
     finally:
         b.stop()
+
+
+def _static_files():
+    from sopro_tpu_torch.serve import server
+
+    out = {}
+    for name in ("index.html", "app.js"):
+        with open(os.path.join(server.STATIC_DIR, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+# the demo's requests and wire parsing are the JAX package's, only its title text differs
+DEMO_CALLS = (b'fetch("/v1/reference/cache"', b'fetch("/v1/audio/speech"', b'"SPRO"')
+
+
+def test_stdlib_serves_the_web_demo():
+    """`/` answers static/index.html and `/static/app.js` the script, equal to
+    the package's files, with the JAX server's content types; traversal (also
+    URL-encoded) and an unknown file answer 404."""
+    import urllib.error
+
+    from sopro_tpu_torch.serve import server_stdlib as srv
+
+    files = _static_files()
+    assert b'<script src="/static/app.js">' in files["index.html"]
+    assert all(c in files["app.js"] for c in DEMO_CALLS)
+    httpd = srv.serve("127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        for path, name, ctype in (("/", "index.html", "text/html"),
+                                  ("/static/index.html", "index.html", "text/html"),
+                                  ("/static/app.js", "app.js", "text/javascript"),
+                                  ("/static/app.js?v=2", "app.js", "text/javascript")):
+            with urllib.request.urlopen(base + path, timeout=30) as r:
+                assert r.status == 200 and r.headers["Content-Type"] == ctype, path
+                assert r.read() == files[name], path
+        for path in ("/static/../server.py", "/static/%2e%2e/server.py", "/static/..%2fserver.py",
+                     "/static/", "/static/missing.js", "/static//etc/passwd", "/nothing"):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(base + path, timeout=30)
+            assert e.value.code == 404, path
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_fastapi_app_serves_the_web_demo(monkeypatch, tmp_path):
+    """`build_app` (through the stub fastapi) mounts /static on the package's
+    static directory and answers `/` with index.html; where the file is
+    missing, `/` is the fixed page, as in the JAX package."""
+    from sopro_tpu_torch.serve import server
+
+    fastapi = _install_fastapi_stub(monkeypatch)
+    mounts = []
+    monkeypatch.setattr(fastapi.FastAPI, "mount",
+                        lambda self, path, app, name=None: mounts.append((path, app, name)))
+    monkeypatch.setattr(fastapi.staticfiles.StaticFiles, "__init__",
+                        lambda self, directory=None: setattr(self, "directory", directory))
+    files = _static_files()
+    app = core.build_app()
+    assert [(p, n) for p, _, n in mounts] == [("/static", "static")]
+    served = mounts[0][1].directory
+    for name, data in files.items():
+        with open(os.path.join(served, name), "rb") as f:
+            assert f.read() == data
+    page = app.routes[("GET", "/")]()
+    assert page.content.encode() == files["index.html"]
+    monkeypatch.setattr(server, "STATIC_DIR", str(tmp_path / "absent"))
+    mounts.clear()
+    bare = core.build_app()
+    assert not mounts
+    assert bare.routes[("GET", "/")]().content.encode() == server.FALLBACK_INDEX
 
 
 def test_port_batcher_matches_the_jax_batcher():
