@@ -7,7 +7,10 @@ Phases (each raises, so the script exits non-zero, on failure):
 1. require a CUDA device; print the card's name and power limit;
 2. build the kernels' sources from csrc/ with nvcc (sm_90a), one nvcc each,
    all started together, and print the build seconds and ptxas' register /
-   shared-memory report;
+   shared-memory report; require Hopper's own tensor-core path in the SASS
+   (`cuobjdump -sass`) of K2's kernel and K3's conv and fused residual-block
+   kernels: warpgroup MMAs (HGMMA) and TMA tile loads (UTMALDG) in every
+   instantiation, counts printed;
 3. hold each of the five kernels against its plain PyTorch version at the
    main paths' shapes (full Sopro v1.5 and Mimi widths, random weights from
    a seed with the zero-initialised leaves filled, TF32 off) and time both
@@ -151,7 +154,7 @@ serve tick's window, K1 also at 1, 4, 7 and 8 serving rows, K3 also at
 B = 4, K4 also at chunk 16, with errors against float64 plain versions.
 Each record's "bf16" entry holds the same keys for the kernel's bfloat16
 instantiation (launches from the bf16 path it belongs to; bounds at 2
-bytes an element, one TF32 pass for K2, K3 and K4).
+bytes an element and the bf16 tensor-core rate).
 """
 
 from __future__ import annotations
@@ -233,6 +236,27 @@ def gpu_lines() -> list:
 
 def gpu_line() -> str:
     return gpu_lines()[0]
+
+
+# kernels on Hopper's own path: (source, function name part)
+HOPPER_KERNELS = (("nar_heads", "nar_heads_kernel"), ("seanet", "conv_wgmma_kernel"),
+                  ("seanet", "resblock_wgmma_kernel"))
+
+
+def check_hopper_sass():
+    """Every instantiation of K2's kernel and of K3's conv and fused
+    residual-block kernels holds HGMMA (wgmma) and UTMALDG (TMA tile load)
+    instructions in its SASS."""
+    from sopro_tpu_torch import kernels
+
+    for source, kernel in HOPPER_KERNELS:
+        counts = kernels.sass_counts(source, kernel, ("HGMMA", "UTMALDG"))
+        if not counts:
+            raise AssertionError(f"{source}: no function named *{kernel}* in its SASS")
+        for fn, c in counts.items():
+            log(f"  {source} SASS {fn}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}")
+            if not (c["HGMMA"] and c["UTMALDG"]):
+                raise AssertionError(f"{source} {fn}: no HGMMA or no UTMALDG in its SASS")
 
 
 def build_models(dev, seed: int, cfg, mcfg):
@@ -2033,7 +2057,7 @@ def drive_cli(tts, ref, ref_tokens):
             kernels = [e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
         counts = {k: sum(1 for n in kernels if any(s in n for s in subs)) for k, subs in
                   (("ar_loop", ("ar_loop_kernel",)), ("nar_heads", ("nar_heads_kernel",)),
-                   ("seanet", ("conv_tc_kernel", "resblock_kernel")))}
+                   ("seanet", ("conv_wgmma_kernel", "resblock_wgmma_kernel")))}
         log(f"  cli trace: {len(kernels)} kernel events; K1 / K2 / K3 launches named in it: {counts}")
         if not all(counts.values()):
             raise AssertionError(f"cli trace: a kernel is missing: {counts}")
@@ -2113,7 +2137,8 @@ def check_bf16_kernels(tts16, dev, rng):
     the main paths' shapes, timed beside the plain version and the bf16
     library yardstick; bounds at 2 bytes an element and the 989 TFLOP/s
     bfloat16 tensor-core rate (`design_bound_ms`: at the rate of the design
-    taken, one TF32 pass for K2, K3 and K4, the fp32 cores for K1 and K5)."""
+    taken, the bfloat16 tensor cores for K2, K3 and K4, the fp32 cores for
+    K1 and K5)."""
     from sopro_tpu_torch.bench_kernels import (
         ar_cost, bound, conv_stack_cost, nar_cost, nar_library, seanet_library,
         seanet_library_weights,
@@ -2697,6 +2722,7 @@ def main() -> int:
         for line in kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    check_hopper_sass()
 
     log("[3] kernels against their plain versions (main-path shapes, fp32, TF32 off)")
     rng = np.random.default_rng(SEED)

@@ -4,8 +4,13 @@ kernels costs, and what the chunked accumulation buys in accuracy.
     python -m sopro_tpu_torch.bench_ablation [--out PATH]
 
 Builds copies of `csrc/` with one text edit each (ABLATIONS; an edit whose
-text is missing fails the run), loads each copy in place of the tree's
-kernels, and times on the same inputs, in one process: every K3 launch at
+text is missing fails the run): the kernels (K2, K3's conv and fused
+residual blocks) without their MMAs,
+the conv kernel without its A fragments, its ELU pass, its epilogue, or
+with one accumulator through all of K; K2 and the conv reading only the hi
+weight tiles (half the weight bytes); the fused block without its ELU pass,
+its residual loads, its final conv or its epilogue. Loads each copy in place of the
+tree's kernels, and times on the same inputs, in one process: every K3 launch at
 B = 1 (emb [1, 802, 512] of N(0, 0.25)), the whole of K3 at B = 1 and 4 with
 its largest error over the float32 plain version's peak, and K2's four
 stages at 401 and 1,604 rows. Full Sopro v1.5 and Mimi widths, random
@@ -28,32 +33,59 @@ import torch
 from sopro_tpu_torch import kernels
 from sopro_tpu_torch.bench_kernels import cuda_ms
 
-MMA_LINES = tuple(
-    f"      for (int nt = 0; nt < NT; ++nt) mma(acc[mt][nt], {a}[mt], {b}[nt]);"
-    for a, b in (("al", "bh"), ("ah", "bl"), ("ah", "bh"))
-)
+WGMMA_CALLS = {  # source -> its float32 wgmma calls (K3: the conv, then the fused block's two convs)
+    "seanet.cu": tuple(f"hopper::wgmma_tf32_n128(part, {a}[ks], {d} + 2 * ks, {sc});"
+                       for a, d, sc in (("alo", "dhi", "ks > 0"), ("ahi", "dlo", "1"), ("ahi", "dhi", "1")))
+    + tuple(f"hopper::wgmma_tf32<H>(part1, {a}[ks], {d} + 2 * ks, {sc});"
+            for a, d, sc in (("alo", "dhi", "ks > 0"), ("ahi", "dlo", "1"), ("ahi", "dhi", "1")))
+    + tuple(f"hopper::wgmma_tf32<C>(acc2, {a}[j], {d}, 1);"
+            for a, d in (("alo", "dhi"), ("ahi", "dlo"), ("ahi", "dhi"))),
+    "nar_heads.cu": tuple(f"hopper::wgmma_tf32_n256(acc, {a}[ks], {d} + 2 * ks, 1);"
+                          for a, d in (("alo", "dhi"), ("ahi", "dlo"), ("ahi", "dhi"))),
+}
 # name -> [(source file, text, replacement)]
 ABLATIONS = {
-    "no MMAs": [("tf32x3.cuh", line, "      for (int nt = 0; nt < 0; ++nt) {}")
-                for line in MMA_LINES],
-    "conv: no weight loads": [(
+    "wgmma: no MMAs": [(f, call, "") for f, calls in WGMMA_CALLS.items() for call in calls],
+    "conv: no A fragments": [(
         "seanet.cu",
-        "        tf32x3::cp_async16(wd + (half * wrows + kk) * kTcLDB + c4, src, true);",
-        "        (void)src;",
+        "tf32x3::split(*reinterpret_cast<const float*>(at + hopper::sw128(ra + 8 * (i & 1), 4 * k)), hi, lo);",
+        "tf32x3::split((float)k, hi, lo);",
     )],
-    "conv: no ELU or split": [(
-        "seanet.cu",
-        "        if (a.elu_in) v = elu(v);\n"
-        "        tf32x3::split(v, a_hi[r * Tl::LDA + k], a_lo[r * Tl::LDA + k]);",
-        "        a_hi[r * Tl::LDA + k] = v;",
-    )],
-    "one accumulator": [
-        ("seanet.cu", "    float part[Tl::MT][Tl::NT][4];\n    tf32x3::zero(part);",
-         "    float (&part)[Tl::MT][Tl::NT][4] = acc;"),
-        ("seanet.cu", "    tf32x3::add(acc, part);", ""),
-        ("seanet.cu", "        float part[R::MT][R::NT1][4];\n        tf32x3::zero(part);",
-         "        float (&part)[R::MT][R::NT1][4] = acc1;"),
-        ("seanet.cu", "        tf32x3::add(acc1, part);", ""),
+    "conv: no ELU pass": [("seanet.cu", "        if ((a.elu & 1) || mask) {", "        if (false) {")],
+    "conv: no epilogue": [("seanet.cu", "      if (t >= a.T_out || n >= a.N) return;",
+                           "      if (t >= 0) return;"),
+                          ("seanet.cu", "    if (a.splits == 1 && a.store_tma) {",
+                           "    if (a.splits == 1 && a.store_tma && false) {")],
+    "conv: no lo tiles": [  # half the weight bytes: the lo pass reads the hi tile
+        ("seanet.cu", "hopper::mbar_expect_tx(&bfull[sb], W::BSTAGE);",
+         "hopper::mbar_expect_tx(&bfull[sb], W::B_BYTES);"),
+        ("seanet.cu", "              if constexpr (W::F32)\n"
+                      "                hopper::tma_load_2d(d + W::B_BYTES, &maps.wlo,",
+         "              if constexpr (false)\n                hopper::tma_load_2d(d + W::B_BYTES, &maps.wlo,"),
+        ("seanet.cu", "const uint64_t dlo = hopper::desc_k128(bt + W::B_BYTES);",
+         "const uint64_t dlo = dhi;"),
+    ],
+    "K2: no lo tiles": [
+        ("nar_heads.cu", "hopper::mbar_expect_tx(&full[s], T::STAGE);",
+         "hopper::mbar_expect_tx(&full[s], T::STAGE - (T::F32 ? T::B_BYTES : 0));"),
+        ("nar_heads.cu", "        if constexpr (T::F32)\n          hopper::tma_load_2d(st + T::A_BYTES + T::B_BYTES,",
+         "        if constexpr (false)\n          hopper::tma_load_2d(st + T::A_BYTES + T::B_BYTES,"),
+        ("nar_heads.cu", "const uint64_t dlo = hopper::desc_k128(st + T::A_BYTES + T::B_BYTES);",
+         "const uint64_t dlo = dhi;"),
+    ],
+    "resblock: no ELU pass": [("seanet.cu", "      for (int v = tid - 288; v < R::XBOX * R::RX * 8; v += 96) {",
+                               "      for (int v = tid - 288; v < 0; v += 96) {")],
+    "resblock: no residual loads": [("seanet.cu", "      if (a0 + t >= 0 && a0 + t < a.T_in) {",
+                                     "      if (false) {")],
+    "resblock: no final conv": [("seanet.cu", "      for (int o0 = 0; o0 < BMO; o0 += 64) {",
+                                 "      for (int o0 = 0; o0 < 0; o0 += 64) {")],
+    "resblock: no epilogue": [("seanet.cu", "    for (int i = 0; i < C / 2; i += 2) {\n      const int r = rw",
+                               "    for (int i = 0; i < 0; i += 2) {\n      const int r = rw")],
+    "conv: one accumulator": [  # per tile, through all of K
+        ("seanet.cu", "hopper::wgmma_tf32_n128(part, alo[ks], dhi + 2 * ks, ks > 0);",
+         "hopper::wgmma_tf32_n128(part, alo[ks], dhi + 2 * ks, ks > 0 || c > 0 || j > 0);"),
+        ("seanet.cu", "        for (int i = 0; i < 64; ++i) acc[i] += part[i];\n", ""),
+        ("seanet.cu", "make_float2(acc[i], acc[i + 1])", "make_float2(part[i], part[i + 1])"),
     ],
 }
 SOURCES = ("nar_heads", "seanet")

@@ -29,18 +29,25 @@ Kernel layout (`pack_seanet_decoder`, once per device):
   a k3 conv into a hidden buffer and a k1 conv that adds the block input.
   The bounds and the start table are computed from it.
 - "k3": the launch list of K3 and K4. {"kind": "conv", "op", "hi", "lo":
-  [taps, cinp, np] (the TF32 split of the weight, zero-padded to cinp = Cin
-  rounded up to 32 and np = N rounded up to 128; for bfloat16 weights "hi"
-  is the weight itself and "lo" None: a bfloat16 value is exact in TF32,
-  its split has no low part), "b" [N], "taps", "dil",
-  "elu_in", "cin", "n", "phases", "residual"}: a transpose conv is one
+  [taps, np, cinp] (the TF32 split of the weight, K-major -- each tap's
+  [Cin, N] transposed, the reduction index contiguous, as `wgmma` reads a
+  TF32 operand -- zero-padded to cinp = Cin rounded up to 32 and np = N
+  rounded up to 128; for bfloat16 weights "hi" is the weight itself and
+  "lo" None), "b" [N], "taps", "dil", "elu_in", "elu_out", "cin", "cinp",
+  "n", "np", "phases", "residual"}: a transpose conv is one
   two-tap conv with N = s * Cout, column r * Cout + c holding phase r, its
   bias repeated s times. {"kind": "resblock", "op", "c", "final", "w1hi",
-  "w1lo" [3C, C/2], "b1", "w2hi", "w2lo" [C/2, C], "b2", "wf" [3C], "bf"
-  [1]}: a residual block of C = 128 or 64 channels (k3 dilation 1), with
-  the final ELU + k3 conv to one channel when "final" (wf and bf, in the
+  "w1lo" [3 * C/2, C] (K-major), "b1", "w2hi", "w2lo" [C, C/2] (K-major,
+  K in `resblock_k_order`), "b2", "wf" [3C], "bf" [1]}: a residual block of
+  C = 128 or 64 channels (k3 dilation 1), with the final ELU + k3 conv to
+  one channel when "final" (C = 64 only; wf and bf, in the
   weights' dtype, are then that conv's; bfloat16: "w1hi" / "w2hi" the
   weights, "w1lo" / "w2lo" None). "op": the launch's first op in "ops".
+  Where a launch's output is read only through the next conv's ELU (the k7
+  conv, the residual convs of stages 1-2, the stage-3 fused block), the
+  launch applies the ELU in its epilogue ("elu_out") and the conv reads its
+  input as it is ("elu_in" False): the ELU runs once per element, not once
+  per column tile of the next conv.
 
 The weights' dtype is the codec's (float32, or bfloat16 under the bf16
 compute policy); the kernels take activations of the same dtype and the
@@ -57,6 +64,7 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from sopro_tpu_torch import kernels
 from sopro_tpu_torch.codec.mimi import decode_embeddings, seanet_apply
@@ -65,10 +73,10 @@ from sopro_tpu_torch.codec.mimi_config import (
 )
 from sopro_tpu_torch.ops.tf32x3 import split_tf32
 
-CIN_MULTIPLE, N_MULTIPLE = 32, 128  # K3 conv kernel: Cin chunks, column tiles
+CIN_MULTIPLE, N_MULTIPLE = 32, 128  # K3 conv kernels: Cin chunks, column tiles
 # the fused K3 residual-block kernel: width C -> rows of hidden per time tile
-# (csrc/seanet.cu ResTile::BM; a tile with the final conv writes 2 fewer)
-RESBLOCK_TILE_ROWS = {128: 32, 64: 64}
+# (csrc/seanet.cu kWgBM; a tile with the final conv writes 2 fewer)
+RESBLOCK_TILE_ROWS = {128: 128, 64: 128}
 
 
 def pack_seanet_decoder(dec_params: List[Dict], cfg: MimiConfig) -> Dict[str, Any]:
@@ -116,12 +124,13 @@ def _k3_conv(op: Dict[str, Any], residual: bool) -> Dict[str, Any]:
     taps, cin, n = w.shape
     cinp = -(-cin // CIN_MULTIPLE) * CIN_MULTIPLE
     np_ = -(-n // N_MULTIPLE) * N_MULTIPLE
-    padded = torch.zeros((taps, cinp, np_), dtype=w.dtype, device=w.device)
-    padded[:, :cin, :n] = w
+    padded = torch.zeros((taps, np_, cinp), dtype=w.dtype, device=w.device)
+    padded[:, :n, :cin] = w.transpose(1, 2)
     hi, lo = _split(padded)
     return {"kind": "conv", "hi": hi, "lo": lo, "b": op["b"].repeat(phases).contiguous(),
             "taps": int(taps), "dil": int(op["dil"]), "elu_in": bool(op["elu_in"]),
-            "cin": int(cin), "n": int(n), "phases": phases, "residual": residual}
+            "elu_out": False, "cin": int(cin), "cinp": cinp, "n": int(n), "np": np_,
+            "phases": phases, "residual": residual}
 
 
 def _split(w: torch.Tensor):
@@ -130,6 +139,18 @@ def _split(w: torch.Tensor):
     if w.dtype == torch.bfloat16:
         return w.contiguous(), None
     return split_tf32(w)
+
+
+def resblock_k_order(h: int, dtype) -> torch.Tensor:
+    """The fused block's k1-conv K order: float32 feeds the hidden's
+    accumulator fragment (columns 2q and 2q + 1 of each 8-column block) as
+    the k positions q and q + 4 of a TF32 k8 step, so within each block of 8
+    the packed K columns are hidden channels 0, 2, 4, 6, 1, 3, 5, 7; bfloat16
+    fragments pair columns as they are (the identity)."""
+    if dtype == torch.bfloat16:
+        return torch.arange(h)
+    block = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+    return (torch.arange(0, h, 8)[:, None] + block[None, :]).reshape(-1)
 
 
 def _fusable(k3: Dict[str, Any], k1: Dict[str, Any]) -> bool:
@@ -150,13 +171,16 @@ def _k3_launches(ops: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
         if nxt is not None and nxt["residual"] and _fusable(op, nxt):
             c = int(op["w"].shape[1])
             last = ops[i + 2] if i + 3 == len(ops) else None
-            final = (last is not None and tuple(last["w"].shape) == (3, c, 1)
+            final = (c == 64 and last is not None and tuple(last["w"].shape) == (3, c, 1)
                      and int(last["dil"]) == 1 and last["elu_in"] and int(last["phases"]) == 1)
-            w1hi, w1lo = _split(op["w"].reshape(3 * c, c // 2).contiguous())
-            w2hi, w2lo = _split(nxt["w"].reshape(c // 2, c).contiguous())
-            launch = {"kind": "resblock", "op": i, "c": c, "final": final, "w1hi": w1hi,
-                      "w1lo": w1lo, "b1": op["b"], "w2hi": w2hi, "w2lo": w2lo, "b2": nxt["b"],
-                      "wf": None, "bf": None}
+            # K-major: w1 [3, C/2, C] (tap j's [C, C/2] transposed), w2 [C, C/2] with
+            # its K columns in the order the kernel's hidden fragment takes them
+            w1hi, w1lo = _split(op["w"].transpose(1, 2).reshape(3 * (c // 2), c).contiguous())
+            w2 = nxt["w"][0].t()[:, resblock_k_order(c // 2, nxt["w"].dtype)]
+            w2hi, w2lo = _split(w2.contiguous())
+            launch = {"kind": "resblock", "op": i, "c": c, "final": final, "elu_out": False,
+                      "w1hi": w1hi, "w1lo": w1lo, "b1": op["b"], "w2hi": w2hi, "w2lo": w2lo,
+                      "b2": nxt["b"], "wf": None, "bf": None}
             if final:
                 launch["wf"] = last["w"].reshape(3 * c).contiguous()
                 launch["bf"] = last["b"].reshape(1).contiguous()
@@ -165,6 +189,11 @@ def _k3_launches(ops: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
         else:
             out.append(dict(_k3_conv(op, bool(op["residual"])), op=i))
             i += 1
+    for k, (cur, nxt) in enumerate(zip(out, out[1:])):
+        # the next conv's input is kept raw only as a residual block's input
+        raw = k + 2 < len(out) and out[k + 2]["kind"] == "conv" and out[k + 2]["residual"]
+        if not cur.get("final") and nxt["kind"] == "conv" and nxt["elu_in"] and not raw:
+            cur["elu_out"], nxt["elu_in"] = True, False
     return out
 
 
@@ -191,7 +220,7 @@ _ARGTYPES = {
     "sopro_seanet_conv_tc": [_C_PTR] * 6 + [_C_INT] * 11 + [_C_PTR, _C_INT, _C_INT, _C_PTR],
     "sopro_seanet_resblock": [_C_PTR] * 10 + [_C_INT] * 5 + [_C_PTR, _C_INT, _C_PTR],
 }
-K4_MAX_SPLITS = 16  # csrc/seanet.cu kMaxSplits: K4's convs split Cin over up to 16 blocks
+MAX_SPLITS = 16  # csrc/seanet.cu kMaxSplits: a short conv splits Cin over up to 16 blocks
 
 
 def _entry(name: str, dtype):
@@ -210,7 +239,7 @@ def _start_arg(start: Optional[torch.Tensor]):
 
 
 def _conv_cuda(launch: Dict[str, Any], x: torch.Tensor, residual, start=None, t_out=None,
-               max_splits: int = 1, stream=None) -> torch.Tensor:
+               max_splits: int = MAX_SPLITS, stream=None) -> torch.Tensor:
     """One tensor-core conv launch: y [B, t_out, N] from x [B, T_in, Cin],
     output row t the causal conv at input row T_in - t_out + t (K3: t_out =
     T_in); input rows before `start` [B] (a column of the start table; None:
@@ -226,13 +255,17 @@ def _conv_cuda(launch: Dict[str, Any], x: torch.Tensor, residual, start=None, t_
     t_out = t_in if t_out is None else int(t_out)
     if cin != launch["cin"]:
         raise ValueError(f"seanet kernel: input has {cin} channels, weight {launch['cin']}")
+    per_row = 16 // x.element_size()  # TMA reads x in rows of a multiple of 16 bytes
+    if cin % per_row:  # only narrow test configurations; the weights' padding is zero
+        cin = -(-cin // per_row) * per_row
+        x = F.pad(x, (0, cin - x.shape[2]))
     y = torch.empty((b, t_out, launch["n"]), dtype=x.dtype, device=x.device)
     rc = _entry("sopro_seanet_conv_tc", x.dtype)(
         x.data_ptr(), launch["hi"].data_ptr(), _ptr(launch["lo"]), launch["b"].data_ptr(),
         _ptr(residual), y.data_ptr(), b, t_in, t_out,
-        0 if residual is None else int(residual.shape[1]), cin, int(launch["hi"].shape[1]),
-        launch["n"], int(launch["hi"].shape[2]), launch["taps"], launch["dil"],
-        int(launch["elu_in"]), *_start_arg(start), max_splits, stream,
+        0 if residual is None else int(residual.shape[1]), cin, launch["cinp"],
+        launch["n"], launch["np"], launch["taps"], launch["dil"],
+        int(launch["elu_in"]) | 2 * int(launch["elu_out"]), *_start_arg(start), max_splits, stream,
     )
     kernels.check(rc, "seanet")
     return y.view(b, t_out * launch["phases"], launch["n"] // launch["phases"])
@@ -258,7 +291,7 @@ def _resblock_cuda(launch: Dict[str, Any], x: torch.Tensor, start=None, t_out=No
         x.data_ptr(), launch["w1hi"].data_ptr(), opt("w1lo"),
         launch["b1"].data_ptr(), launch["w2hi"].data_ptr(), opt("w2lo"),
         launch["b2"].data_ptr(), opt("wf"), opt("bf"), y.data_ptr(), b, t_in, t_out, c,
-        int(launch["final"]), *_start_arg(start), stream,
+        int(launch["final"]) | 2 * int(launch["elu_out"]), *_start_arg(start), stream,
     )
     kernels.check(rc, "seanet")
     return y
@@ -280,7 +313,6 @@ def run_launches(launches: List[Dict[str, Any]], x: torch.Tensor,
     its receptive field, launch i reads rows before starts[:, launch "op"]
     as zero, and the last one writes only its last `keep` rows."""
     x, block_in = x.contiguous(), None
-    splits = K4_MAX_SPLITS if valid else 1
     with kernels.on_device(x.device) as stream:
         for i, launch in enumerate(launches):
             start = None if starts is None else starts[:, launch["op"]]
@@ -294,10 +326,10 @@ def run_launches(launches: List[Dict[str, Any]], x: torch.Tensor,
             if launch["kind"] == "resblock":
                 x = _resblock_cuda(launch, x, start, t_out, stream)
             elif launch["residual"]:
-                x = _conv_cuda(launch, x, block_in, start, t_out, splits, stream)
+                x = _conv_cuda(launch, x, block_in, start, t_out, MAX_SPLITS, stream)
             else:
                 block_in = x
-                x = _conv_cuda(launch, x, None, start, t_out, splits, stream)
+                x = _conv_cuda(launch, x, None, start, t_out, MAX_SPLITS, stream)
     return x if x.dim() == 2 else x[..., 0]
 
 

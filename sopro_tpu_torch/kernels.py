@@ -63,14 +63,19 @@ def count(name: str, dtype) -> None:
     LAUNCHES_BY_DTYPE[str(dtype).replace("torch.", "")][name] += 1
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(name: str) -> str:
+    """A CUDA toolkit program (nvcc, cuobjdump): on PATH or under CUDA_HOME."""
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _nvcc() -> str:
+    return _tool("nvcc")
 
 
 def _sources(name: str):
@@ -122,6 +127,23 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas register / shared-memory report) for a source."""
     path = _lib_path(name).with_suffix(".log")
     return path.read_text() if path.exists() else ""
+
+
+def sass_counts(name: str, kernel: str, opcodes: Iterable[str]) -> Dict[str, Dict[str, int]]:
+    """Per built function of source `name` whose (mangled) name contains
+    `kernel`: how many SASS instructions start with each of `opcodes`
+    (`cuobjdump -sass` of the library)."""
+    out = subprocess.run([_tool("cuobjdump"), "-sass", str(_lib_path(name))], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts = {}
+    for body in out.split("Function : ")[1:]:
+        fn, text = body.split("\n", 1)
+        if kernel in fn:
+            ops = [line.split("*/", 1)[1].strip() for line in text.splitlines()
+                   if line.strip().startswith("/*") and "*/" in line]
+            counts[fn.strip()] = {op: sum(1 for x in ops if x.lstrip("@!P0123456789 ").startswith(op))
+                                  for op in opcodes}
+    return counts
 
 
 def lib(name: str) -> ctypes.CDLL:

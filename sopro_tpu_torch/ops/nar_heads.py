@@ -4,17 +4,18 @@ Replaces sopro_tpu/ops/pallas_nar.py::nar_heads_argmax. Per stage,
 ids[b, t, h] = argmax_v((z[b, t] + hid[h]) @ W[h] + b[h]) with float32
 accumulation, the bias added in float32, ties to the lowest index; in
 bfloat16 z + hid is rounded to bfloat16 first, as the TPU kernel does. CUDA
-tensors go through `csrc/nar_heads.cu` (one cluster launch per stage; TF32
-tensor-core products, 3-pass for float32, one pass for bfloat16), which
-never stores the logits; CPU tensors through `nar_heads_argmax_plain`
-(einsum + argmax, float32 accumulation).
+tensors go through `csrc/nar_heads.cu` (one cluster launch per stage; TMA
+tile loads and `wgmma` tensor-core products, 3-pass TF32 for float32,
+bfloat16 for bfloat16), which never stores the logits; CPU tensors through
+`nar_heads_argmax_plain` (einsum + argmax, float32 accumulation).
 
-The kernel reads the weights packed: `pack_nar_heads(w_stack)` -> for a
-float32 stack the TF32 hi and lo parts of W ({"hi", "lo"}), for a bfloat16
-stack W itself ({"hi": W, "lo": None}: a bfloat16 value is exact in TF32,
-so its split has no low part), each [H, kp, vp] with hd padded to kp (a
-multiple of 16) and V to vp (a multiple of 256, one cluster block per 256
-columns), zeros in the padding. `NARRefiner.head_stacks()` packs once per
+The kernel reads the weights packed K-major (the reduction index
+contiguous, the only layout `wgmma` takes a TF32 operand from shared memory
+in): `pack_nar_heads(w_stack)` -> for a float32 stack the TF32 hi and lo
+parts of W ({"hi", "lo"}), for a bfloat16 stack W itself ({"hi": W, "lo":
+None}), each [H, vp, kp]: W[h] transposed, with hd padded to kp (a multiple
+of 16) and V to vp (a multiple of 256, one cluster block per 256 columns),
+zeros in the padding. `NARRefiner.head_stacks()` packs once per
 device; a caller without a pack gets one made per call.
 """
 
@@ -32,13 +33,13 @@ KP_MULTIPLE, VP_MULTIPLE = 16, 256
 
 
 def pack_nar_heads(w_stack: torch.Tensor) -> Dict[str, Optional[torch.Tensor]]:
-    """W [H, hd, V] -> {"hi", "lo"}, [H, kp, vp] each: its TF32 split
-    (float32), or W itself and None (bfloat16)."""
+    """W [H, hd, V] -> {"hi", "lo"}, [H, vp, kp] each (K-major): its TF32
+    split (float32), or W itself and None (bfloat16)."""
     h, hd, v = w_stack.shape
     kp = -(-hd // KP_MULTIPLE) * KP_MULTIPLE
     vp = -(-v // VP_MULTIPLE) * VP_MULTIPLE
-    padded = torch.zeros((h, kp, vp), dtype=w_stack.dtype, device=w_stack.device)
-    padded[:, :hd, :v] = w_stack
+    padded = torch.zeros((h, vp, kp), dtype=w_stack.dtype, device=w_stack.device)
+    padded[:, :v, :hd] = w_stack.transpose(1, 2)
     if w_stack.dtype == torch.bfloat16:
         return {"hi": padded, "lo": None}
     hi, lo = split_tf32(padded)
@@ -73,14 +74,14 @@ def nar_heads_argmax(
     h, _, v = w_stack.shape
     if packed is None:
         packed = pack_nar_heads(w_stack)
-    kp, vp = packed["hi"].shape[1:]
+    vp, kp = packed["hi"].shape[1:]
     bf16 = z.dtype == torch.bfloat16
     if z.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"nar_heads_argmax: z has dtype {z.dtype}: float32 or bfloat16")
     inputs = [("z", z, (b, t, hd)), ("hid", hid, (h, hd)), ("b_stack", b_stack, (h, v)),
-              ("packed hi", packed["hi"], (h, kp, vp))]
+              ("packed hi", packed["hi"], (h, vp, kp))]
     if not bf16:
-        inputs.append(("packed lo", packed["lo"], (h, kp, vp)))
+        inputs.append(("packed lo", packed["lo"], (h, vp, kp)))
     for name, x, shape in inputs:
         if x is None or x.device != z.device or x.dtype != z.dtype:
             raise ValueError(f"nar_heads_argmax: {name} must be {z.dtype} on {z.device}")

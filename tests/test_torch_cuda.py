@@ -856,7 +856,7 @@ def _bf16(tree):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,h,hd,v", [(37, 3, 64, 256), (401, 16, 256, 2048)])
 def test_nar_heads_bf16_kernel_matches_plain(cuda, rows, h, hd, v):
-    """K2's bfloat16 instantiation (one TF32 pass on bfloat16 operands)
+    """K2's bfloat16 instantiation (bfloat16 `wgmma` products)
     against its plain version: ids equal wherever the float64 top-2 margin
     of the rounded z + hid exceeds 1e-4; an exact tie goes to the lowest
     index; the bfloat16 counter counts the launch."""
@@ -933,6 +933,105 @@ def test_seanet_chunk_bf16_kernel_matches_plain(cuda, width, b, m25, hist):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     peak = float(want.float().abs().max())
     assert float((got.float() - want.float()).abs().max()) <= BF16_TOL * peak
+
+
+def _dtype(name):
+    return getattr(torch, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [6, 63, 65, 401, 1604])
+def test_nar_heads_wgmma_kernel_ragged_rows(cuda, rows, dtype):
+    """K2's `wgmma` kernel at row counts around its 64-row tile (6: one
+    zero-padded tile; 63 and 65: a row short of and past one) and at the
+    main paths' 401 and 1,604 (128-row tiles), H = 4, hd 256, V 2,011 (the
+    last cluster block ragged): ids equal the plain version's wherever the
+    float64 top-2 margin exceeds 1e-5 (bfloat16: 1e-4), an exact tie goes to
+    the lowest index, and the dtype's counter counts the launch."""
+    from sopro_tpu_torch.ops.nar_heads import (
+        nar_heads_argmax, nar_heads_argmax_plain, pack_nar_heads,
+    )
+
+    h, v, dt = 4, 2011, _dtype(dtype)
+    g = torch.Generator().manual_seed(rows)
+    z, hid = torch.randn(2, rows, 256, generator=g), torch.randn(h, 256, generator=g) * 0.1
+    w = torch.randn(h, 256, v, generator=g) * 0.02
+    bias = torch.randn(h, v, generator=g) * 0.02
+    w[1, :, 2000] = w[1, :, 700]
+    bias[1, 700] = bias[1, 2000] = 30.0
+    z, hid, w, bias = (x.to(cuda, dt) for x in (z, hid, w, bias))
+    kernels.reset_launches()
+    got = nar_heads_argmax(z, hid, w, bias, pack_nar_heads(w))
+    assert kernels.LAUNCHES_BY_DTYPE[dtype]["nar_heads"] == 1
+    want = nar_heads_argmax_plain(z, hid, w, bias)
+    zh = (z[:, :, None] + hid[None, None]).to(dt).double()
+    logits = torch.einsum("bthd,hdv->bthv", zh, w.double()) + bias.double()[None, None]
+    top2 = torch.topk(logits, 2, dim=-1).values
+    margin = 1e-5 if dtype == "float32" else 1e-4
+    assert got.shape == (2, rows, h)
+    assert not bool(((got != want) & (top2[..., 0] - top2[..., 1] > margin)).any())
+    assert bool((got[..., 1] == 700).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 4])
+def test_seanet_wgmma_kernel_ragged_time(cuda, b, dtype):
+    """K3 at full Mimi width over 37 25 Hz rows: every conv's rows (37, 296,
+    1,776, 8,880, 35,520) end in a partial 128-row tile of the `wgmma`
+    kernel, and at B = 4 the tiles of one batch row never read another's.
+    Within 1e-4 of peak of the plain version in float32, within one bfloat16
+    step (1e-2) of the bfloat16 plain version's peak."""
+    from sopro_tpu_torch.codec.mimi import seanet_apply
+    from sopro_tpu_torch.codec.mimi_config import decoder_plan
+    from sopro_tpu_torch.codec.vocoder import pack_seanet_decoder, seanet_decode
+
+    dt, mcfg = _dtype(dtype), MimiConfig()
+    mtree = W.init_mimi_params(3, mcfg)
+    W.fill_zero_inits(None, mtree, 4)
+    dec = W.to_torch(mtree["decoder"], cuda)
+    dec = dec if dtype == "float32" else _bf16(dec)
+    emb = torch.randn(b, 37, mcfg.hidden_size, generator=torch.Generator().manual_seed(b)).to(cuda, dt)
+    got = seanet_decode(pack_seanet_decoder(dec, mcfg), mcfg, emb)
+    want = seanet_apply(dec, decoder_plan(mcfg), emb)[..., 0]
+    assert got.dtype == dt and got.shape == want.shape == (b, 37 * 960)
+    peak = float(want.float().abs().max())
+    tol = 1e-4 if dtype == "float32" else BF16_TOL
+    assert float((got.float() - want.float()).abs().max()) <= tol * peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,m25,hist", [(2, 12, (2, 7)), (2, 32, (0, 8)),
+                                        (8, 32, (0, 2, 4, 6, 8, 8, 8, 8))])
+def test_seanet_chunk_full_width_partial_histories(cuda, b, m25, hist, dtype):
+    """K4 at full Mimi width, chunks of 6 and 16 AR frames, rows with
+    partial histories: its short convs on the split-K path, its convs of
+    128 rows or more on the `wgmma` kernel with the stream-start mask per
+    batch row. Against the plain version (1e-4 of peak in float32, 1e-2 in
+    bfloat16), a repeated call bit-identical."""
+    from sopro_tpu_torch.codec.mimi_config import required_halo
+    from sopro_tpu_torch.codec.vocoder import (
+        pack_seanet_decoder, seanet_decode_chunk, seanet_decode_chunk_plain,
+    )
+
+    dt, mcfg = _dtype(dtype), MimiConfig()
+    mtree = W.init_mimi_params(3, mcfg)
+    W.fill_zero_inits(None, mtree, 4)
+    dec = W.to_torch(mtree["decoder"], cuda)
+    dec = dec if dtype == "float32" else _bf16(dec)
+    packed = pack_seanet_decoder(dec, mcfg)
+    g = torch.Generator().manual_seed(b * 100 + m25)
+    ext = torch.randn(b, required_halo(mcfg) + m25, mcfg.hidden_size, generator=g).to(cuda, dt)
+    n_hist = torch.tensor(hist, dtype=torch.int32, device=cuda)
+    got = seanet_decode_chunk(packed, mcfg, ext, n_hist)
+    assert torch.equal(got, seanet_decode_chunk(packed, mcfg, ext, n_hist))
+    want = seanet_decode_chunk_plain(dec, mcfg, ext, n_hist)
+    assert got.dtype == dt and got.shape == want.shape == (b, m25 * 960)
+    peak = float(want.float().abs().max())
+    tol = 1e-4 if dtype == "float32" else BF16_TOL
+    assert float((got.float() - want.float()).abs().max()) <= tol * peak
 
 
 def _bf16_tts(dev):

@@ -1,8 +1,9 @@
 """Kernel K4's launch plan on the CPU (no kernel runs here): the streaming
 chunk decoded through K3's launch list in valid mode, with each launch
 emulated in torch as `csrc/seanet.cu` computes it -- 3-pass TF32 products
-(tests/test_torch_tf32x3.py), the conv kernel's Cin chunks summed in a
-fresh accumulator each and its split-K partials added in rank order, the
+(tests/test_torch_tf32x3.py) on the K-major packs, the conv kernel's
+Cin chunks of 32 and taps summed in a fresh accumulator each
+(`conv_chunks`) and its split-K partials added in rank order; the
 fused residual block tile by tile with its input window, per-row stream
 starts and the last launch keeping only the chunk's samples -- driven by
 the port's own `run_launches` and `chunk_starts`.
@@ -33,19 +34,13 @@ from sopro_tpu.codec.pallas_vocoder import pack_seanet_decoder as j_pack, seanet
 from sopro_tpu_torch import weights as W
 from sopro_tpu_torch.codec import vocoder as V
 from sopro_tpu_torch.codec.mimi_config import MimiConfig, required_halo
-from sopro_tpu_torch.ops.tf32x3 import split_tf32
+from sopro_tpu_torch.ops.tf32x3 import conv_chunks, mm3
 
 from tests.test_torch_cuda import SMALL_MIMI
 from tests.test_torch_streaming import PALLAS_MIMI
 
 torch.set_num_threads(1)
 
-BKC = {1: 32, 2: 16, 3: 8, 7: 8}  # Cin per chunk of the conv kernel, by taps (sopro_seanet_conv_tc)
-
-
-def _mm3(a, hi, lo):
-    ah, al = split_tf32(a)
-    return al @ hi + ah @ lo + ah @ hi
 
 
 def _masked(x, start):
@@ -63,25 +58,25 @@ def _emulated_conv(splits):
         taps, dil, halo = launch["taps"], launch["dil"], (launch["taps"] - 1) * launch["dil"]
         xin = _masked(x, start)
         xin = F.elu(xin) if launch["elu_in"] else xin
-        xin = F.pad(F.pad(xin, (0, launch["hi"].shape[1] - cin)), (0, 0, halo, 0))
+        hi, lo = launch["hi"], launch["lo"]  # [taps, np, cinp]
+        xin = F.pad(F.pad(xin, (0, launch["cinp"] - cin)), (0, 0, halo, 0))
         a0 = t_in - t_out  # output row t is the causal conv at input row a0 + t
         taps_in = [xin[:, a0 + j * dil: a0 + j * dil + t_out] for j in range(taps)]
-        bkc = BKC[taps]
-        nc = launch["hi"].shape[1] // bkc
+        nc = -(-cin // 32)  # Cin chunks of 32 (128 bytes)
         s = 1
         while 2 * s <= min(splits, max_splits) and 2 * s <= nc:
             s *= 2
         total = None
-        for rank in range(s):  # each rank: fresh accumulator per chunk, added in order
-            acc = torch.zeros((b, t_out, launch["hi"].shape[2]))
-            for c in range(rank * nc // s, (rank + 1) * nc // s):
-                ks = slice(c * bkc, (c + 1) * bkc)
-                acc = acc + sum(_mm3(taps_in[j][..., ks], launch["hi"][j, ks], launch["lo"][j, ks])
-                                for j in range(taps))
-            total = acc if total is None else total + acc  # rank order
+        for rank in range(s):  # each rank: its chunks in kernel order, the ranks added in order
+            ks = slice(rank * nc // s * 32, (rank + 1) * nc // s * 32)
+            part = conv_chunks([x[..., ks].reshape(b * t_out, -1) for x in taps_in], hi[..., ks], lo[..., ks])
+            total = part if total is None else total + part
+        total = total.reshape(b, t_out, -1)
         y = total[..., :launch["n"]] + launch["b"]
         if residual is not None:
             y = y + residual[:, residual.shape[1] - t_out:]
+        if launch["elu_out"]:
+            y = F.elu(y)
         conv.calls.append(s)
         return y.reshape(b, t_out * launch["phases"], launch["n"] // launch["phases"])
 
@@ -107,12 +102,13 @@ def _emulated_resblock(launch, x, start=None, t_out=None, stream=None):
             ok = (rows >= lo) & (rows < t_in)
             win = torch.where(ok[:, None], x[bi, rows.clamp(0, t_in - 1)], torch.zeros(()))
             ex = F.elu(win)
-            hidden = sum(_mm3(ex[j:j + bm], launch["w1hi"][j * c:(j + 1) * c],
-                              launch["w1lo"][j * c:(j + 1) * c]) for j in range(3)) + launch["b1"]
-            blk = _mm3(F.elu(hidden), launch["w2hi"], launch["w2lo"]) + launch["b2"] + win[2:]
+            hidden = conv_chunks([ex[j:j + bm] for j in range(3)], launch["w1hi"].reshape(3, c // 2, c),
+                                 launch["w1lo"].reshape(3, c // 2, c)) + launch["b1"]
+            k_order = V.resblock_k_order(c // 2, torch.float32)
+            blk = mm3(F.elu(hidden)[:, k_order], launch["w2hi"], launch["w2lo"]) + launch["b2"] + win[2:]
             n = min(bmo, t_out - t0)
             if not launch["final"]:
-                out[bi, t0:t0 + n] = blk[:n]
+                out[bi, t0:t0 + n] = (F.elu(blk) if launch["elu_out"] else blk)[:n]
                 continue
             anchor = torch.arange(a0 + t0 - hf, a0 + t0 - hf + bm)
             e = torch.where((anchor >= lo)[:, None], F.elu(blk), torch.zeros(()))
@@ -166,7 +162,7 @@ def test_chunk_launch_list_matches_plain(monkeypatch, decoder, m25, hist):
     peak = float(want.abs().max())
     assert peak > 1e-2
     assert float((got - want).abs().max()) <= 1e-5 * peak
-    assert max(splits) == (16 if name == "pallas" else 4)  # the split-K order ran
+    assert max(splits) == (16 if name == "pallas" else 1)  # the split-K order ran (small: Cin <= 32)
     kinds = [x["kind"] for x in packed["k3"]]
     assert len(kinds) <= 11 and kinds.count("resblock") == (2 if name == "pallas" else 0)
 

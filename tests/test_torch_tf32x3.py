@@ -1,18 +1,21 @@
 """The numerical design of kernels K2 and K3 on the CPU (no kernel runs
 here): the TF32 split of `csrc/tf32x3.cuh` emulated in torch, why three
 passes are needed, why each chunk of K is summed in its own accumulator
-(the tensor cores truncate), the hi/lo weight layouts that
-`pack_nar_heads` and `pack_seanet_decoder` give the kernels, and a
-tile-with-halo emulation of K3's launches (the fused residual-block
-kernel's time tiles, halos and batch rows included) against `seanet_apply`
-and the JAX package's Pallas vocoder in interpret mode.
+(the tensor cores truncate) and the order in which K3's `wgmma` conv
+kernel sums its taps and Cin chunks (`ops.tf32x3.conv_chunks`) at K3's
+widths, the K-major hi/lo weight layouts that `pack_nar_heads` and
+`pack_seanet_decoder` give the kernels, and a tile-with-halo emulation of
+K3's launches (the fused residual-block kernel's time tiles, halos and
+batch rows included) against `seanet_apply` and the JAX package's Pallas
+vocoder in interpret mode.
 
 Tolerances: hi + lo adds back to float32 within 2^-22 of |x| (by
 construction of the split); the 3-pass product within 1e-6 of the peak of a
 float64 product, a single TF32 pass not within 1e-4 (a TF32 operand keeps
-11 significant bits); chunked truncating accumulation within 1e-6 of peak;
-the emulated decode within 1e-5 of the waveform's peak of `seanet_apply`
-and 1e-4 of JAX's (float32, different summation orders).
+11 significant bits); chunked truncating accumulation within 1e-6 of peak
+of float64, and within the port's 1e-4-of-peak bar of JAX's float32
+product; the emulated decode within 1e-5 of the waveform's peak of
+`seanet_apply` and 1e-4 of JAX's (float32, different summation orders).
 """
 
 import jax
@@ -29,9 +32,11 @@ from sopro_tpu.codec.pallas_vocoder import pack_seanet_decoder as j_pack, seanet
 from sopro_tpu_torch import weights as W
 from sopro_tpu_torch.codec.mimi import seanet_apply
 from sopro_tpu_torch.codec.mimi_config import MimiConfig, decoder_plan
-from sopro_tpu_torch.codec.vocoder import RESBLOCK_TILE_ROWS, pack_seanet_decoder
+from sopro_tpu_torch.codec.vocoder import RESBLOCK_TILE_ROWS, pack_seanet_decoder, resblock_k_order
 from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax_plain, pack_nar_heads
-from sopro_tpu_torch.ops.tf32x3 import split_tf32, tf32_round
+from sopro_tpu_torch.ops.tf32x3 import (
+    conv_chunks, mm3, round_toward_zero, split_tf32, tf32_round,
+)
 
 from tests.test_torch_streaming import PALLAS_MIMI
 
@@ -82,12 +87,6 @@ def test_three_passes_reach_float32_one_pass_does_not(k):
     assert float((one.double() - ref).abs().max()) > 1e-4 * peak
 
 
-def _round_toward_zero(x64: torch.Tensor) -> torch.Tensor:
-    """float64 -> float32, rounded toward zero."""
-    r = x64.float()
-    return torch.where(r.double().abs() > x64.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
-
-
 @pytest.mark.parametrize("k", [384, 2048])
 def test_chunked_accumulation_stops_the_truncation_drift(k):
     """The tensor cores add each MMA's eight exact TF32 products to the
@@ -95,51 +94,72 @@ def test_chunked_accumulation_stops_the_truncation_drift(k):
     through all k / 8 x 3 MMAs drifts toward zero by up to an ulp per MMA,
     ~2e-5 of peak at K = 2,048 (the x8 transpose's depth), which is what the
     first build of K3 showed on the card against float64; summing each
-    16-deep chunk in a fresh accumulator and adding the chunks in
-    round-to-nearest float32 (`tf32x3::add`) stays at float32's error.
-    K = 384 is the fused stage-3 block's k3 conv."""
+    32-deep chunk in a fresh accumulator and adding the chunks in
+    round-to-nearest float32 (K3's `wgmma` conv kernel, `conv_chunks`) stays
+    at float32's error. K = 384 is the fused stage-3 block's k3 conv."""
     rng = np.random.default_rng(k)
     a = torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32))
-    b = torch.from_numpy(rng.standard_normal((k, 64)).astype(np.float32))
-    ref = a.double() @ b.double()
+    b = torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32))  # K-major [N, K]
+    ref = a.double() @ b.double().T
     peak = float(ref.abs().max())
     (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
-    chain, acc = torch.zeros(64, 64), torch.zeros(64, 64)
-    for c0 in range(0, k, 16):
-        part = torch.zeros(64, 64)
-        for k0 in (c0, c0 + 8):
-            for x, y in ((al, bh), (ah, bl), (ah, bh)):  # the kernels' order: small terms first
-                prod = x[:, k0:k0 + 8].double() @ y[k0:k0 + 8].double()
-                chain = _round_toward_zero(chain.double() + prod)
-                part = _round_toward_zero(part.double() + prod)
-        acc = acc + part
+    chain = torch.zeros(64, 64)
+    for k0 in range(0, k, 8):
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):  # the kernels' order: small terms first
+            chain = round_toward_zero(chain.double() + x[:, k0:k0 + 8].double() @ y[:, k0:k0 + 8].double().T)
+    chunked = conv_chunks([a], bh[None], bl[None], bk=32, truncate=True)
     chain_err = float((chain.double() - ref).abs().max())
-    chunked_err = float((acc.double() - ref).abs().max())
+    chunked_err = float((chunked.double() - ref).abs().max())
     assert chunked_err <= 1e-6 * peak
     assert chain_err > 5 * chunked_err
 
 
+@pytest.mark.parametrize("taps,cin", [(7, 512), (2, 1024), (3, 512), (1, 256), (2, 128)])
+def test_conv_chunk_order_at_k3_widths(taps, cin):
+    """One 64-row x 128-column tile of each of K3's conv launches (the k7
+    conv, the x8 and x4 transposes as two-tap convs, a stage-1 residual k3 and
+    k1), summed in `wgmma` conv kernel order with the tensor cores'
+    truncation emulated: a fresh accumulator per (Cin chunk of 32, tap),
+    added in float32. Within 1e-6 of the float64 product's peak (float32's
+    error), and within the port's 1e-4-of-peak bar of JAX's float32 product
+    of the same ELU'd, shifted inputs."""
+    rng = np.random.default_rng(taps * 1000 + cin)
+    x = rng.standard_normal((64 + taps - 1, cin)).astype(np.float32)
+    w = (rng.standard_normal((taps, cin, 128)) / np.sqrt(taps * cin)).astype(np.float32)
+    ex = F.elu(torch.from_numpy(x))
+    taps_in = [ex[j:j + 64] for j in range(taps)]
+    hi, lo = split_tf32(torch.from_numpy(w).transpose(1, 2).contiguous())  # K-major [taps, N, K]
+    got = conv_chunks(taps_in, hi, lo, bk=32, truncate=True)
+    ref = sum(t.double() @ torch.from_numpy(w[j]).double() for j, t in enumerate(taps_in))
+    peak = float(ref.abs().max())
+    assert float((got.double() - ref).abs().max()) <= 1e-6 * peak
+    jex = jax.nn.elu(jnp.asarray(x))
+    want = sum(jnp.dot(jex[j:j + 64], jnp.asarray(w[j]), precision=jax.lax.Precision.HIGHEST)
+               for j in range(taps))
+    assert float(np.abs(got.numpy() - np.asarray(want)).max()) <= 1e-4 * float(np.abs(want).max())
+
+
 def test_pack_nar_heads_layout():
-    """hi and lo [H, kp, vp]: hd padded to a multiple of 16, V to 256, zeros
-    in the padding, hi + lo = W within 2^-22; the kernel's arithmetic
-    (3 passes on the packed parts, bias in float32, first maximum) gives
-    the plain version's ids."""
+    """hi and lo [H, vp, kp], K-major (W[h] transposed): hd padded to a
+    multiple of 16, V to 256, zeros in the padding, hi + lo = W within
+    2^-22; the kernel's arithmetic (3 passes on the packed parts, bias in
+    float32, first maximum) gives the plain version's ids."""
     rng = np.random.default_rng(2)
     h, hd, v = 3, 40, 300
     w = torch.from_numpy(rng.standard_normal((h, hd, v)).astype(np.float32) * 0.05)
     p = pack_nar_heads(w)
-    assert p["hi"].shape == p["lo"].shape == (h, 48, 512)
-    assert float(p["hi"][:, hd:].abs().max()) == 0 and float(p["hi"][:, :, v:].abs().max()) == 0
-    assert float(p["lo"][:, hd:].abs().max()) == 0 and float(p["lo"][:, :, v:].abs().max()) == 0
-    back = p["hi"][:, :hd, :v].double() + p["lo"][:, :hd, :v].double()
-    assert float(((back - w.double()).abs() / w.double().abs().clamp_min(1e-30)).max()) <= 2.0 ** -22
+    assert p["hi"].shape == p["lo"].shape == (h, 512, 48)
+    assert float(p["hi"][:, v:].abs().max()) == 0 and float(p["hi"][:, :, hd:].abs().max()) == 0
+    assert float(p["lo"][:, v:].abs().max()) == 0 and float(p["lo"][:, :, hd:].abs().max()) == 0
+    back = p["hi"][:, :v, :hd].double() + p["lo"][:, :v, :hd].double()
+    wt = w.transpose(1, 2).double()
+    assert float(((back - wt).abs() / wt.abs().clamp_min(1e-30)).max()) <= 2.0 ** -22
     z = torch.from_numpy(rng.standard_normal((2, 7, hd)).astype(np.float32))
     hid = torch.from_numpy(rng.standard_normal((h, hd)).astype(np.float32))
     bias = torch.from_numpy(rng.standard_normal((h, v)).astype(np.float32) * 0.05)
     a = F.pad(z[:, :, None, :] + hid[None, None], (0, 48 - hd))  # [B, T, H, kp]
-    ah, al = split_tf32(a)
-    logits = (torch.einsum("bthk,hkv->bthv", al, p["hi"]) + torch.einsum("bthk,hkv->bthv", ah, p["lo"])
-              + torch.einsum("bthk,hkv->bthv", ah, p["hi"]))[..., :v] + bias[None, None]
+    logits = torch.stack([mm3(a[:, :, i], p["hi"][i], p["lo"][i]) for i in range(h)], dim=2)
+    logits = logits[..., :v] + bias[None, None]
     assert torch.equal(torch.argmax(logits, -1).to(torch.int32),
                        nar_heads_argmax_plain(z, hid, w, bias))
 
@@ -162,7 +182,10 @@ def test_pack_seanet_decoder_layout(pallas_mimi):
     """K3's launches: the k7 conv, per stage a transpose as one two-tap conv
     over phase-major columns, stages 1-2 residual blocks as two convs,
     stages 3-4 as fused blocks (the last with the final conv); every hi/lo
-    pair adds back to the weight it packs within 2^-22."""
+    pair adds back to the weight it packs within 2^-22, the convs' K-major
+    ([taps, np, cinp]: each tap's [Cin, N] transposed); the ELU before a
+    conv moves into the epilogue of the conv before it wherever nothing
+    else reads that output."""
     _, tm, dec = pallas_mimi
     packed = pack_seanet_decoder(dec, tm)
     kinds = [(x["kind"], x.get("taps"), x.get("c"), x.get("final")) for x in packed["k3"]]
@@ -177,40 +200,42 @@ def test_pack_seanet_decoder_layout(pallas_mimi):
 
     up = dec[2]["w"]  # the x8 transpose, [16, 1024, 512]
     x8 = packed["k3"][1]
-    assert x8["hi"].shape == (2, 1024, 8 * 512) and x8["n"] == 8 * 512
+    assert x8["hi"].shape == (2, 8 * 512, 1024) and x8["n"] == x8["np"] == 8 * 512
+    assert x8["cin"] == x8["cinp"] == 1024
     for r in (0, 5):  # column r * Cout + c: phase r, taps [w[s-1-r], w[2s-1-r]]
         for j, k in ((0, 7 - r), (1, 15 - r)):
             cols = slice(r * 512, (r + 1) * 512)
-            adds_back(x8["hi"][j, :, cols], x8["lo"][j, :, cols], up[k])
+            adds_back(x8["hi"][j, cols], x8["lo"][j, cols], up[k].T)
     assert torch.equal(x8["b"][512:1024], dec[2]["b"])
     last = packed["k3"][-1]
     res4 = dec[-3]["convs"]
-    adds_back(last["w1hi"], last["w1lo"], res4[0]["w"].reshape(3 * 64, 32))
-    adds_back(last["w2hi"], last["w2lo"], res4[1]["w"].reshape(32, 64))
+    # the fused block's weights K-major: w1 [3 * 32, 64] (tap j's [64, 32]
+    # transposed), w2 [64, 32] with K in the order its hidden fragment takes
+    assert resblock_k_order(32, torch.float32)[:8].tolist() == [0, 2, 4, 6, 1, 3, 5, 7]
+    adds_back(last["w1hi"], last["w1lo"], res4[0]["w"].transpose(1, 2).reshape(3 * 32, 64))
+    adds_back(last["w2hi"], last["w2lo"], res4[1]["w"][0].t()[:, resblock_k_order(32, torch.float32)])
     assert torch.equal(last["wf"], dec[-1]["w"].reshape(-1))
+    # a conv whose output only the next conv's ELU reads applies that ELU itself
+    assert [(x.get("elu_in"), x["elu_out"]) for x in packed["k3"]] == [
+        (False, True), (False, False), (True, True), (False, True), (False, False), (True, True),
+        (False, True), (False, False), (None, True), (False, False), (None, False)]
     k7 = packed["k3"][0]
-    assert k7["hi"].shape == (7, 32, 1024)  # Cin 32 is already a multiple of 32
-    adds_back(k7["hi"], k7["lo"], dec[0]["w"])
-
-
-def _mm3(a, hi, lo):
-    """The kernels' 3-pass product of activations a [..., K] and packed
-    weights [K, N]."""
-    ah, al = split_tf32(a)
-    return al @ hi + ah @ lo + ah @ hi
+    assert k7["hi"].shape == (7, 1024, 32)  # Cin 32 is already a multiple of 32
+    adds_back(k7["hi"], k7["lo"], dec[0]["w"].transpose(1, 2))
 
 
 def _conv_emulated(launch, x, residual):
-    """K3 (a): a causal conv from the packed hi/lo weights."""
+    """K3 (a): a causal conv from the packed K-major hi/lo weights, summed
+    in the `wgmma` conv kernel's order (`conv_chunks`)."""
     b, t, cin = x.shape
     xin = F.elu(x) if launch["elu_in"] else x
-    xin = F.pad(xin, (0, launch["hi"].shape[1] - cin))
-    y = torch.zeros((b, t, launch["hi"].shape[2]))
-    for j in range(launch["taps"]):
-        shift = (launch["taps"] - 1 - j) * launch["dil"]
-        y = y + _mm3(F.pad(xin, (0, 0, shift, 0))[:, :t], launch["hi"][j], launch["lo"][j])
+    xin = F.pad(xin, (0, launch["cinp"] - cin))
+    taps_in = [F.pad(xin, (0, 0, (launch["taps"] - 1 - j) * launch["dil"], 0))[:, :t].reshape(b * t, -1)
+               for j in range(launch["taps"])]
+    y = conv_chunks(taps_in, launch["hi"], launch["lo"]).reshape(b, t, -1)
     y = (y[..., :launch["n"]] + launch["b"]).reshape(b, t * launch["phases"], -1)
-    return y if residual is None else y + residual
+    y = y if residual is None else y + residual
+    return F.elu(y) if launch["elu_out"] else y
 
 
 def _resblock_emulated(launch, x, tiles_seen):
@@ -230,13 +255,14 @@ def _resblock_emulated(launch, x, tiles_seen):
             ok = (rows >= 0) & (rows < t)
             win = torch.where(ok[:, None], x[bi, rows.clamp(0, t - 1)], torch.zeros(()))
             ex = F.elu(win)
-            hidden = sum(_mm3(ex[j:j + bm], launch["w1hi"][j * c:(j + 1) * c],
-                              launch["w1lo"][j * c:(j + 1) * c]) for j in range(3)) + launch["b1"]
-            blk = _mm3(F.elu(hidden), launch["w2hi"], launch["w2lo"]) + launch["b2"] + win[2:]
+            hidden = conv_chunks([ex[j:j + bm] for j in range(3)], launch["w1hi"].reshape(3, c // 2, c),
+                                 launch["w1lo"].reshape(3, c // 2, c)) + launch["b1"]
+            k_order = resblock_k_order(c // 2, torch.float32)
+            blk = mm3(F.elu(hidden)[:, k_order], launch["w2hi"], launch["w2lo"]) + launch["b2"] + win[2:]
             n = min(bmo, t - t0)
             tiles_seen.append((c, bi, t0, n))
             if not launch["final"]:
-                out[bi, t0:t0 + n] = blk[:n]
+                out[bi, t0:t0 + n] = (F.elu(blk) if launch["elu_out"] else blk)[:n]
                 continue
             tb = torch.arange(t0 - hf, t0 - hf + bm)
             e = torch.where((tb >= 0)[:, None], F.elu(blk), torch.zeros(()))
@@ -261,8 +287,8 @@ def _emulate_k3(packed, emb, tiles):
 
 def test_k3_tile_emulation_matches_seanet_apply_and_jax(pallas_mimi):
     """emb [2, 3, 32] -> 2 x 2,880 samples: stage 3 runs 720 rows per batch
-    row (22 full 32-row tiles and a ragged one of 16), stage 4 2,880 rows
-    (46 tiles of 62 output rows and a ragged one of 28); batch row 1's
+    row (5 full 128-row tiles and a ragged one of 80), stage 4 2,880 rows
+    (22 tiles of 126 output rows and a ragged one of 108); batch row 1's
     first tile would read row 0's last rows if its halo crossed the row.
     Against `seanet_apply` with the filled (nonzero) biases; against JAX
     with the biases zeroed, because the JAX kernel pads the embeddings with
@@ -272,8 +298,8 @@ def test_k3_tile_emulation_matches_seanet_apply_and_jax(pallas_mimi):
     tiles = []
     x = _emulate_k3(pack_seanet_decoder(dec, tm), emb, tiles)
     assert x.shape == (2, 2880)
-    assert (128, 1, 0, 32) in tiles and (128, 0, 704, 16) in tiles
-    assert (64, 1, 0, 62) in tiles and (64, 0, 2852, 28) in tiles
+    assert (128, 1, 0, 128) in tiles and (128, 0, 640, 80) in tiles
+    assert (64, 1, 0, 126) in tiles and (64, 0, 2772, 108) in tiles
     want = seanet_apply(dec, decoder_plan(tm), emb)[..., 0]
     peak = float(want.abs().max())
     assert peak > 1e-2
