@@ -70,8 +70,9 @@ Phases (each raises, so the script exits non-zero, on failure):
    steady chunk gap, seconds of audio per second. Pass B (ramp off, float):
    8 sessions each within 1e-4 of its peak of its solo `tts.stream`, their
    AR tokens equal to `generate_tokens`; on that state K1's µs per step and
-   co-resident clusters at B = 1, 4, 7, 8, K1 at 7 and 8 rows (each at its
-   own age, per-row settings) against the plain loop, and K2 on the tick's
+   launch facts at B = 1, 4, 7, 8, 16 and 32 (one launch of one block per
+   SM, in one wave: fails otherwise), each against the plain loop (rows at
+   their own ages, per-row settings), and K2 on the tick's
    window gathered across 8 slots (8 x 197 rows, tail 8 x 16) against its
    plain version. HTTP: `server_stdlib` on 127.0.0.1 answers `/` and
    `/static/app.js` with the package's demo files (bytes equal), the
@@ -108,7 +109,8 @@ Phases (each raises, so the script exits non-zero, on failure):
    tokens equal up to the first near-tie of the plain run) and timed beside
    it and the bf16 library call (K2 at 6, 187, 401 and 1,604 rows; K3 at
    B = 1 and 4; K4 at chunks 6 and 16 and at 8 rows with partial
-   histories; K1 over 401 near-greedy steps and at 1, 4, 7 and 8 rows; K5
+   histories; K1 over 401 near-greedy steps and at 1, 4, 7, 8, 16 and 32
+   rows (near-greedy rows against the plain loop); K5
    at B = 1 and 2); then, counters zeroed before and read after, three
    400-frame `synthesize` requests (K1, K2, K3 in bf16, no float32 kernel),
    three streams at chunk 6 (TTFA, steady chunk ms), a B = 4 batch, the
@@ -150,7 +152,8 @@ stack as cuDNN convs, `bench_kernels.seanet_library`; K1 and K5: none), and
 its bound (`bench_kernels.bound`: bytes over HBM's rate, or operations over
 the 3-pass TF32 rate for the tensor-core kernels K2, K3 and K4 and the fp32
 rate for K1 and K5); K2 also at 6, 187, 401 and 1,604 rows and at the
-serve tick's window, K1 also at 1, 4, 7 and 8 serving rows, K3 also at
+serve tick's window, K1 also at 1, 4, 7, 8, 16 and 32 serving rows (with
+its launch facts), K3 also at
 B = 4, K4 also at chunk 16, with errors against float64 plain versions.
 Each record's "bf16" entry holds the same keys for the kernel's bfloat16
 instantiation (launches from the bf16 path it belongs to; bounds at 2
@@ -1123,9 +1126,12 @@ def run_batcher_alone(tts, ref, i, **kw):
         b.stop()
 
 
-# K1's rows held against the plain loop: each at its own age (t), one stopped (a free slot)
+# K1's rows held against the plain loop: each at its own age (t), one stopped (a free slot);
+# row i of more than 8 at SERVE_AGES[i % 8] + 5 * (i // 8)
 SERVE_AGES = (0, 3, 17, 40, 1, 120, 250, 380)
 SERVE_STOPPED = 5
+# K1's row sweep: 8 serving rows and beyond (rows past 8 repeat the 8 slots' texts)
+K1_ROWS = (1, 4, 7, 8, 16, 32)
 
 
 def serve_rows_state(cfg, b, s, dev, rng):
@@ -1137,7 +1143,7 @@ def serve_rows_state(cfg, b, s, dev, rng):
     c = M.init_ar_carry(cfg, b, s, 7, dev)
     st = {k: getattr(c, k) for k in ("t", "last", "streak", "stopped", "first_eos", "key", "hist",
                                      "bufs")}
-    ages = np.asarray(SERVE_AGES[:b], np.int32)
+    ages = np.asarray([SERVE_AGES[i % 8] + 5 * (i // 8) for i in range(b)], np.int32)
     st["t"] = torch.from_numpy(ages).to(dev)
     toks = rng.integers(0, cfg.codebook_size, (b, st["hist"].shape[1] + 1)).astype(np.int32)
     st["last"] = torch.from_numpy(np.where(ages > 0, toks[:, -1], 0)).to(dev)
@@ -1152,24 +1158,26 @@ def serve_rows_state(cfg, b, s, dev, rng):
 
 
 def check_ar_loop_rows(tts, st, dev, rng):
-    """K1 at 1, 4, 7 and 8 rows of the serving state (text bucket 256,
-    S = 401, the stacked text KV the batcher keeps): µs per step over 64
-    steps, and the clusters the card holds at once
-    (cudaOccupancyMaxActiveClusters). At 7 and 8 rows also held against
-    ar_loop_plain over the 64 steps from `serve_rows_state`, with per-row
-    near-greedy settings and min_gen, anti-loop on with recovery = the
-    normal settings (a session with anti_loop off, as the tick runs it):
-    tokens and state equal, the conv state within 1e-4 of its peak."""
+    """K1 at K1_ROWS rows of the serving state (text bucket 256, S = 401, the
+    stacked text KV the batcher keeps; rows past 8 repeat the 8 slots'
+    texts): µs per step over 64 steps and the launch facts (blocks of one
+    launch over the card's SMs, rows a step takes at once, row groups,
+    waves). Each also held against ar_loop_plain over the 64 steps from
+    `serve_rows_state`, with per-row near-greedy settings and
+    min_gen, anti-loop on with recovery = the normal settings (a session
+    with anti_loop off, as the tick runs it): tokens and state equal, the
+    conv state within 1e-4 of its peak."""
     from sopro_tpu_torch.models import sopro as M
-    from sopro_tpu_torch.ops.ar_loop import active_clusters, ar_loop, ar_loop_plain
+    from sopro_tpu_torch.ops.ar_loop import ar_loop, ar_loop_plain, launch_info
 
     out = {}
     steps = 64
     with torch.inference_mode():
-        for b in (1, 4, 7, 8):
-            ctx = M.ar_context_from_kv(tts.engine.model, st.kv_k[:, :b].contiguous(),
-                                       st.kv_v[:, :b].contiguous(), st.text_mask[:b].clone())
-            cond = st.cond[:b].contiguous()
+        for b in K1_ROWS:
+            idx = torch.tensor([i % st.cond.shape[0] for i in range(b)], device=dev)
+            ctx = M.ar_context_from_kv(tts.engine.model, st.kv_k[:, idx].contiguous(),
+                                       st.kv_v[:, idx].contiguous(), st.text_mask[idx].clone())
+            cond = st.cond[idx].contiguous()
 
             def fresh():
                 c = M.init_ar_carry(tts.cfg, b, cond.shape[1], 7, dev)
@@ -1180,14 +1188,16 @@ def check_ar_loop_rows(tts, st, dev, rng):
             ms = cuda_ms(lambda: ar_loop(ctx, cond, fresh(), per_row, steps, True), 5)
             _, state = ar_loop(ctx, cond, fresh(), per_row, steps, True)
             done = int(state["t"].min())
-            cs, clusters = active_clusters(ctx, cond, fresh(), per_row)
-            out[b] = {"us_per_step": ms * 1e3 / steps, "steps": done, "cluster": cs,
-                      "co_resident_clusters": clusters}
+            facts = launch_info(ctx, cond, fresh(), per_row)
+            if facts["waves"] != 1 or facts["blocks"] != facts["sms"]:
+                raise AssertionError(f"K1 at B={b}: not one launch over every SM in one wave: {facts}")
+            out[b] = {"us_per_step": ms * 1e3 / steps, "steps": done, "launch": facts}
             log(f"  K1 at B={b} (text bucket {ctx.mask.shape[1]}): "
                 f"{ms * 1e3 / steps:.1f} µs per step over {steps} steps (every row ran {done}); "
-                f"cluster {cs} blocks, {clusters} clusters co-resident")
-            if b < 7:
-                continue
+                f"{facts['blocks']} blocks on {facts['sms']} SMs, {facts['row_groups']} group(s) of "
+                f"{facts['rows_per_group']} rows, {facts['waves']} wave, "
+                f"{'streamed' if facts['streamed'] else 'resident'} weights "
+                f"({facts['resident_chunks']} of {facts['chunks']} chunks resident)")
             greedy = torch.tensor([1e-4 * (1 + i) for i in range(b)], device=dev)
             top_p = torch.tensor([(0.9, 0.5, 0.95, 0.7)[i % 4] for i in range(b)], device=dev)
             sett = M.ARSettings(top_p=top_p, temperature=greedy, recovery_top_p=top_p,
@@ -1198,7 +1208,7 @@ def check_ar_loop_rows(tts, st, dev, rng):
             tk, sk = ar_loop(ctx, cond, dict(start), per_row, steps, True)
             tp, sp = ar_loop_plain(ctx, cond, dict(start), per_row, steps, True)
             torch.cuda.synchronize()
-            what = f"K1 at B={b}, rows at t={SERVE_AGES[:b]}, near-greedy per row"
+            what = f"K1 at B={b}, rows at t={start['t'].tolist()}, near-greedy per row"
             if not torch.equal(tk, tp):
                 rows = sorted(set((tk != tp).nonzero()[:, 0].tolist()))
                 raise AssertionError(f"{what}: tokens differ from ar_loop_plain in rows {rows}")
@@ -2139,6 +2149,7 @@ def check_bf16_kernels(tts16, dev, rng):
     bfloat16 tensor-core rate (`design_bound_ms`: at the rate of the design
     taken, the bfloat16 tensor cores for K2, K3 and K4, the fp32 cores for
     K1 and K5)."""
+    from sopro_tpu_torch import kernels
     from sopro_tpu_torch.bench_kernels import (
         ar_cost, bound, conv_stack_cost, nar_cost, nar_library, seanet_library,
         seanet_library_weights,
@@ -2320,8 +2331,8 @@ def check_bf16_kernels(tts16, dev, rng):
         log(f"  bf16 ar_loop: {k1['steps']} steps {k1['ms']:.3f} ms (kernel, "
             f"{k1['us_per_step']:.1f} µs per step) vs {k1['plain_ms']:.3f} ms (plain); bound "
             f"{k1['bound_ms']:.4f} ms ({k1['bound_rate']}), design bound {k1['design_bound_ms']:.4f} ms")
-        rows, texts = {}, [REQUESTS[i % 3][0] for i in range(8)]
-        for b in (1, 4, 7, 8):
+        rows, texts = {}, [REQUESTS[i % 3][0] for i in range(max(K1_ROWS))]
+        for b in K1_ROWS:
             pad_ids, mask = eng._padded([np.asarray(SimpleCharTokenizer().encode(t), np.int32)
                                          for t in texts[:b]], eng.rt.text_buckets)
             pb = M.prepare_conditioning(model, pad_ids, mask, M.tile_reference(ref, b),
@@ -2329,21 +2340,21 @@ def check_bf16_kernels(tts16, dev, rng):
             cb, ctx_b = pb["cond_ar"], M.ar_context(model, pb["txt_seq"], mask)
             per_row = M.ARSettings().per_row(b, dev)
             ms = cuda_ms(lambda: ar_loop(ctx_b, cb, fresh(b, cb), per_row, 64, True), 5)
-            rows[b] = {"us_per_step": ms * 1e3 / 64}
-            if b == 8:
-                near = M.ARSettings(temperature=torch.tensor([1e-4 * (1 + i) for i in range(b)]),
-                                    anti_loop=False,
-                                    min_gen_frames=torch.tensor([1 + 7 * i for i in range(b)]))
-                near = near.per_row(b, dev)
-                tk8, _ = ar_loop(ctx_b, cb, fresh(b, cb), near, 64, False)
-                rec8 = RecordingContext(ctx_b)
-                tp8, _ = ar_loop_plain(rec8, cb, fresh(b, cb), near, 64, False)
-                torch.cuda.synchronize()
-                rows[b]["first_diff"] = [first_divergence(tk8, tp8, rec8.logits, r,
-                                                          "bf16 ar_loop B=8") for r in range(b)]
-            log(f"  bf16 K1 at B={b}: {rows[b]['us_per_step']:.1f} µs per step over 64 steps"
-                + (f"; near-greedy rows against the plain loop, first divergence per row "
-                   f"{rows[b]['first_diff']} (-1: none)" if b == 8 else ""))
+            rows[b] = {"us_per_step": ms * 1e3 / 64, "launch": kernels.LAUNCH_INFO["ar_loop"]}
+            near = M.ARSettings(temperature=torch.tensor([1e-4 * (1 + i) for i in range(b)]),
+                                anti_loop=False,
+                                min_gen_frames=torch.tensor([1 + 7 * i for i in range(b)]))
+            near = near.per_row(b, dev)
+            tk_b, _ = ar_loop(ctx_b, cb, fresh(b, cb), near, 64, False)
+            rec_b = RecordingContext(ctx_b)
+            tp_b, _ = ar_loop_plain(rec_b, cb, fresh(b, cb), near, 64, False)
+            torch.cuda.synchronize()
+            rows[b]["first_diff"] = [first_divergence(tk_b, tp_b, rec_b.logits, r,
+                                                      f"bf16 ar_loop B={b}") for r in range(b)]
+            log(f"  bf16 K1 at B={b}: {rows[b]['us_per_step']:.1f} µs per step over 64 steps, "
+                f"{rows[b]['launch']['row_groups']} group(s), {rows[b]['launch']['waves']} wave; "
+                f"near-greedy rows against the plain loop, first divergence per row "
+                f"{rows[b]['first_diff']} (-1: none)")
         k1["serve_rows"] = rows
     stats["ar_loop"] = k1
 

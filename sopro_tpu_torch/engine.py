@@ -78,7 +78,7 @@ from sopro_tpu_torch.codec.streaming import (
 from sopro_tpu_torch.config import RuntimeConfig, SoproTTSConfig, pick_bucket
 from sopro_tpu_torch.models import generator as G
 from sopro_tpu_torch.models import sopro as M
-from sopro_tpu_torch.ops.ar_loop import SMEM_PER_BLOCK, ARLoopContext, smem_bytes
+from sopro_tpu_torch.ops.ar_loop import DEFAULT_BLOCKS, SMEM_PER_BLOCK, ARLoopContext, smem_bytes
 from sopro_tpu_torch.ops.ar_step import ARStepContext
 
 ARContext = Union[ARLoopContext, ARStepContext]
@@ -194,13 +194,16 @@ class Engine:
     def resident_eligible(self, b: int, l: int, max_steps: int = 401) -> bool:
         """True when an AR decode at batch `b`, text bucket `l` and
         `max_steps` steps may run the whole-loop kernel K1: the knob is on
-        and K1's shared memory at text length `l` fits the 227 KB a Hopper
-        block can have (`ops/ar_loop.py::smem_bytes`, the host mirror of
-        `smem_floats` and the cluster loop in csrc/ar_loop.cu). This is K1's
-        own limit, not the TPU's VMEM budget of the JAX package: B and the
-        step count do not bound it (one cluster per row, the steps loop
-        inside the kernel)."""
-        smem = smem_bytes(self.cfg, l, self.dtype)
+        and K1's shared memory at text length `l` and `b` rows fits the 227
+        KB a Hopper block can have (`ops/ar_loop.py::smem_bytes`, the host
+        mirror of `plan` and `carve` in csrc/ar_loop.cu, over one block per
+        SM of this device). This is K1's own limit, not the TPU's VMEM budget
+        of the JAX package: the step count does not bound it (the steps loop
+        inside the kernel), and rows past 32 go through each step in
+        groups."""
+        blocks = (torch.cuda.get_device_properties(self.device).multi_processor_count
+                  if self.device.type == "cuda" else DEFAULT_BLOCKS)
+        smem = smem_bytes(self.cfg, l, self.dtype, b, blocks)
         return self.use_pallas_resident and smem is not None and smem <= SMEM_PER_BLOCK
 
     def _ar_kv(

@@ -131,15 +131,15 @@ class ARGenerator(ParamModule):
         return super()._apply(fn, *args, **kwargs)
 
     @torch.no_grad()
-    def stream(self, cs: int) -> Dict:
-        """The stacked weights packed per rank in the order kernels K1 and K5
-        read them at cluster size cs (`ops.ar_loop.pack_ar_stream`; built
-        once per device, cluster size and set of weights)."""
-        if cs not in self._streams:
+    def stream(self, blocks: int) -> Dict:
+        """The stacked weights packed per block in the order kernels K1 and K5
+        read them over a grid of `blocks` (`ops.ar_loop.pack_ar_stream`;
+        built once per device, grid and set of weights)."""
+        if blocks not in self._streams:
             from sopro_tpu_torch.ops.ar_loop import pack_ar_stream
 
-            self._streams[cs] = pack_ar_stream(self.stacked(), self.cfg, cs)
-        return self._streams[cs]
+            self._streams[blocks] = pack_ar_stream(self.stacked(), self.cfg, blocks)
+        return self._streams[blocks]
 
     @torch.no_grad()
     def stacked(self) -> Dict[str, torch.Tensor]:

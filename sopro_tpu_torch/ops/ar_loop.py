@@ -47,7 +47,7 @@ class ARLoopContext:
     """What every step reads besides the state: the AR parameter tree and
     its stacked kernel view, the fixed text KV, the compact previous-token
     table [V+1, D] (rows 0..V-1: codebook-1 embeddings, row V: BOS), and on
-    CUDA the kernel's packed weight stream per cluster size. `kv_k` / `kv_v`
+    CUDA the kernel's packed weight stream per grid size. `kv_k` / `kv_v`
     [A, B, H, L, hd], when given, are the text KV already stacked as the
     kernel reads it (`kv` then holds views of them); else each launch
     stacks `kv`."""
@@ -58,7 +58,7 @@ class ARLoopContext:
     kv: List[Optional[Dict]]
     mask: torch.Tensor  # [B, L] bool
     emb: torch.Tensor  # [V+1, D]
-    stream: Optional[Callable[[int], Dict]] = None  # cluster size -> packed weights (CUDA)
+    stream: Optional[Callable[[int], Dict]] = None  # grid blocks -> packed weights (CUDA)
     kv_k: Optional[torch.Tensor] = None
     kv_v: Optional[torch.Tensor] = None
 
@@ -161,9 +161,14 @@ def ar_loop(
 # --------------------------------------------------------------------------
 
 MAX_LAYERS = 16
-THREADS = 512  # kThreads in csrc/ar_loop.cu
-RING, STAGE = 3, 8192  # kRing, kStage: the weight ring's stages, floats per stage
+CONSUMERS = 480  # kConsumers in csrc/ar_loop.cu (plus one producer warp)
+RING, STAGE = 3, 8192  # kRing, kStage: the streamed ring's stages, floats per stage
+MAX_GROUP = 32  # kMaxGroup: rows a step takes at once
+MAX_OWN, OWN_INTS = 4, 80  # kMaxOwn, kOwnInts: sampler rows a block, ints each
+RES_L = 2048  # kResL: the text length the resident prefix is sized at
+SAMPLER_WARPS = 8  # kSampWarps: a row's sampler is two warpgroups
 SMEM_PER_BLOCK = 232448  # 227 KB: the most shared memory a Hopper block can have
+DEFAULT_BLOCKS = 132  # an H100 SXM's SMs: the grid the CPU mirrors assume
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -174,112 +179,181 @@ def _esize(dtype) -> int:
     return torch.tensor([], dtype=dtype).element_size()
 
 
-def _layout(cfg: SoproTTSConfig, cs: int, dtype=torch.float32) -> Tuple[int, int, int]:
-    """(cw, fw, vw): channels, FFN columns and logits of one rank (vw a
-    multiple of 16 bytes of `dtype`)."""
+def _part(n: int, blocks: int, j: int) -> int:
+    return n * j // blocks
+
+
+def block_layout(cfg: SoproTTSConfig, blocks: int, j: int) -> Dict[str, int]:
+    """csrc/ar_loop.cu `layout`: what block j of `blocks` owns, {c0, cw}
+    of the D channels (GLU, conv, x_q / x_out columns, h), {f0, fw} of the
+    4D hidden columns (ff1 columns, ff2 rows), {v0, vw} of the V logits."""
     d, v = int(cfg.d_model), int(cfg.ar_vocab)
-    vp = v + (-v) % 4
-    align = 16 // _esize(dtype)
-    return d // cs, 4 * d // cs, ((vp + cs - 1) // cs + align - 1) // align * align
+    out = {}
+    for key, n in (("c", d), ("f", 4 * d), ("v", v)):
+        lo = _part(n, blocks, j)
+        out[key + "0"], out[key + "w"] = lo, _part(n, blocks, j + 1) - lo
+    return out
 
 
-def _qualifies(cfg: SoproTTSConfig, cs: int, dtype=torch.float32) -> bool:
-    """csrc/ar_loop.cu `configure`: cs divides D, the conv products fit the
-    partial-sum buffer, every stream slice is a multiple of 16 bytes wide and
-    fits a ring stage and the gemv's threads, and a buffer idle during the
-    sampler holds the penalized logits."""
-    d, k, v = int(cfg.d_model), int(cfg.ar_kernel), int(cfg.ar_vocab)
-    if d % cs:
-        return False
-    cw, fw, vw = _layout(cfg, cs, dtype)
-    esize = _esize(dtype)
-    return (cw * k <= 4 * THREADS and not (cw | fw | vw | d) & (16 // esize - 1)
-            and max(d, fw, vw) <= min(STAGE * 4 // esize, 4 * THREADS)
-            and (cs * d >= v or v <= 4 * THREADS))
-
-
-def stream_slices(cfg: SoproTTSConfig, cs: int, dtype=torch.float32) -> List[Tuple[str, int, int, int]]:
-    """(name, layer or attention index, rows, width) of the weight slices a
-    rank reads in one step, in order (csrc/ar_loop.cu `stream_schedule`):
-    per layer its GLU columns (a then b), ff1 columns and ff2 rows, after
-    every freq-th layer its x_q columns and x_out rows; then its head
-    columns (zero past Vp)."""
-    d, n, freq = int(cfg.d_model), int(cfg.n_layers_ar), int(cfg.ar_text_attn_freq)
-    cw, fw, vw = _layout(cfg, cs, dtype)
+def stream_slices(cfg: SoproTTSConfig, blocks: int, j: int) -> List[Tuple[str, int, int]]:
+    """(name, layer or attention index, rows) of the slices block j reads in
+    one pass, in order (csrc/ar_loop.cu `stream_schedule`), each [rows][D]
+    with D contiguous: per layer its GLU columns (a then b), ff1 columns and
+    ff2 rows, after every freq-th layer its x_q and x_out columns; then its
+    head columns."""
+    n, freq = int(cfg.n_layers_ar), int(cfg.ar_text_attn_freq)
+    ly = block_layout(cfg, blocks, j)
     out = []
     for li in range(n):
-        out += [("glu_w", li, d, 2 * cw), ("ff1_w", li, d, fw), ("ff2_w", li, fw, d)]
+        out += [("glu_w", li, 2 * ly["cw"]), ("ff1_w", li, ly["fw"]), ("ff2_w", li, ly["fw"])]
         if (li + 1) % freq == 0:
-            out += [("x_q", li // freq, d, cw), ("x_out", li // freq, cw, d)]
-    return out + [("head_w", 0, d, vw)]
+            out += [("x_q", li // freq, ly["cw"]), ("x_out", li // freq, ly["cw"])]
+    return out + [("head_w", 0, ly["vw"])]
 
 
 def stream_schedule(
-    cfg: SoproTTSConfig, cs: int, dtype=torch.float32
+    cfg: SoproTTSConfig, blocks: int, j: int, dtype=torch.float32
 ) -> Tuple[List[Tuple[int, int]], int]:
-    """([(offset, elements)] per ring chunk of a step, elements per rank):
-    each slice in chunks of whole rows that fill at most one 32 KB stage
+    """([(offset, elements)] per chunk of block j's pass, elements): each
+    slice in chunks of whole rows that fill at most one 32 KB stage
     (STAGE floats, twice as many bfloat16 elements)."""
+    d = int(cfg.d_model)
+    rpc = STAGE * 4 // _esize(dtype) // d
     chunks, off = [], 0
-    stage = STAGE * 4 // _esize(dtype)
-    for _, _, rows, width in stream_slices(cfg, cs, dtype):
-        rpc = stage // width
+    for _, _, rows in stream_slices(cfg, blocks, j):
         for r0 in range(0, rows, rpc):
-            n = min(rpc, rows - r0) * width
-            chunks.append((off, n))
-            off += n
+            chunks.append((off, min(rpc, rows - r0) * d))
+            off += chunks[-1][1]
     return chunks, off
 
 
-def _rank_slice(w: Dict[str, torch.Tensor], name: str, i: int, r: int, cfg, cs: int):
-    d = int(cfg.d_model)
-    cw, fw, vw = _layout(cfg, cs, w["head_w"].dtype)
-    c0, f0 = r * cw, r * fw
+def _block_slice(w: Dict[str, torch.Tensor], name: str, i: int, ly: Dict[str, int], d: int):
+    c0, c1 = ly["c0"], ly["c0"] + ly["cw"]
     if name == "glu_w":
-        return torch.cat([w[name][i][:, c0:c0 + cw], w[name][i][:, d + c0:d + c0 + cw]], 1)
+        return torch.cat([w[name][i][:, c0:c1], w[name][i][:, d + c0:d + c1]], 1).t()
     if name == "ff1_w":
-        return w[name][i][:, f0:f0 + fw]
+        return w[name][i][:, ly["f0"]:ly["f0"] + ly["fw"]].t()
     if name == "ff2_w":
-        return w[name][i][f0:f0 + fw]
-    if name == "x_q":
-        return w[name][i][:, c0:c0 + cw]
-    if name == "x_out":
-        return w[name][i][c0:c0 + cw]
-    head = w["head_w"]  # [D, Vp]
-    v0 = min(head.shape[1], r * vw)
-    cols = head[:, v0:v0 + vw]
-    return torch.nn.functional.pad(cols, (0, vw - cols.shape[1]))
+        return w[name][i][ly["f0"]:ly["f0"] + ly["fw"]]
+    if name in ("x_q", "x_out"):
+        return w[name][i][:, c0:c1].t()
+    return w["head_w"][:, ly["v0"]:ly["v0"] + ly["vw"]].t()
 
 
-def pack_ar_stream(w: Dict[str, torch.Tensor], cfg: SoproTTSConfig, cs: int) -> Dict:
-    """The stacked weights (`ARGenerator.stacked()`) as K1/K5 stream them at
-    cluster size cs: {"w": [cs, len] in the weights' dtype, rank r's slices
-    back to back in `stream_slices` order, row-major; "len"; "cs"}."""
-    slices = stream_slices(cfg, cs, w["head_w"].dtype)
-    ranks = [torch.cat([_rank_slice(w, name, i, r, cfg, cs).reshape(-1)
-                        for name, i, _, _ in slices]) for r in range(cs)]
-    return {"w": torch.stack(ranks).contiguous(), "len": int(ranks[0].numel()), "cs": cs}
+def pack_ar_stream(w: Dict[str, torch.Tensor], cfg: SoproTTSConfig, blocks: int) -> Dict:
+    """The stacked weights (`ARGenerator.stacked()`) as K1/K5 read them over
+    a grid of `blocks`: {"w": [blocks, len] in the weights' dtype, block j's
+    slices back to back in `stream_slices` order (zero past its own length),
+    "len": the longest block's elements, "grid": blocks}."""
+    d = int(cfg.d_model)
+    per = []
+    for j in range(blocks):
+        ly = block_layout(cfg, blocks, j)
+        per.append(torch.cat([_block_slice(w, name, i, ly, d).reshape(-1)
+                              for name, i, _ in stream_slices(cfg, blocks, j)]))
+    length = max(int(p.numel()) for p in per)
+    out = torch.zeros((blocks, length), dtype=w["head_w"].dtype, device=w["head_w"].device)
+    for j, p in enumerate(per):
+        out[j, :p.numel()] = p
+    return {"w": out, "len": length, "grid": blocks}
 
 
-def smem_bytes(cfg: SoproTTSConfig, text_len: int, dtype=torch.float32) -> Optional[int]:
-    """Shared memory per block that csrc/ar_loop.cu asks for at text length
-    `text_len` for weights of `dtype`: a host mirror of its `smem_floats` /
-    `smem_ints` at the first cluster size its launch tries (16, 8, ... that
-    `_qualifies`). None when no cluster size qualifies. K1 and K5 take the
-    same amount; the batch size and step count do not enter (one cluster per
-    row, the steps loop inside)."""
+def _r4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _ceil(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+def _carve_words(cfg: SoproTTSConfig, blocks: int, rg: int, text_len: int, b: int,
+                 res_words: int, streamed: bool, nchunk_max: int) -> int:
+    """csrc/ar_loop.cu `carve(...).total`: shared-memory words of a block."""
     d, n, k, v = int(cfg.d_model), int(cfg.n_layers_ar), int(cfg.ar_kernel), int(cfg.ar_vocab)
-    ctx = conv_ctx(cfg)
-    for cs in (16, 8, 4, 2, 1):
-        if not _qualifies(cfg, cs, dtype):
-            continue
-        cw, fw, vw = _layout(cfg, cs, dtype)
-        mine = n * (ctx + 3 + k) * cw + n * fw
-        floats = (32 + RING * STAGE + 7 * d + max(fw, vw) + cs * d + int(text_len) + 2 * v
-                  + 4 * THREADS + mine + 64)
-        ints = v + S.HIST_LEN + 64 + 16 + 2 * len(stream_schedule(cfg, cs, dtype)[0])
-        return 4 * (floats + ints)
+    a_n = n // int(cfg.ar_text_attn_freq)
+    cwm, fwm, vwm = _ceil(d, blocks), _ceil(4 * d, blocks), _ceil(v, blocks)
+    ym = max(2 * cwm, fwm, vwm)
+    return (16 + res_words + (RING * STAGE if streamed else 0) + _r4(rg * d) + _r4(rg * cwm)
+            + _r4(rg * ym) + _r4(n * (k - 1) * rg * cwm) + CONSUMERS + _r4(text_len) + 2 * _r4(d)
+            + _r4(n * (cwm * (k + 4) + fwm) + vwm + a_n) + 2 * CONSUMERS // 32
+            + 2 * 8 * SAMPLER_WARPS + _r4(v) + _r4(_ceil(v, 32)) + MAX_OWN * OWN_INTS + _r4(5 * b) + _r4(2 * nchunk_max) + 16)
+
+
+def key_chunks(blocks: int, rows: int, heads: int, length: int) -> int:
+    """csrc/ar_loop.cu `key_chunks`: the text attention's key chunks per
+    (row, head), as many as spread the units over the blocks, of at least 32
+    keys."""
+    return max(1, min(blocks // (rows * heads), -(-length // 32)))
+
+
+_PLANS: Dict[tuple, Optional[Dict[str, int]]] = {}
+
+
+def launch_plan(cfg: SoproTTSConfig, text_len: int, dtype=torch.float32, b: int = 1,
+                blocks: int = DEFAULT_BLOCKS) -> Optional[Dict[str, int]]:
+    """csrc/ar_loop.cu `plan` and `configure` on the host: {rg (rows a step
+    takes at once), groups, streamed (the ring runs), res_elems (the
+    resident prefix), nchunk_max, len_max, smem (bytes a block)} of K1 / K5
+    over `blocks` blocks for B = b rows at text length `text_len`, or None
+    where no group size fits 227 KB. Kept per shape (the engine asks it on
+    every route)."""
+    key = (int(cfg.d_model), int(cfg.n_layers_ar), int(cfg.ar_kernel), int(cfg.ar_vocab),
+           int(cfg.ar_text_attn_freq), tuple(cfg.ar_dilations()), int(text_len), str(dtype),
+           int(b), int(blocks))
+    if key not in _PLANS:
+        _PLANS[key] = _launch_plan(cfg, int(text_len), dtype, int(b), int(blocks))
+    return _PLANS[key]
+
+
+def _launch_plan(cfg, text_len, dtype, b, blocks):
+    d, ctx = int(cfg.d_model), conv_ctx(cfg)
+    es = _esize(dtype)
+    scheds = [stream_schedule(cfg, blocks, j, dtype) for j in range(blocks)]
+    len_max = max(s[1] for s in scheds)
+    nchunk_max = max(len(s[0]) for s in scheds)
+    lres = max(int(text_len), RES_L)
+    first = min(int(b), MAX_GROUP)
+    rg = first
+    while rg >= 1:
+        fixed = _carve_words(cfg, blocks, rg, lres, b, 0, False, nchunk_max)
+        avail = SMEM_PER_BLOCK - 4 * fixed
+        whole = _r4(_ceil(len_max * es, 4)) * 4
+        ring = RING * STAGE * 4
+        if fixed * 4 <= SMEM_PER_BLOCK and (whole <= avail or avail >= ring):
+            streamed = whole > avail
+            res_elems = (avail - ring) // 16 * 16 // es if streamed else len_max
+            res_words = _r4(_ceil(res_elems * es, 4))
+            smem = 4 * _carve_words(cfg, blocks, rg, int(text_len), b, res_words, streamed,
+                                    nchunk_max)
+            nc = key_chunks(blocks, rg, TEXT_HEADS, text_len)
+            if (ctx * _ceil(d, blocks) > rg * d or smem > SMEM_PER_BLOCK or b > MAX_OWN * blocks
+                    or rg * TEXT_HEADS * (nc + 1) > CONSUMERS):
+                return None
+            return {"rg": rg, "groups": _ceil(int(b), rg), "streamed": int(streamed),
+                    "res_elems": res_elems, "nchunk_max": nchunk_max, "len_max": len_max,
+                    "smem": smem}
+        rg = 16 if rg == first and rg > 16 else rg // 2
     return None
+
+
+def smem_bytes(cfg: SoproTTSConfig, text_len: int, dtype=torch.float32, b: int = 1,
+               blocks: int = DEFAULT_BLOCKS) -> Optional[int]:
+    """Shared memory per block that csrc/ar_loop.cu asks for at text length
+    `text_len`, weights of `dtype`, B = b rows, over a grid of `blocks`: a
+    host mirror of its `plan` and `carve`; where no layout fits 227 KB, what
+    its smallest layout (one row a step, nothing resident) would ask for.
+    None for a batch the kernel never takes (more than MAX_OWN rows a
+    block). K1 and K5 take the same amount; the step count does not enter
+    (the steps loop inside), B only through the rows a step takes at once
+    (at most 32: more rows go through each step in groups)."""
+    plan = launch_plan(cfg, text_len, dtype, b, blocks)
+    if plan is not None:
+        return plan["smem"]
+    if b > MAX_OWN * blocks:
+        return None
+    nchunk_max = max(len(stream_schedule(cfg, blocks, j, dtype)[0]) for j in range(blocks))
+    return max(SMEM_PER_BLOCK + 1,
+               4 * _carve_words(cfg, blocks, 1, int(text_len), b, 0, True, nchunk_max))
 
 
 class _Args(ctypes.Structure):
@@ -301,7 +375,10 @@ class _Args(ctypes.Structure):
             "tokens", "t_out", "last_out", "streak_out", "stopped_out",
             "feos_out", "key_out", "hist_out", "bufs_out", "x_in", "logits", "wstream",
         )]
-        + [("stream_len", ctypes.c_int), ("cs", ctypes.c_int)]
+        + [("stream_len", ctypes.c_int), ("grid", ctypes.c_int), ("xch", ctypes.c_void_p),
+           ("sync", ctypes.c_void_p)]
+        + [(n, ctypes.c_int) for n in ("rg", "nc", "res_elems", "streamed", "nchunk_max")]
+        + [("xch_half", ctypes.c_longlong)]
     )
 
 
@@ -375,16 +452,17 @@ def block_args(
 
 
 _ARGTYPES = {
-    "sopro_ar_cluster": [ctypes.POINTER(_Args), ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
-    "sopro_ar_active_clusters": [ctypes.POINTER(_Args), ctypes.c_int,
-                                 ctypes.POINTER(ctypes.c_int)],
+    "sopro_ar_launch_info": [ctypes.POINTER(_Args), ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
     "sopro_ar_loop": [ctypes.POINTER(_Args), ctypes.c_void_p],
     "sopro_ar_step": [ctypes.POINTER(_Args), ctypes.c_void_p],
 }
 _ARGTYPES.update({
     "sopro_ar_loop_bf16": _ARGTYPES["sopro_ar_loop"], "sopro_ar_step_bf16": _ARGTYPES["sopro_ar_step"],
 })
-_CLUSTER: Dict[tuple, int] = {}
+INFO_KEYS = ("blocks", "rows_per_group", "row_groups", "waves", "smem_bytes", "resident_chunks",
+             "chunks", "xch_half", "streamed", "key_chunks")
+_FACTS: Dict[tuple, Dict[str, int]] = {}
+_WORKSPACE: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
 
 def _mode(logits_only: bool, dtype) -> int:
@@ -392,42 +470,60 @@ def _mode(logits_only: bool, dtype) -> int:
     return int(logits_only) | (2 if dtype == torch.bfloat16 else 0)
 
 
-def cluster_size(args: _Args, logits_only: bool, dtype, device) -> int:
-    """The cluster size csrc/ar_loop.cu takes for these shapes and weight
-    dtype on CUDA `device` (the current device: call inside
-    `kernels.on_device`), asked once per library, card model and shape:
-    the weight stream is packed for it."""
+def launch_facts(args: _Args, logits_only: bool, dtype, device) -> Dict[str, int]:
+    """What csrc/ar_loop.cu's launch takes for these shapes and weight dtype
+    on CUDA `device` (the current device: call inside `kernels.on_device`),
+    asked once per library, card model and shape (`sopro_ar_launch_info`):
+    the grid's blocks (one per SM; the weight stream is packed for it), the
+    rows a step takes at once and the row groups, waves (1: every block is
+    resident), shared memory a block, block 0's resident and total chunks,
+    the exchange buffer's half (floats), whether the ring streams, the
+    attention's key chunks."""
     lib = kernels.lib("ar_loop")
     mode = _mode(logits_only, dtype)
     key = (id(lib), torch.cuda.get_device_name(device), mode) + tuple(
-        getattr(args, f) for f in ("L", "D", "N", "K", "CTX", "H", "V", "freq", "hist_len"))
-    if key not in _CLUSTER:
-        cs = ctypes.c_int(0)
-        fn = kernels.entry("ar_loop", "sopro_ar_cluster", _ARGTYPES["sopro_ar_cluster"])
-        kernels.check(fn(ctypes.byref(args), mode, ctypes.byref(cs)), "ar_loop cluster")
-        _CLUSTER[key] = cs.value
-    return _CLUSTER[key]
+        getattr(args, f) for f in ("B", "L", "D", "N", "K", "CTX", "H", "V", "freq", "hist_len"))
+    if key not in _FACTS:
+        out = (ctypes.c_int * len(INFO_KEYS))()
+        fn = kernels.entry("ar_loop", "sopro_ar_launch_info", _ARGTYPES["sopro_ar_launch_info"])
+        kernels.check(fn(ctypes.byref(args), mode, out), "ar_loop launch info")
+        _FACTS[key] = dict(zip(INFO_KEYS, out))
+    return _FACTS[key]
+
+
+def _workspace(device, half: int) -> Dict[str, torch.Tensor]:
+    """The exchange buffer (two halves of at least `half` floats) and the
+    arrival counter of `device`, kept and grown per device. Launches on one
+    device run in stream order, so one workspace serves them all."""
+    ws = _WORKSPACE.get(device)
+    if ws is None or ws["xch"].numel() < 2 * half:
+        ws = {"xch": torch.empty(2 * half, dtype=torch.float32, device=device),
+              "sync": torch.zeros(1, dtype=torch.int64, device=device)}
+        _WORKSPACE[device] = ws
+    return ws
 
 
 def launch(kernel: str, entry: str, args: _Args, device, stream, dtype=torch.float32) -> None:
     """Call C entry point `entry` of csrc/ar_loop.cu (its `_bf16`
     instantiation for bfloat16 weights) on `device` and its current stream
-    with the weight stream packed for its cluster size (`stream(cs)`,
-    `ARGenerator.stream`), raise on a refused launch, count it under
-    `kernel` and `dtype`."""
+    with the weight stream packed for its grid (`stream(blocks)`,
+    `ARGenerator.stream`) and the device's workspace, raise on a refused
+    launch, count it under `kernel` and `dtype`."""
     if stream is None:
         raise ValueError(f"{kernel}: the context carries no weight stream (built on the CPU?)")
     with kernels.on_device(device) as cuda_stream:
-        cs = cluster_size(args, entry == "sopro_ar_step", dtype, device)
-        pack = stream(cs)
+        facts = launch_facts(args, entry == "sopro_ar_step", dtype, device)
+        pack = stream(facts["blocks"])
         if pack["w"].dtype != dtype:
             raise ValueError(f"{kernel}: the weight stream is {pack['w'].dtype}, the weights {dtype}")
-        args.wstream, args.stream_len, args.cs = pack["w"].data_ptr(), pack["len"], cs
+        ws = _workspace(device, facts["xch_half"])
+        args.wstream, args.stream_len, args.grid = pack["w"].data_ptr(), pack["len"], pack["grid"]
+        args.xch, args.sync, args.xch_half = ws["xch"].data_ptr(), ws["sync"].data_ptr(), ws["xch"].numel() // 2
         name = entry + ("_bf16" if dtype == torch.bfloat16 else "")
         fn = kernels.entry("ar_loop", name, _ARGTYPES[name])
         kernels.check(fn(ctypes.byref(args), cuda_stream), kernel)
     kernels.count(kernel, dtype)
-    kernels.LAUNCH_INFO[kernel] = {"cluster_blocks_per_row": cs}
+    kernels.LAUNCH_INFO[kernel] = dict(facts, sms=torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 def _loop_args(ctx, cond, state, settings, n_steps, anti_loop):
@@ -485,16 +581,11 @@ def _ar_loop_cuda(ctx, cond, state, settings, n_steps, anti_loop):
     return tokens, out
 
 
-def active_clusters(ctx: ARLoopContext, cond, state, settings) -> Tuple[int, int]:
-    """(cluster size, clusters the card holds at once) of K1's launch for
-    these shapes (`cudaOccupancyMaxActiveClusters`): a cluster must fit in
-    one GPC, so rows past the count run in later waves. Launches nothing."""
+def launch_info(ctx: ARLoopContext, cond, state, settings) -> Dict[str, int]:
+    """K1's launch facts for these shapes (`launch_facts`, plus the card's
+    SM count): one launch of one block per SM decodes every row, in
+    `row_groups` groups of `rows_per_group`, in one wave. Launches nothing."""
     args, _, _, _keep = _loop_args(ctx, cond, state, settings, 1, True)
     with kernels.on_device(cond.device):
-        cs = cluster_size(args, False, cond.dtype, cond.device)
-        args.cs, n = cs, ctypes.c_int(0)
-        fn = kernels.entry("ar_loop", "sopro_ar_active_clusters",
-                           _ARGTYPES["sopro_ar_active_clusters"])
-        kernels.check(fn(ctypes.byref(args), _mode(False, cond.dtype), ctypes.byref(n)),
-                      "ar_loop active clusters")
-    return cs, n.value
+        facts = launch_facts(args, False, cond.dtype, cond.device)
+    return dict(facts, sms=torch.cuda.get_device_properties(cond.device).multi_processor_count)

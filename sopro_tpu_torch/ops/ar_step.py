@@ -34,7 +34,7 @@ class ARStepContext:
     CPU), the text KV of the attention layers stacked as [A, B, H, L, hd],
     the text mask, the previous-token table [V+1, D] of the loop around it
     (`ar_loop_step`), and on CUDA the kernel's packed weight stream per
-    cluster size (`ARGenerator.stream`)."""
+    grid size (`ARGenerator.stream`)."""
 
     cfg: SoproTTSConfig
     p_ar: Dict
@@ -43,7 +43,7 @@ class ARStepContext:
     kv_v: torch.Tensor
     mask: torch.Tensor  # [B, L] bool
     emb: torch.Tensor  # [V+1, D]
-    stream: Optional[Callable[[int], Dict]] = None  # cluster size -> packed weights (CUDA)
+    stream: Optional[Callable[[int], Dict]] = None  # grid blocks -> packed weights (CUDA)
 
     def step(self, x: torch.Tensor, bufs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return ar_step(self, x, bufs)

@@ -262,9 +262,9 @@ def test_seanet_chunk_kernel_is_deterministic_full_width(cuda, b, m25, hist):
 @pytest.mark.cuda
 def test_ar_loop_kernel_at_the_largest_text_bucket(cuda):
     """K1 at full Sopro width with a 1,450-character prompt (text bucket
-    2,048, the most shared memory K1 takes): it launches on a 16-block
-    cluster and 24 near-greedy steps equal ar_loop_plain's tokens and
-    state."""
+    2,048, the most shared memory K1 takes): it launches one block on
+    every SM of the card, in one wave, and 24 near-greedy steps equal
+    ar_loop_plain's tokens and state."""
     from sopro_tpu_torch.codec.mimi import MimiCodec
     from sopro_tpu_torch.engine import Engine
     from sopro_tpu_torch.models import sopro as M
@@ -294,7 +294,8 @@ def test_ar_loop_kernel_at_the_largest_text_bucket(cuda):
 
         sett = M.ARSettings(temperature=1e-4, anti_loop=False).per_row(1, cuda)
         got, gs = ar_loop(ctx, cond, fresh(), sett, 24, False)
-        assert kernels.LAUNCH_INFO["ar_loop"]["cluster_blocks_per_row"] == 16
+        info = kernels.LAUNCH_INFO["ar_loop"]
+        assert info["blocks"] == info["sms"] and info["waves"] == 1 and info["row_groups"] == 1, info
         want, ws = ar_loop_plain(ctx, cond, fresh(), sett, 24, False)
     assert torch.equal(got, want)
     for k in ("t", "last", "streak", "stopped", "first_eos", "key", "hist"):
@@ -336,28 +337,58 @@ def test_ar_loop_kernel_matches_plain_and_chunks(cuda):
 
 
 @pytest.mark.cuda
-def test_ar_loop_kernel_rows_match_solo(cuda):
-    """B rows in one launch (one cluster each) give what each row gives
-    alone, at production settings, with rows stopping at different steps."""
+@pytest.mark.parametrize("b", [2, 16, 32])
+def test_ar_loop_kernel_rows_match_solo(cuda, b):
+    """B rows in one launch (all rows through each product together, one
+    wave) give what each row gives alone, at production settings, with rows
+    stopping at different steps."""
     from sopro_tpu_torch.models import sopro as M
     from sopro_tpu_torch.ops.ar_loop import ar_loop
 
     _, tts = _tts_pair(cuda)
     model, cfg = tts.engine.model, tts.cfg
     g = torch.Generator().manual_seed(3)
-    txt = torch.randn(2, 12, cfg.d_model, generator=g).to(cuda)
-    mask = torch.stack([torch.arange(12) < 9, torch.arange(12) < 5]).to(cuda)
-    cond = (torch.randn(2, 25, cfg.d_model, generator=g) * 0.1).to(cuda)
+    txt = torch.randn(b, 12, cfg.d_model, generator=g).to(cuda)
+    mask = torch.stack([torch.arange(12) < (9, 5, 12, 1)[i % 4] for i in range(b)]).to(cuda)
+    cond = (torch.randn(b, 25, cfg.d_model, generator=g) * 0.1).to(cuda)
     keys = ("t", "last", "streak", "stopped", "first_eos", "key", "hist", "bufs")
     sett = M.ARSettings(min_gen_frames=4)
-    both = {k: getattr(M.init_ar_carry(cfg, 2, 25, 11, cuda), k) for k in keys}
-    tok2, st2 = ar_loop(M.ar_context(model, txt, mask), cond, both, sett.per_row(2, cuda), 25, True)
-    for i in range(2):
+    both = {k: getattr(M.init_ar_carry(cfg, b, 25, 11, cuda), k) for k in keys}
+    tok2, st2 = ar_loop(M.ar_context(model, txt, mask), cond, both, sett.per_row(b, cuda), 25, True)
+    info = kernels.LAUNCH_INFO["ar_loop"]
+    assert info["waves"] == 1 and info["row_groups"] == 1 and info["rows_per_group"] == b, info
+    for i in range(b):
         one = {k: (v[:, i:i + 1] if k == "bufs" else v[i:i + 1]).contiguous() for k, v in both.items()}
         ctx = M.ar_context(model, txt[i:i + 1], mask[i:i + 1])
         tok1, st1 = ar_loop(ctx, cond[i:i + 1], one, sett.per_row(1, cuda), 25, True)
         assert torch.equal(tok1[0], tok2[i])
         assert torch.equal(st1["t"][0], st2["t"][i]) and torch.equal(st1["hist"][0], st2["hist"][i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ar_loop_kernel_repeats_bit_for_bit(cuda, dtype):
+    """Two K1 launches at B = 8 from the same state give the same tokens and
+    the same state bit for bit: every sum across blocks is taken in a fixed
+    order."""
+    from sopro_tpu_torch.models import sopro as M
+    from sopro_tpu_torch.ops.ar_loop import ar_loop
+
+    tts = _tts_pair(cuda)[1] if dtype == torch.float32 else _bf16_tts(cuda)
+    model, cfg = tts.engine.model, tts.cfg
+    g = torch.Generator().manual_seed(4)
+    txt = torch.randn(8, 12, cfg.d_model, generator=g).to(cuda, dtype)
+    mask = torch.stack([torch.arange(12) < 3 + i for i in range(8)]).to(cuda)
+    cond = (torch.randn(8, 25, cfg.d_model, generator=g) * 0.1).to(cuda, dtype)
+    ctx = M.ar_context(model, txt, mask)
+    keys = ("t", "last", "streak", "stopped", "first_eos", "key", "hist", "bufs")
+    start = {k: getattr(M.init_ar_carry(cfg, 8, 25, 13, cuda, dtype), k) for k in keys}
+    per_row = M.ARSettings().per_row(8, cuda)
+    tok1, st1 = ar_loop(ctx, cond, dict(start), per_row, 25, True)
+    tok2, st2 = ar_loop(ctx, cond, dict(start), per_row, 25, True)
+    assert torch.equal(tok1, tok2)
+    for k in keys:
+        assert torch.equal(st1[k], st2[k]), k
 
 
 @pytest.mark.cuda
