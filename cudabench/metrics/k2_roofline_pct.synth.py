@@ -1,0 +1,21 @@
+"""NAR refine, kernel K2 (csrc/nar_heads.cu): the bound of a request's NAR
+heads over K2's device time per request (K1 launches count the requests)."""
+
+from cudabench import trace
+
+NAMES = ('nar_heads_kernel',)
+
+
+def read(rec):
+    tr = rec.get("trace")
+    if not tr:
+        return None
+    launches = sum(1 for n, *_ in tr["kernels"] if "ar_loop_kernel" in n)
+    spent = trace.kernel_s(tr, NAMES)
+    done = [r for r in rec["records"] if r.end is not None and r.error is None
+            and rec["w0"] <= r.start < rec["w1"]]
+    if not launches or spent <= 0 or not done:
+        return None
+    f, c, m, dt = rec["flops"], rec["cfg"]["sopro"], rec["cfg"]["mimi"], rec["cfg"]["compute_dtype"]
+    bound = sum(f.k2_bound_s(c, r.chunk_n[0], dt) for r in done) / len(done)
+    return 100.0 * bound / (spent / launches)

@@ -1,0 +1,22 @@
+"""Mimi decode, kernel K3 (csrc/seanet.cu, its conv and fused-block
+kernels): the bound of a request's SEANet decoder over K3's device time
+per request (K1 launches count the requests)."""
+
+from cudabench import trace
+
+NAMES = ('conv_wgmma_kernel', 'resblock_wgmma_kernel')
+
+
+def read(rec):
+    tr = rec.get("trace")
+    if not tr:
+        return None
+    launches = sum(1 for n, *_ in tr["kernels"] if "ar_loop_kernel" in n)
+    spent = trace.kernel_s(tr, NAMES)
+    done = [r for r in rec["records"] if r.end is not None and r.error is None
+            and rec["w0"] <= r.start < rec["w1"]]
+    if not launches or spent <= 0 or not done:
+        return None
+    f, c, m, dt = rec["flops"], rec["cfg"]["sopro"], rec["cfg"]["mimi"], rec["cfg"]["compute_dtype"]
+    bound = sum(f.k3_bound_s(m, r.chunk_n[0], dt) for r in done) / len(done)
+    return 100.0 * bound / (spent / launches)
