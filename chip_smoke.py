@@ -127,12 +127,11 @@ Phases (each raises, so the script exits non-zero, on failure):
    and K5 not; K1 launches = the ticks the shards ran); each session's
    frame count equal, PCM within 1 int16 LSB, AR tokens equal for the
    sessions still in their slot (a differing token only at a top-2 margin
-   below 1e-5 of the peak logit); `measure_tick_device_ms` of both, per
-   shard; tick dispatch p50 per shard; burst TTFA p50; seconds of audio per
-   second of both. `synthesize_batch(mesh=)` of phase 7's 4 texts at 400
-   frames (K1, K2, K3 launched): every row within 1e-4 of its peak of the
-   unsharded batch's row, lengths equal; seconds of audio per second of
-   both, in turns.
+   below 1e-5 of the peak logit); tick dispatch p50 per shard; burst TTFA
+   p50; seconds of audio per second of both. `synthesize_batch(mesh=)` of
+   phase 7's 4 texts at 400 frames (K1, K2, K3 launched): every row within
+   1e-4 of its peak of the unsharded batch's row, lengths equal; seconds of
+   audio per second of both, in turns.
 15. tp training (`parallel/tensor.py`): phase 11's model and batch on
    (dp = 1, tp = 2) with both shards on cuda:0 (a rehearsal), tp = 2 over 2
    cards and (dp = 2, tp = 2) over 4 where present: the loss within 2e-5
@@ -2677,15 +2676,8 @@ def drive_mesh(tts, ref, hop, sr):
         f"{worst} LSB, AR tokens equal for the {len(both)} sessions still in their slot {both}")
     out["pcm_max_lsb"], out["token_sessions"] = worst, both
 
-    out["tick_probe_unsharded"] = one["b"].measure_tick_device_ms(ref)
-    out["tick_probe_mesh"] = sharded["b"].measure_tick_device_ms(ref)
     for name in ("unsharded", "mesh"):
         runs[name]["b"].stop()
-        probe = out[f"tick_probe_{name}"]
-        shards = probe.get("shards", [probe])
-        log(f"  measure_tick_device_ms {name}: " + "; ".join(
-            f"{x.get('device', 'cuda:0')} {x['rows']} rows: device {x['tick_device_ms']:.3f} ms, "
-            f"CUDA-event span {x['tick_span_ms']:.3f} ms ({x['path']})" for x in shards))
 
     texts, seeds = BATCH
     rows = {}

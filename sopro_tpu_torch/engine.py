@@ -80,6 +80,7 @@ from sopro_tpu_torch.models import generator as G
 from sopro_tpu_torch.models import sopro as M
 from sopro_tpu_torch.ops.ar_loop import DEFAULT_BLOCKS, SMEM_PER_BLOCK, ARLoopContext, smem_bytes
 from sopro_tpu_torch.ops.ar_step import ARStepContext
+from sopro_tpu_torch.profiling import span
 
 ARContext = Union[ARLoopContext, ARStepContext]
 
@@ -327,17 +328,22 @@ class Engine:
         max_frames+1 frames + Mimi decode, on the device. Returns
         (wav [B, s*hop], lengths [B])."""
         s = int(max_frames) + 1
-        prep = M.prepare_conditioning(
-            self.model, ids, mask, ref, max_frames=max_frames, style_strength=strength
-        )
-        ctx = self._ar_kv(prep["txt_seq"], mask, True, s)
-        carry = replace(M.init_ar_carry(self.cfg, ids.shape[0], s, 0, self.device, self.dtype),
-                        key=keys)
-        carry = M.ar_chunk(carry, prep["cond_ar"], ctx, settings, s)
-        lengths = torch.minimum(carry.first_eos, carry.t)
-        frame_mask = torch.arange(s, device=self.device)[None, :] < lengths[:, None]
-        toks = M.nar_refine(self.model, prep["cond_ar"], carry.tokens, mask=frame_mask)
-        return self.codec(toks), lengths
+        with span("sopro.condition"):
+            prep = M.prepare_conditioning(
+                self.model, ids, mask, ref, max_frames=max_frames, style_strength=strength
+            )
+            ctx = self._ar_kv(prep["txt_seq"], mask, True, s)
+            carry = replace(M.init_ar_carry(self.cfg, ids.shape[0], s, 0, self.device, self.dtype),
+                            key=keys)
+        with span("sopro.ar"):
+            carry = M.ar_chunk(carry, prep["cond_ar"], ctx, settings, s)
+        with span("sopro.nar"):
+            lengths = torch.minimum(carry.first_eos, carry.t)
+            frame_mask = torch.arange(s, device=self.device)[None, :] < lengths[:, None]
+            toks = M.nar_refine(self.model, prep["cond_ar"], carry.tokens, mask=frame_mask)
+        with span("sopro.mimi"):
+            wav = self.codec(toks)
+        return wav, lengths
 
     def _row_keys(self, seeds: Sequence[int]) -> torch.Tensor:
         """[B, 2]: row i's key is what init_ar_carry(batch=1) gives seed i,
@@ -363,14 +369,17 @@ class Engine:
     ) -> Tuple[np.ndarray, int]:
         """Whole pipeline for one row with one device->host copy.
         Returns (wav [1, t*hop] float32, t)."""
-        ids, mask = self._padded([ids_row], self.rt.text_buckets)
+        with span("sopro.prepare"):
+            ids, mask = self._padded([ids_row], self.rt.text_buckets)
+            keys = self._row_keys([seed])
+            settings = _settings(top_p, temperature, anti_loop, min_gen)
         wav, t = self.batch_synth_graph(
-            ids, mask, ref, float(style_strength), self._row_keys([seed]),
-            _settings(top_p, temperature, anti_loop, min_gen), max_frames=max_frames,
+            ids, mask, ref, float(style_strength), keys, settings, max_frames=max_frames,
         )
-        flat = torch.cat([wav[0].float(), t.float()]).cpu().numpy()
-        t = int(flat[-1])
-        return flat[:-1][None, : t * int(self.mimi_cfg.hop_length)], t
+        with span("sopro.readback"):
+            flat = torch.cat([wav[0].float(), t.float()]).cpu().numpy()
+            t = int(flat[-1])
+            return flat[:-1][None, : t * int(self.mimi_cfg.hop_length)], t
 
     @torch.inference_mode()
     def synthesize_batch_dispatch(
@@ -393,10 +402,12 @@ class Engine:
         bucket), one mask row each; returns the packed [B, S*hop + 1] device
         tensor (float32, or int16 with `pcm16`) with each row's length in
         the last column, without a sync."""
-        ids, mask = self._padded(ids_rows, self.rt.text_buckets, text_len)
+        with span("sopro.prepare"):
+            ids, mask = self._padded(ids_rows, self.rt.text_buckets, text_len)
+            keys = self._row_keys(seeds)
+            settings = _settings(top_p, temperature, anti_loop, min_gen)
         wav, lengths = self.batch_synth_graph(
-            ids, mask, ref_batched, float(style_strength), self._row_keys(seeds),
-            _settings(top_p, temperature, anti_loop, min_gen), max_frames=max_frames,
+            ids, mask, ref_batched, float(style_strength), keys, settings, max_frames=max_frames,
         )
         wav = _pcm16(wav) if pcm16 else wav.float()
         return torch.cat([wav, lengths[:, None].to(wav.dtype)], dim=1)
@@ -404,8 +415,9 @@ class Engine:
     def synthesize_batch_read(self, packed: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
         """The one device->host copy of a dispatched batch -> (wav [B, S*hop]
         float32 or int16, lengths [B] int64)."""
-        flat = packed.cpu().numpy()
-        return flat[:, :-1], flat[:, -1].astype(np.int64)
+        with span("sopro.readback"):
+            flat = packed.cpu().numpy()
+            return flat[:, :-1], flat[:, -1].astype(np.int64)
 
     def synthesize_batch_fused(self, ids_rows, ref_batched, **kwargs) -> Tuple[np.ndarray, np.ndarray]:
         """`synthesize_batch_dispatch` + `synthesize_batch_read`."""

@@ -1,6 +1,7 @@
 """Observability (counterpart: sopro_tpu/profiling.py): per-utterance
-metrics, a section timer, a device trace through `torch.profiler`, and
-analytic FLOP counts of the kernels' stages and of a training step.
+metrics, a section timer, a device trace through `torch.profiler`, program
+spans recorded while a profiler runs, and analytic FLOP counts of the
+kernels' stages and of a training step.
 
 `enable_compilation_cache` has no counterpart: it points XLA's persistent
 cache of compiled programs at a directory, and the port compiles no graphs.
@@ -10,13 +11,20 @@ their sources (`kernels.py`), which plays that part.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
+SPAN_STORE = 65_536  # records kept; the oldest go first
 
 
 @contextlib.contextmanager
@@ -25,7 +33,6 @@ def device_trace(out_dir: str, device="cuda"):
     kernels when `device` is CUDA) and write a Chrome trace to
     `out_dir/trace.json` (open it in chrome://tracing or Perfetto). Yields
     the profiler."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -35,6 +42,82 @@ def device_trace(out_dir: str, device="cuda"):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(out_dir, TRACE_FILE))
+
+
+class Span(NamedTuple):
+    """One recorded span: `call` is the id of its root span (shared by every
+    span of one call), `parent` the enclosing span's id (None for a root, or
+    for a span whose enclosing span began before recording did), times on
+    `time.perf_counter_ns()`."""
+
+    name: str
+    id: int
+    call: int
+    parent: Optional[int]
+    thread: int
+    t0_ns: int
+    t1_ns: int
+
+
+_NULL = contextlib.nullcontext()
+_STORE: "collections.deque[Span]" = collections.deque(maxlen=SPAN_STORE)
+_IDS = itertools.count(1)
+_LOCAL = threading.local()
+
+
+class _Recording:
+    """An open span: a `record_function` range for a profiler on this
+    thread, and a `Span` appended to the store when it closes."""
+
+    __slots__ = ("name", "id", "call", "parent", "t0_ns", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_LOCAL, "stack", None)
+        if stack is None:
+            stack = _LOCAL.stack = []
+        self.id = next(_IDS)
+        self.parent = stack[-1].id if stack else None
+        self.call = stack[-1].call if stack else self.id
+        stack.append(self)
+        # the span encloses its range: the range's own stamps lie inside
+        # record_function's enter and exit
+        self._range = torch.profiler.record_function(self.name)
+        self.t0_ns = time.perf_counter_ns()
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        t1 = time.perf_counter_ns()
+        _LOCAL.stack.pop()
+        _STORE.append(Span(self.name, self.id, self.call, self.parent, threading.get_ident(),
+                           self.t0_ns, t1))
+        return False
+
+
+def span(name: str):
+    """A context manager around one step of the program. While no profiler
+    runs it is one shared `nullcontext` and records nothing. While one runs
+    (in any thread: `torch.profiler` sets a process-wide flag, and the
+    thread-local `torch.autograd._profiler_enabled()` reads False in other
+    threads) it opens a `record_function(name)` range, which a profiler on
+    this thread shows by name, and appends a `Span` to the in-memory store
+    (`spans()`) when it closes."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _Recording(name)
+
+
+def spans() -> List[Span]:
+    """A copy of the recorded spans, oldest first (closing order)."""
+    return list(_STORE)
+
+
+def clear_spans() -> None:
+    _STORE.clear()
 
 
 @dataclass

@@ -49,7 +49,6 @@ import torch
 
 from sopro_tpu_torch import kernels
 from sopro_tpu_torch.models.sopro import PreparedReference, tile_reference
-from sopro_tpu_torch.ops.ar_loop import ARLoopContext
 from sopro_tpu_torch.parallel.mesh import replicas
 
 INT32_MIN, INT32_MAX = -(2 ** 31), 2 ** 31 - 1
@@ -281,53 +280,6 @@ class ContinuousBatcher:
             eng.serve_join(st, range(self.per), ids, mask, tile_reference(ref, self.per),
                            [float(self.cfg.style_strength)] * self.per, [42] * self.per, {})
         return st
-
-    def measure_tick_device_ms(self, ref, text: str = "benchmark tick", reps: int = 3) -> dict:
-        """The device cost of one full tick with every slot live
-        (`bench_state`), per shard: 1 + 2 * reps chained ticks on the card,
-        the first one a warm-up. `tick_device_ms` is the device time of the
-        kernels and copies per tick (torch.profiler's CUDA rows),
-        `tick_span_ms` the CUDA-event span per tick (the port's tick is
-        bound by the host's issue, so the two differ), `path` "resident"
-        when K1 runs the AR chunk ("ar_step": K5), `rows` the tick's rows.
-        Under a mesh the two times are the largest over the shards, and
-        "shards" lists each shard's keys with its rows and device (shards
-        that share a card take turns: there neither time is the tick's).
-        Call while no session is live. Raises on a CPU engine:
-        a device metric is not taken on the CPU."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        if any(e.device.type != "cuda" for e in self.engines):
-            raise RuntimeError("measure_tick_device_ms: the batcher's engines are not on a CUDA "
-                               "device; a device time is measured on the card only")
-        shards = []
-        for eng in self.engines:
-            st = self._full_state(eng, ref, text)
-            with kernels.on_device(eng.device), torch.inference_mode():
-                tick = lambda: eng.serve_tick(st, chunk=self.cf, nar_ctx=self.nar_ctx,
-                                              pcm16=self.pcm16)
-                tick()
-                torch.cuda.synchronize(eng.device)
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    start.record()
-                    for _ in range(2 * reps):
-                        tick()
-                    end.record()
-                    torch.cuda.synchronize(eng.device)
-            device_us = sum(e.self_device_time_total for e in prof.key_averages()
-                            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                            and not getattr(e, "is_user_annotation", False) and "#" not in e.key)
-            shards.append({
-                "tick_device_ms": device_us / 1e3 / (2 * reps),
-                "tick_span_ms": start.elapsed_time(end) / (2 * reps),
-                "path": "resident" if isinstance(st.ctx, ARLoopContext) else "ar_step",
-                "rows": self.per, "device": str(eng.device),
-            })
-        out = {k: max(x[k] for x in shards) for k in ("tick_device_ms", "tick_span_ms")}
-        out.update(path=shards[0]["path"], rows=self.B)
-        return dict(out, shards=shards) if self.mesh is not None else out
 
     # ------------------------------------------------------------- interface
 

@@ -36,6 +36,7 @@ from sopro_tpu_torch.constants import DEFAULT_MIMI_ID, TARGET_SR
 from sopro_tpu_torch.engine import Engine
 from sopro_tpu_torch.models.sopro import PreparedReference, reference_to, tile_reference
 from sopro_tpu_torch.parallel.mesh import Mesh, replicas, row_blocks
+from sopro_tpu_torch.profiling import span
 from sopro_tpu_torch.tokenizer import SimpleCharTokenizer, TextTokenizer
 
 
@@ -270,28 +271,29 @@ class SoproTTS:
         host) when max_frames >= 256, else the adaptive plan (AR decode,
         then NAR and Mimi decode over the generated length rounded up to
         `nar_pad_multiple`)."""
-        ref = self._ref(ref, ref_audio_path, ref_tokens_tq, ref_seconds)
-        ids = self.encode_text(text)
-        empty = np.zeros((1, 0), np.int16 if pcm16 else np.float32)
-        sampling = dict(max_frames=max_frames, seed=seed, top_p=top_p,
-                        temperature=temperature, anti_loop=anti_loop)
-        if fused if fused is not None else int(max_frames) >= 256:
-            wav, t = self.engine.synthesize_fused(
-                ids, ref, style_strength=self._style(style_strength),
-                min_gen=int(min_gen_frames or self.cfg.min_gen_frames), **sampling,
+        with span("sopro.synthesize"):
+            ref = self._ref(ref, ref_audio_path, ref_tokens_tq, ref_seconds)
+            ids = self.encode_text(text)
+            empty = np.zeros((1, 0), np.int16 if pcm16 else np.float32)
+            sampling = dict(max_frames=max_frames, seed=seed, top_p=top_p,
+                            temperature=temperature, anti_loop=anti_loop)
+            if fused if fused is not None else int(max_frames) >= 256:
+                wav, t = self.engine.synthesize_fused(
+                    ids, ref, style_strength=self._style(style_strength),
+                    min_gen=int(min_gen_frames or self.cfg.min_gen_frames), **sampling,
+                )
+                if t <= 0:
+                    return empty
+                return A.pcm16(wav) if pcm16 else wav
+            prep = self.engine.prepare_conditioning(
+                ids, ref, max_frames=max_frames, style_strength=self._style(style_strength)
+            )
+            tokens_dev, t = self.engine.ar_generate_device(
+                prep, min_gen_frames=min_gen_frames, **sampling
             )
             if t <= 0:
                 return empty
-            return A.pcm16(wav) if pcm16 else wav
-        prep = self.engine.prepare_conditioning(
-            ids, ref, max_frames=max_frames, style_strength=self._style(style_strength)
-        )
-        tokens_dev, t = self.engine.ar_generate_device(
-            prep, min_gen_frames=min_gen_frames, **sampling
-        )
-        if t <= 0:
-            return empty
-        return self.engine.nar_decode_fused(prep["cond_ar"], tokens_dev, t, pcm16=pcm16)
+            return self.engine.nar_decode_fused(prep["cond_ar"], tokens_dev, t, pcm16=pcm16)
 
     def generate_tokens(
         self,
@@ -354,32 +356,33 @@ class SoproTTS:
         (`parallel.replicas`) padded to its group's text bucket; the group
         size rounds as JAX's does, to a multiple of dp and at least dp. All
         shards of all groups are enqueued before the first is read."""
-        ref = self._ref(ref, ref_audio_path, ref_tokens_tq, ref_seconds)
-        b = len(texts)
-        seeds = list(seeds) if seeds is not None else list(range(b))
-        g = int(pipeline_group or self.rt.batch_pipeline_group or b) or b
-        engines = [self.engine] if mesh is None else replicas(self.engine, mesh)
-        g = max(len(engines), (g // len(engines)) * len(engines))
-        ids_rows = [self.encode_text(t) for t in texts]
-        hop = int(self.engine.codec.cfg.hop_length)
-        refs = [reference_to(ref, eng.device) for eng in engines]
-        packed = []
-        for lo in range(0, b, g):
-            rows = ids_rows[lo: lo + g]
-            text_len = max(int(r.shape[0]) for r in rows)
-            for eng, eng_ref, (a, z) in zip(engines, refs, row_blocks(len(rows), len(engines))):
-                packed.append((eng, eng.synthesize_batch_dispatch(
-                    rows[a:z], tile_reference(eng_ref, z - a),
-                    max_frames=max_frames, style_strength=self._style(style_strength),
-                    seeds=seeds[lo + a: lo + z], top_p=top_p, temperature=temperature,
-                    anti_loop=anti_loop, min_gen=int(min_gen_frames or self.cfg.min_gen_frames),
-                    pcm16=pcm16, text_len=text_len,
-                )))
-        outs = []
-        for eng, p in packed:
-            wav, lengths = eng.synthesize_batch_read(p)
-            outs.extend(wav[i: i + 1, : int(lengths[i]) * hop] for i in range(wav.shape[0]))
-        return outs
+        with span("sopro.synthesize_batch"):
+            ref = self._ref(ref, ref_audio_path, ref_tokens_tq, ref_seconds)
+            b = len(texts)
+            seeds = list(seeds) if seeds is not None else list(range(b))
+            g = int(pipeline_group or self.rt.batch_pipeline_group or b) or b
+            engines = [self.engine] if mesh is None else replicas(self.engine, mesh)
+            g = max(len(engines), (g // len(engines)) * len(engines))
+            ids_rows = [self.encode_text(t) for t in texts]
+            hop = int(self.engine.codec.cfg.hop_length)
+            refs = [reference_to(ref, eng.device) for eng in engines]
+            packed = []
+            for lo in range(0, b, g):
+                rows = ids_rows[lo: lo + g]
+                text_len = max(int(r.shape[0]) for r in rows)
+                for eng, eng_ref, (a, z) in zip(engines, refs, row_blocks(len(rows), len(engines))):
+                    packed.append((eng, eng.synthesize_batch_dispatch(
+                        rows[a:z], tile_reference(eng_ref, z - a),
+                        max_frames=max_frames, style_strength=self._style(style_strength),
+                        seeds=seeds[lo + a: lo + z], top_p=top_p, temperature=temperature,
+                        anti_loop=anti_loop, min_gen=int(min_gen_frames or self.cfg.min_gen_frames),
+                        pcm16=pcm16, text_len=text_len,
+                    )))
+            outs = []
+            for eng, p in packed:
+                wav, lengths = eng.synthesize_batch_read(p)
+                outs.extend(wav[i: i + 1, : int(lengths[i]) * hop] for i in range(wav.shape[0]))
+            return outs
 
     def synthesize_long(
         self,

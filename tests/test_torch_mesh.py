@@ -214,7 +214,7 @@ def test_synthesize_batch_over_a_mesh_matches_unsharded_and_jax():
         port.synthesize_batch(texts[:3], ref=pref, mesh=cpu_mesh(2), **kw)
 
 
-def test_bench_state_matches_jax_and_the_tick_probe_needs_a_card():
+def test_bench_state_matches_jax():
     """Every slot live on one text: the conditioning and the text KV (at
     the text's positions) within 1e-5 of JAX's `bench_state`, per shard."""
     tree, mimi, jcfg, cfg, jm, tm = make_trees(seed=6)
@@ -243,10 +243,6 @@ def test_bench_state_matches_jax_and_the_tick_probe_needs_a_card():
         np.testing.assert_allclose(kv_v.numpy()[:, :, :, :n], jv[:, :b, :, :n], atol=1e-5, rtol=1e-5)
         assert mask[:, :n].all() and not mask[:, n:].any()
         assert not emitted.any() and not stopped.any()
-    with pytest.raises(RuntimeError, match="CUDA"):
-        single.measure_tick_device_ms(pref, text)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        meshed.measure_tick_device_ms(pref, text)
 
 
 def test_sopro_dp_builds_a_mesh_batcher_on_the_cpu(tts, monkeypatch):
