@@ -7,7 +7,7 @@ codebooks; per-codebook heads with head-id offsets, greedy argmax.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -107,6 +107,21 @@ def nar_stage_preds(
     return nar_heads_argmax(z, *(stacks if stacks is not None else _stage_head_stacks(p, stage)))
 
 
+def prev_cb_ids(cfg: SoproTTSConfig, device) -> Dict[str, torch.Tensor]:
+    """Per stage, the codebooks whose tokens its trunk embeds (codebook 1,
+    then every earlier stage's, in order) as a long tensor on `device`.
+    Built once and passed to `nar_refine`, they spare each call a copy of
+    Python ids to the card, which on CUDA waits for all the work queued
+    before it. Made outside inference mode, so a later call with autograd
+    on may save them for its backward."""
+    stage_idx, ids, out = cfg.stage_indices(), [0], {}
+    with torch.inference_mode(False):
+        for stage in cfg.stage_order():
+            out[stage] = torch.tensor(ids, dtype=torch.long, device=device)
+            ids = ids + stage_idx[stage]
+    return out
+
+
 def nar_refine(
     p: Params,
     cb_embed_params: Params,
@@ -115,12 +130,15 @@ def nar_refine(
     cfg: SoproTTSConfig,
     cond_seq: torch.Tensor,
     rvq1_bt: torch.Tensor,
+    prev_ids: Dict[str, torch.Tensor],
     mask: Optional[torch.Tensor] = None,
     stacks: Optional[Dict[str, tuple]] = None,
     head_tail: Optional[int] = None,
 ) -> torch.Tensor:
     """Fill codebooks 2..Q given codebook-1 tokens: one pass per stage.
-    cond_seq [B, T, D]; rvq1_bt [B, T] -> tokens [B, T, Q] int32.
+    cond_seq [B, T, D]; rvq1_bt [B, T] -> tokens [B, T, Q] int32;
+    `prev_ids`: `prev_cb_ids` on the codebook table's device. Nothing here
+    waits for the device.
 
     `head_tail`: only the last stage's heads run, and only on the last
     `head_tail` frames; the earlier stages still refine the whole window
@@ -132,27 +150,26 @@ def nar_refine(
     out = torch.zeros((b, t, int(cfg.num_codebooks)), dtype=torch.int32, device=cond_seq.device)
     out[:, :, 0] = rvq1_bt.to(torch.int32)
     prev_tokens = rvq1_bt[..., None].to(torch.int32)
-    prev_cbs: List[int] = [0]
     for stage in stages:
         idxs = stage_idx[stage]
         tail = head_tail if stage == stages[-1] else None
         prev_emb = cb_sum_embed_subset(
-            cb_embed_params, cb_spec, prev_tokens, prev_cbs, cb_weights=nar_prev_cb_weights
+            cb_embed_params, cb_spec, prev_tokens, prev_ids[stage], cb_weights=nar_prev_cb_weights
         )
         preds = nar_stage_preds(
             p, cfg, stage, cond_seq, prev_emb, mask=mask,
             stacks=None if stacks is None else stacks[stage], head_tail=tail,
         )
-        out[:, t - preds.shape[1]:, idxs] = preds
+        # a stage's codebooks are one range: a slice, not a list index
+        out[:, t - preds.shape[1]:, idxs[0]:idxs[-1] + 1] = preds
         if stage != stages[-1]:
             prev_tokens = torch.cat([prev_tokens, preds], dim=-1)
-            prev_cbs = prev_cbs + list(idxs)
     return out
 
 
 class NARRefiner(ParamModule):
-    """NAR parameters; head stacks are built once per device and set of
-    weights."""
+    """NAR parameters; head stacks and the stages' codebook ids are built
+    once per device and set of weights."""
 
     def __init__(self, tree: Params, cfg: SoproTTSConfig):
         super().__init__(tree)
@@ -160,9 +177,10 @@ class NARRefiner(ParamModule):
         self.weights_changed()
 
     def weights_changed(self) -> None:
-        """Drop the head stacks (and K2's packs): the next call rebuilds
-        them from the current parameters."""
+        """Drop the head stacks (and K2's packs) and the codebook ids: the
+        next call rebuilds them from the current parameters."""
         self._stacks = None
+        self._prev_ids: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
     def _apply(self, fn, *args, **kwargs):
         self.weights_changed()
@@ -173,3 +191,10 @@ class NARRefiner(ParamModule):
         if self._stacks is None:
             self._stacks = {s: _stage_head_stacks(self.p, s) for s in self.cfg.stage_order()}
         return self._stacks
+
+    def prev_ids(self, device) -> Dict[str, torch.Tensor]:
+        """`prev_cb_ids` on `device` (the codebook table's)."""
+        device = torch.device(device)
+        if device not in self._prev_ids:
+            self._prev_ids[device] = prev_cb_ids(self.cfg, device)
+        return self._prev_ids[device]

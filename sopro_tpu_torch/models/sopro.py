@@ -358,5 +358,6 @@ def nar_refine(
     p = m.shared.p
     return N.nar_refine(
         m.nar.p, p["cb_embed"], cb_spec(m.cfg), p["nar_prev_cb_weights"], m.cfg,
-        cond_seq, rvq1_bt, mask=mask, stacks=m.nar.head_stacks(), head_tail=head_tail,
+        cond_seq, rvq1_bt, m.nar.prev_ids(p["cb_embed"]["emb"].device), mask=mask,
+        stacks=m.nar.head_stacks(), head_tail=head_tail,
     )

@@ -7,7 +7,7 @@ cb*V + token, as the checkpoint lays it out.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -51,17 +51,20 @@ def cb_sum_embed_subset(
     p: Params,
     spec: CodebookEmbeddingSpec,
     tokens_btk: torch.Tensor,
-    cb_indices: Sequence[int],
+    cb_indices: Union[Sequence[int], torch.Tensor],
     cb_weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Softmax(cb_weights)-weighted sum of embeddings over a codebook subset.
 
-    tokens_btk [B, T, K] are tokens of codebooks `cb_indices` (len K);
+    tokens_btk [B, T, K] are tokens of codebooks `cb_indices` (len K): ints,
+    or a long tensor of them on the table's device, which spares the call a
+    host-to-device copy (on CUDA a wait for all the work queued before it);
     cb_weights is [Q] (full) or [K] logits. One fused gather of all K rows,
     then the weighted sum accumulated codebook by codebook (the JAX
     package's summation order)."""
     table = p["emb"]
-    cbs = torch.as_tensor(list(cb_indices), dtype=torch.long, device=table.device)
+    cbs = (cb_indices if isinstance(cb_indices, torch.Tensor)
+           else torch.as_tensor(list(cb_indices), dtype=torch.long, device=table.device))
     g = take_rows(table, cbs * spec.V + tokens_btk.long())  # [B, T, K, D]
     w = None
     if cb_weights is not None:

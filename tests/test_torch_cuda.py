@@ -514,6 +514,54 @@ def test_synthesize_batch_on_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["fused", "batch"])
+def test_no_sync_between_ar_and_readback(cuda, plan, monkeypatch):
+    """`torch.cuda.set_sync_debug_mode("error")` inside `sopro.nar` and
+    `sopro.mimi` of a warmed-up call: the NAR and the Mimi decode queue
+    behind K1 without waiting for the card (tests/test_torch_no_sync.py
+    holds the same window on the CPU); the waveforms equal the call's
+    without the mode."""
+    import contextlib
+
+    from sopro_tpu_torch import engine as E
+
+    _, tts = _tts_pair(cuda)
+    ref = tts.prepare_reference(
+        ref_tokens_tq=np.random.default_rng(12).integers(0, 32, (40, 8)).astype(np.int32))
+    say = {"fused": lambda: [tts.synthesize("hello there", ref=ref, max_frames=24, seed=3,
+                                            fused=True)],
+           "batch": lambda: tts.synthesize_batch(["hello there", "a second, longer request"],
+                                                 ref=ref, max_frames=24, seeds=(3, 5))}[plan]
+    want = say()
+
+    @contextlib.contextmanager
+    def errors_on_sync():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    with pytest.raises(RuntimeError), errors_on_sync():  # the mode sees a list's copy
+        torch.as_tensor([0, 1], device=cuda)
+    plain = E.span
+
+    @contextlib.contextmanager
+    def span(name):
+        with plain(name), (errors_on_sync() if name in ("sopro.nar", "sopro.mimi")
+                           else contextlib.nullcontext()):
+            yield
+
+    monkeypatch.setattr(E, "span", span)
+    kernels.reset_launches()
+    got = say()
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("ar_loop", "nar_heads", "seanet")), \
+        kernels.LAUNCHES
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
 def test_use_pallas_vocoder_off_raises_on_cuda(cuda):
     """RuntimeConfig(use_pallas_vocoder=False) has no SEANet route on the
     card: building the engine there raises."""
