@@ -30,8 +30,8 @@ def control_readings(keep: dict) -> dict:
         raise ValueError("the control is defined for float32 with TF32 off")
     check.set_tf32(True)
     try:
-        ctrl = check.Reference(*keep["sd"], cfg, check.Precision(torch.float32), keep["device"],
-                               keep["entry"].plan, keep["entry"].state_frames(keep["mix"]))
+        ctrl = keep["family"].reference(keep["sd"], cfg, check.Precision(torch.float32),
+                                        keep["device"], keep["entry"], keep["mix"])
         outs = ctrl.run(keep["checked"])
     finally:
         check.set_tf32(False)

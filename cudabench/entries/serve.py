@@ -37,10 +37,11 @@ def consume(batcher, rec: Record, ref, mix: Dict, hop: int) -> None:
         rec.error = f"{type(e).__name__}: {e}"
 
 
-def run(tts, mix, traffic, refs, seconds, hooks) -> Dict:
+def run(tts, mix, traffic, voices, seconds, hooks) -> Dict:
     from sopro_tpu_torch.serve.scheduler import ContinuousBatcher
 
     hop = int(tts.engine.codec.cfg.hop_length)
+    refs = [tts.prepare_reference(ref_tokens_tq=v) for v in voices]
     b = dict(mix["batcher"])
     if "mesh" in b:  # the slots split over a dp mesh of the cell's cards, as SOPRO_DP serves
         from sopro_tpu_torch.parallel.mesh import make_mesh

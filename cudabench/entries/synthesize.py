@@ -11,8 +11,9 @@ from cudabench import run as harness
 from cudabench.run import Record, p95
 
 
-def run(tts, mix, traffic, refs, seconds, hooks) -> Dict:
+def run(tts, mix, traffic, voices, seconds, hooks) -> Dict:
     hop = int(tts.engine.codec.cfg.hop_length)
+    refs = [tts.prepare_reference(ref_tokens_tq=v) for v in voices]
     sp = mix["sampling"]
     for key in harness.bucket_texts(tts, mix):
         tts.synthesize(key, ref=refs[0], max_frames=int(mix["frames"][1]), seed=1)

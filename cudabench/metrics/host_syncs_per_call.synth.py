@@ -6,13 +6,9 @@ rows all reached the trace, as `cudabench/spans.py` picks them for
 `launches_per_call.synth`.
 
 The rows and the spans are both on the host's clock, so this needs no device
-clock and none of `spans.split`'s checks on it. It takes the host's offset
-from the harness's closing `cudaDeviceSynchronize` row, the one that ends
-nearest the stretch's length: the profiler's stop adds a row of its own
-after it, which waits for whatever the program queued in between and can
-end a millisecond or more later, enough to move a call's first syncs out of
-the call. Nothing is read from a program without spans, a run with no
-closing row or no whole call."""
+clock and none of `spans.split`'s checks on it: the host's offset is
+`spans.offset_s`. Nothing is read from a program without spans, a run with
+no closing row or no whole call."""
 
 import bisect
 import statistics
@@ -23,20 +19,11 @@ SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize
          "cudaMemcpy")
 
 
-def offset_s(rec):
-    """Perf seconds minus profiler seconds, from the harness's closing row."""
-    tr = rec["trace"]
-    ends = [b for n, _, b in tr["host"] if n == spans.SYNC]
-    if not ends:
-        return None
-    return rec["span"][1] + tr["window_s"] - min(ends, key=lambda b: abs(b - tr["window_s"]))
-
-
 def read(rec):
     tr, store = rec.get("trace"), spans.recorded()
     if not tr or not tr["kernels"] or not store:
         return None
-    off = offset_s(rec)
+    off = spans.offset_s(rec)
     if off is None:
         return None
     work = sorted((a + off, n) for n, a, _ in tr["host"] if n.startswith(spans.WORK))

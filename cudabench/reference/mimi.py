@@ -20,7 +20,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from cudabench.reference.sopro import Precision
+from cudabench.reference.precision import Precision
 
 
 class MimiDecoder:

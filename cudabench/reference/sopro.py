@@ -20,7 +20,6 @@ lengths.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -28,21 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from cudabench.reference import sampler as S
+from cudabench.reference.precision import Precision
 
 TEXT_HEADS = 4
-
-
-@dataclass
-class Precision:
-    """`dtype`: the compute dtype weights and product inputs round to."""
-
-    dtype: torch.dtype = torch.float32
-
-    def weight(self, w: torch.Tensor) -> torch.Tensor:
-        return w.float().to(self.dtype).float()
-
-    def act(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype).float() if self.dtype != torch.float32 else x.float()
 
 
 def sinusoid(d: int, n: int) -> torch.Tensor:

@@ -5,12 +5,14 @@
 Reads the cell from BENCHMARK.json (in the working directory), its
 configuration from `cudabench/configs/<config>.json`, its traffic from
 `cudabench/traffic/<mix>.json` and its check limits from
-`cudabench/limits/<cell>.json`; the program's entry the mix drives is
-`cudabench/entries/<entry>.py`. Makes the weights from the seed on the card,
-loads them into the program (`sopro_tpu_torch`) through its checkpoint
-converters, warms up the shapes the traffic uses, runs the traffic and
-measures for `--seconds`, then checks what the program produced against the
-plain reference and prints one JSON line. `--trace 1` runs the same with
+`cudabench/limits/<cell>.json`; the configuration's architecture is
+`cudabench/families/<family>.py` and the program's entry the mix drives is
+`cudabench/entries/<entry>.py`, each found by path in the checkout. Makes
+the weights from the seed on the card, has the family build the program
+(`sopro_tpu_torch`) from them through its checkpoint converters, warms up
+the shapes the traffic uses, runs the traffic and measures for `--seconds`,
+then checks what the program produced against the family's plain reference
+and prints one JSON line. `--trace 1` runs the same with
 `torch.profiler` over a fixed stretch in the window's middle and reports the
 cell's per-layer metrics (`cudabench/metrics/<name>.py`) in place of the
 end-to-end ones.
@@ -27,7 +29,6 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
-import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -36,10 +37,10 @@ from typing import Dict, List, Optional  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "sopro_tpu")
 WAIT_AFTER_S = 60.0  # how long past the window's close a run waits for its sessions
 TRACE_S = 3.0  # the profiled stretch: the window's last seconds
 TRIES = 4  # near-ties tried at a divergence (cudabench.check)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))  # the checkout of this file
 
 
 def cache_env(root: str) -> None:
@@ -91,24 +92,6 @@ class SeededTokenizer:
         return [b % self.vocab_size for b in text.encode()]
 
 
-def build_program(cfg: Dict, sd_sopro, sd_mimi, device, tokenizer):
-    """The system under test from the harness's weights, as from_pretrained
-    builds it from a checkpoint."""
-    from sopro_tpu_torch import hub, weights
-    from sopro_tpu_torch.codec.convert import convert_mimi_state_dict
-    from sopro_tpu_torch.codec.mimi_config import MimiConfig
-    from sopro_tpu_torch.config import RuntimeConfig, SoproTTSConfig
-    from sopro_tpu_torch.engine import Engine
-    from sopro_tpu_torch.tts import SoproTTS
-
-    scfg = SoproTTSConfig.from_dict(cfg["sopro"])
-    mcfg = MimiConfig.from_dict(cfg["mimi"])
-    model = weights.sopro_params_from_jax(hub.sopro_params_from_flat(sd_sopro, scfg), scfg, device)
-    mimi = weights.mimi_params_from_jax(convert_mimi_state_dict(sd_mimi, mcfg), mcfg, device)
-    rt = RuntimeConfig(compute_dtype=cfg["compute_dtype"], **cfg.get("runtime", {}))
-    return SoproTTS(Engine(model, mimi, rt), scfg, tokenizer, rt)
-
-
 # ----------------------------------------------------------------- traffic
 
 
@@ -135,16 +118,30 @@ def bucket_texts(tts, mix: Dict) -> List[str]:
             for n in sorted({min(max(x, lo), hi) for x in (16, 32, 64, 128, 256, lo, hi)})]
 
 
-def load_entry(name: str):
+def load_module(root: str, kind: str, name: str):
+    """`cudabench/<kind>/<name>.py` in the checkout at `root`, by path."""
+    path = os.path.join(data_dir(root), kind, f"{name}.py")
+    if name.startswith(".") or "/" in name or not os.path.isfile(path):
+        raise ValueError(f"no {kind} {name!r}: {os.path.relpath(path, root)} is missing")
+    mod_name = f"cudabench_{kind}_{name.replace('.', '_').replace('-', '_')}"
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_entry(root: str, name: str):
     """The entry module `cudabench/entries/<name>.py` a mix drives."""
-    if not name.isidentifier():
-        raise ValueError(f"no entry {name!r}")
-    try:
-        return importlib.import_module(f"cudabench.entries.{name}")
-    except ModuleNotFoundError as e:
-        if e.name != f"cudabench.entries.{name}":
-            raise
-        raise ValueError(f"no entry {name!r}: cudabench/entries/{name}.py is missing") from None
+    return load_module(root, "entries", name)
+
+
+def load_family(root: str, cfg: Dict):
+    """The family module `cudabench/families/<family>.py` the configuration
+    names under "family"."""
+    if "family" not in cfg:
+        raise ValueError('the configuration names no "family" (cudabench/families/<family>.py)')
+    return load_module(root, "families", cfg["family"])
 
 
 # ----------------------------------------------------------------- metrics
@@ -156,16 +153,12 @@ def p95(xs: List[float]) -> Optional[float]:
 
 def end_to_end(res: Dict, mix: Dict, seconds: float, sr: int) -> Dict:
     """The end-to-end metrics over the window, from the client's clocks, as
-    the mix's entry computes them."""
-    return load_entry(mix["entry"]).end_to_end(res, seconds, sr)
+    the mix's entry in this checkout computes them."""
+    return load_entry(ROOT, mix["entry"]).end_to_end(res, seconds, sr)
 
 
 def load_reader(root: str, name: str):
-    path = os.path.join(data_dir(root), "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"cudabench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(root, "metrics", name).read
 
 
 # ----------------------------------------------------------------- check
@@ -197,18 +190,6 @@ def pick_checked(res: Dict, mix: Dict, seed: int) -> List:
     return picked[: int(mix["check"]["sessions"])]
 
 
-def to_checked(recs, mix: Dict, voices) -> List:
-    from cudabench.check import Checked
-
-    sp, b = mix["sampling"], mix.get("batcher", {})
-    return [Checked(ids=r.sess.ids, voice=r.sess.voice, ref_tokens=voices[r.sess.voice],
-                    seed=r.sess.seed, cap=r.sess.frames, top_p=sp["top_p"],
-                    temperature=sp["temperature"], anti_loop=sp["anti_loop"],
-                    chunks=list(r.chunk_n), wav=np.concatenate(r.wav),
-                    ramp=int(b.get("ramp_frames", 4)),
-                    chunk_frames=int(b.get("chunk_frames", 16))) for r in recs]
-
-
 # ----------------------------------------------------------------- main
 
 
@@ -227,7 +208,8 @@ def main(argv=None, device=None, root=None, cfg_override=None, keep=None) -> int
     bench, cell, cfg, mix, limits = load_cell(root, args.workload)
     if cfg_override:
         cfg, mix = cfg_override(cfg, mix)
-    entry = load_entry(mix["entry"])
+    family = load_family(root, cfg)
+    entry = load_entry(root, mix["entry"])
 
     import torch
 
@@ -240,18 +222,15 @@ def main(argv=None, device=None, root=None, cfg_override=None, keep=None) -> int
     device = torch.device(device)
     on_card = device.type == "cuda"
 
-    from cudabench import check, flops, trace, weights
+    from cudabench import FORBIDDEN, check, trace, weights
     from cudabench.traffic import Traffic
 
-    sc, mc = cfg["sopro"], cfg["mimi"]
-    sd_sopro, sd_mimi = weights.make(
-        [weights.sopro_spec(sc, int(cfg["text_vocab"])), weights.mimi_spec(mc)], args.seed, device)
+    state_dicts = weights.make(family.specs(cfg), args.seed, device)
     tok = SeededTokenizer(int(cfg["text_vocab"]))
-    tts = build_program(cfg, sd_sopro, sd_mimi, device, tok)
+    tts = family.build(cfg, state_dicts, device, tok)
     traffic = Traffic(mix, args.seed, args.seconds, int(cfg["text_vocab"]))
-    voices = traffic.voices(int(sc["num_codebooks"]), int(sc["codebook_size"]))
-    refs = [tts.prepare_reference(ref_tokens_tq=v) for v in voices]
-    sr = int(mc["sampling_rate"])
+    voices = family.voices(traffic, cfg)
+    sr = family.sample_rate(cfg)
 
     stamps: Dict[str, float] = {}
     traced: Dict = {}
@@ -303,7 +282,7 @@ def main(argv=None, device=None, root=None, cfg_override=None, keep=None) -> int
         return out
 
     hooks = {"setup_done": setup_done, "window": window}
-    res = entry.run(tts, mix, traffic, refs, args.seconds, hooks)
+    res = entry.run(tts, mix, traffic, voices, args.seconds, hooks)
     e2e = entry.end_to_end(res, args.seconds, sr)
     attempted, failed = int(res["attempted"]), int(res["failed"])
     peak = 0
@@ -314,7 +293,7 @@ def main(argv=None, device=None, root=None, cfg_override=None, keep=None) -> int
         res["batcher"].stop()
 
     # the program's state is freed before the reference runs
-    checked = to_checked(pick_checked(res, mix, args.seed), mix, voices)
+    checked = family.checked(pick_checked(res, mix, args.seed), mix, voices)
     rec = {"cell": cell, "mix": mix, "cfg": cfg, "seconds": args.seconds,
            "stats0": res.get("stats0"), "stats_mid": res.get("stats_mid"),
            "stats1": res.get("stats1"), "records": res["records"],
@@ -323,24 +302,23 @@ def main(argv=None, device=None, root=None, cfg_override=None, keep=None) -> int
            "span": res.get("span", (res["w0"], res["w1"])),
            "stats_end": res.get("stats_pre") or res.get("stats1"),
            "w0": res["w0"], "w1": res["w1"], "hop": res["hop"], "sr": sr,
-           "trace": traced or None, "flops": flops, "end_to_end": e2e}
-    del tts, res, refs
+           "trace": traced or None, "flops": family.flops, "end_to_end": e2e}
+    del tts, res
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
 
     check.set_tf32(False)
     prec = check.Precision(torch.bfloat16 if cfg["compute_dtype"] == "bfloat16" else torch.float32)
-    reference = check.Reference(sd_sopro, sd_mimi, cfg, prec, device, entry.plan,
-                                entry.state_frames(mix))
+    reference = family.reference(state_dicts, cfg, prec, device, entry, mix)
     outs = reference.run(checked)
     outcome = check.judge(reference, checked, outs, float(limits["tau"]), float(limits["tie"]),
                           TRIES)
     held = check.within(outcome, limits)
     if keep is not None:
-        keep.update(checked=checked, outs=outs, outcome=outcome, sd=(sd_sopro, sd_mimi), cfg=cfg,
+        keep.update(checked=checked, outs=outs, outcome=outcome, sd=state_dicts, cfg=cfg,
                     mix=mix, limits=limits, device=device, hop=reference.hop, entry=entry,
-                    reference=reference,
+                    family=family, reference=reference,
                     stats_mid=rec["stats_mid"], stats1=rec["stats1"], end_to_end=e2e,
                     attempted=attempted, failed=failed)
     ok = bool(checked) and all(h for _, _, h in held.values()) and failed == 0

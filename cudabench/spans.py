@@ -6,9 +6,13 @@ call (`sopro_tpu_torch.profiling.span`: `sopro.synthesize`, its root, then
 `sopro.prepare`, `.condition`, `.ar`, `.nar`, `.mimi`, `.readback`), on
 `time.perf_counter_ns()`. The trace's rows are on the profiler's clock,
 seconds from its start. The host's rows take one constant per run: the
-harness's closing `torch.cuda.synchronize()` leaves the stretch's last
-`cudaDeviceSynchronize` row in `trace["host"]`, and that row ends at perf
-time `rec["span"][1] + trace["window_s"]`.
+harness's closing `torch.cuda.synchronize()` leaves a `cudaDeviceSynchronize`
+row in `trace["host"]` that ends at perf time `rec["span"][1] +
+trace["window_s"]`, and so at about `window_s` on the profiler's clock. The
+profiler's stop adds a row of its own after it, which waits for whatever the
+program queued in between and can end a millisecond or more later (when the
+window closes while K1's launch queue drains), so the closing row is the one
+that ends nearest `window_s`, not the last.
 
 The card's rows do not: CUPTI's device timestamps drift against the host's,
 on an H100 by up to tens of milliseconds over a 3 s stretch, at rates that
@@ -65,13 +69,13 @@ def recorded() -> List:
 
 
 def offset_s(rec: Dict) -> Optional[float]:
-    """Perf seconds minus profiler seconds, from the closing
-    `cudaDeviceSynchronize` row."""
+    """Perf seconds minus profiler seconds, from the harness's closing
+    `cudaDeviceSynchronize` row: the one that ends nearest `window_s`."""
     tr = rec.get("trace")
     ends = [b for n, _, b in tr["host"] if n == SYNC] if tr else []
     if not ends:
         return None
-    return rec["span"][1] + tr["window_s"] - max(ends)
+    return rec["span"][1] + tr["window_s"] - min(ends, key=lambda b: abs(b - tr["window_s"]))
 
 
 def _kind(name: str) -> str:

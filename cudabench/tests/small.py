@@ -45,12 +45,14 @@ def override(cfg, mix):
 
 
 def checkout(tmp, extra=None):
-    """A copy of BENCHMARK.json and the benchmark's data files under `tmp`,
-    with `extra` ({relative path: JSON object}) written beside them."""
+    """A copy of BENCHMARK.json and the files the harness finds by name
+    under `tmp`, with `extra` ({relative path: JSON object}) written beside
+    them."""
     shutil.copy(os.path.join(REPO, "BENCHMARK.json"), os.path.join(tmp, "BENCHMARK.json"))
-    for d in ("configs", "traffic", "limits", "metrics"):
+    for d in ("configs", "traffic", "limits", "metrics", "entries", "families"):
         shutil.copytree(os.path.join(REPO, "cudabench", d), os.path.join(tmp, "cudabench", d),
-                        ignore=shutil.ignore_patterns("*.py") if d == "traffic" else None)
+                        ignore=shutil.ignore_patterns("*.py" if d == "traffic" else "__init__.py",
+                                                      "__pycache__"))
     for rel, obj in (extra or {}).items():
         path = os.path.join(tmp, rel)
         os.makedirs(os.path.dirname(path), exist_ok=True)

@@ -176,14 +176,12 @@ def test_a_divergence_is_followed_only_through_a_near_tie(capsys, tmp_path, cell
     drive(capsys, cell, keep=keep, tmp=tmp_path)
     ref, s, out = keep["reference"], keep["checked"][0], keep["outs"][0]
     hop, tau = ref.hop, float(keep["limits"]["tau"])
-    decisions = check.near_ties(out, 0, float("inf"), set())
+    decisions = ref.near_ties(out, 0, float("inf"), set())
     assert len(decisions) > run.TRIES
 
     def served_with(decision):
         gap, kind, key, code = decision
-        force = {"ar": {}, "nar": {}}
-        force[check.FORCES[kind]][key] = code
-        wav = ref.run([s], [force])[0]["wav"][: int(sum(s.chunks)) * hop]
+        wav = ref.run([s], [ref.force({}, kind, key, code)])[0]["wav"][: int(sum(s.chunks)) * hop]
         return dataclasses.replace(s, wav=wav)
 
     # the decisions whose runner-up changes what the client gets, closest first

@@ -1,6 +1,6 @@
 """The span readers (`cudabench/spans.py`, `metrics/*.synth.py`) on a
 synthetic trace and span store: the idle split, the clock offset from the
-closing `cudaDeviceSynchronize` row, a device clock that drifts against the
+harness's closing `cudaDeviceSynchronize` row, a device clock that drifts against the
 host's mapped back through the launches, and nothing read where there is no
 whole call, no span, a K1 that starts before its `sopro.ar`, or a launch
 without its row."""
@@ -106,6 +106,22 @@ def test_the_offset_comes_from_the_closing_sync_row():
     shifted, base = spans.split(rec, store), spans.split(*_synthetic())
     for key in READERS.values():
         assert shifted[key] == pytest.approx(base[key], abs=1e-6)
+
+
+def test_the_offset_comes_from_the_harness_s_row_and_not_the_profiler_s():
+    """The profiler's stop adds a `cudaDeviceSynchronize` row that ends 1 ms
+    after the harness's (the window closed while K1's launch queue drained):
+    the offset comes from the row that ends nearest the stretch's length, and
+    the shares read as without the profiler's row. From the last row the
+    host's rows would map 1 ms early, K1 before its `sopro.ar`."""
+    rec, store = _synthetic()
+    base = spans.split(rec, store)
+    rec["trace"]["host"].append((spans.SYNC, WINDOW + 0.0002, WINDOW + 0.001))
+    assert spans.offset_s(rec) == pytest.approx(OFF, abs=1e-9)
+    got = spans.split(rec, store)
+    assert got is not None
+    for key in READERS.values():
+        assert got[key] == pytest.approx(base[key], abs=1e-9)
 
 
 @pytest.mark.parametrize("kw", [dict(drift=0.02, skew=0.030), dict(drift=-0.01, skew=-0.2),
