@@ -1,0 +1,17 @@
+"""Engine, CSM: each request's model operations (`flops_csm.request`: the
+prefill, the backbone steps, the depth passes, the Mimi decode) over its
+wall time, as a share of the configuration dtype's peak; the median over
+the requests that ran within the window (in a traced run, before the
+profiled stretch)."""
+
+import numpy as np
+
+
+def read(rec):
+    f, c, m = rec["flops"], rec["cfg"]["csm"], rec["cfg"]["mimi"]
+    peak = f.PEAK_FLOPS[rec["cfg"]["compute_dtype"]]
+    shares = [100.0 * f.request(c, m, r.chunk_n[0], f.prompt_len(len(r.sess.ids), rec["mix"]))
+              / (r.end - r.start) / peak
+              for r in rec["records"]
+              if r.end is not None and r.error is None and rec["span"][0] <= r.start and r.end <= rec["span"][1]]
+    return float(np.median(shares)) if shares else None

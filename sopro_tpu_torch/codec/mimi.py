@@ -38,6 +38,7 @@ from sopro_tpu_torch.codec.mimi_config import (
     upsample_spec,
 )
 from sopro_tpu_torch.models.base import ParamModule
+from sopro_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 Params = Dict[str, Any]
 
@@ -136,26 +137,6 @@ def seanet_apply(params: List[Params], plan: Plan, x: torch.Tensor) -> torch.Ten
 # --------------------------------------------------------------------------
 # transformer (RoPE, sliding-window causal, LayerScale)
 # --------------------------------------------------------------------------
-
-
-def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
-    """positions [T] -> (cos, sin) [T, head_dim]."""
-    inv_freq = 1.0 / (
-        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim)
-    )
-    freqs = positions.float()[:, None] * inv_freq[None, :]
-    emb = torch.cat([freqs, freqs], dim=-1)
-    return torch.cos(emb), torch.sin(emb)
-
-
-def _rotate_half(x: torch.Tensor) -> torch.Tensor:
-    half = x.shape[-1] // 2
-    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [B, H, T, hd]; cos/sin [T, hd]."""
-    return x * cos[None, None].to(x.dtype) + _rotate_half(x) * sin[None, None].to(x.dtype)
 
 
 def _layernorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:

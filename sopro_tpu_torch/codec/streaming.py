@@ -32,9 +32,7 @@ from sopro_tpu_torch.codec.mimi import (
     _convt_polyphase_depthwise,
     _layernorm,
     _merge_heads,
-    _rotate_half,
     _split_heads,
-    rope_cos_sin,
     rvq_decode,
 )
 from sopro_tpu_torch.codec.mimi_config import (
@@ -47,6 +45,7 @@ from sopro_tpu_torch.codec.mimi_config import (
     required_halo,
     upsample_spec,
 )
+from sopro_tpu_torch.ops.rope import rope_cos_sin, rotary
 
 Params = Dict[str, Any]
 EMPTY_SLOT = -(10 ** 9)  # kv_pos of a ring slot that holds no key
@@ -175,7 +174,7 @@ def _stream_transformer(
     cos, sin = rope_cos_sin(q_pos.reshape(-1), cfg.head_dim, cfg.rope_theta)
     cos = cos.reshape(b, 1, m, -1).to(x.dtype)
     sin = sin.reshape(b, 1, m, -1).to(x.dtype)
-    rope = lambda t: t * cos + _rotate_half(t) * sin  # t [B, H, m, hd]
+    rope = lambda t: rotary(t, cos, sin)  # t [B, H, m, hd]
 
     # Attend to [ring keys (all older than the chunk) ++ chunk keys]; only the
     # chunk's last min(m, W) keys enter the ring, written after attention.

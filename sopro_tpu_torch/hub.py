@@ -425,3 +425,66 @@ def load_mimi_checkpoint(path: str, cfg_json: Optional[str] = None, *,
         ) from e
     _coverage_check(flat, path, on_unconsumed)
     return cfg, params
+
+
+# --------------------------------------------------------------------------
+# CSM (transformers' CsmForConditionalGeneration names)
+# --------------------------------------------------------------------------
+
+CSM_CODEC_PREFIX = "codec_model."
+
+
+def _csm_transformer(sd: SD, prefix: str, n: int) -> Dict[str, Any]:
+    def layer(i):
+        p = f"{prefix}.layers.{i}"
+        attn = [sd[f"{p}.self_attn.{x}_proj.weight"] for x in ("q", "k", "v")]
+        mlp = [sd[f"{p}.mlp.{x}_proj.weight"] for x in ("gate", "up")]
+        return {"ln1": sd[f"{p}.input_layernorm.weight"],
+                "ln2": sd[f"{p}.post_attention_layernorm.weight"],
+                "qkv": np.concatenate(attn, axis=0), "o": sd[f"{p}.self_attn.o_proj.weight"],
+                "gate_up": np.concatenate(mlp, axis=0), "down": sd[f"{p}.mlp.down_proj.weight"]}
+
+    return {"layers": [layer(i) for i in range(n)], "norm": sd[f"{prefix}.norm.weight"]}
+
+
+def csm_params_from_flat(sd: SD, cfg) -> Dict[str, Any]:
+    """transformers' CSM names (the codec's `codec_model.*` aside) -> the
+    tree of `models.csm` (a missing tensor raises KeyError naming it). The
+    depth decoder's embedding table is tied to the backbone's audio table:
+    a checkpoint may hold both names or the backbone's alone."""
+    audio = sd["backbone_model.embed_tokens.embed_audio_tokens.weight"]
+    tied = "depth_decoder.model.embed_tokens.weight"
+    if tied in sd and not np.array_equal(sd[tied], audio):
+        raise ValueError(f"{tied} differs from the backbone's audio table it is tied to")
+    depth = _csm_transformer(sd, "depth_decoder.model", cfg.depth.num_hidden_layers)
+    depth["proj"] = sd["depth_decoder.model.inputs_embeds_projector.weight"]
+    return {"text_embed": sd["embed_text_tokens.weight"], "audio_embed": audio,
+            "lm_head": sd["lm_head.weight"],
+            "backbone": _csm_transformer(sd, "backbone_model", cfg.backbone.num_hidden_layers),
+            "depth": depth, "heads": sd["depth_decoder.codebooks_head.weight"]}
+
+
+def split_csm_state_dict(sd: SD) -> Tuple[SD, SD]:
+    """A CsmForConditionalGeneration state dict -> (the CSM tensors, the
+    Mimi codec's under MimiModel's names)."""
+    n = len(CSM_CODEC_PREFIX)
+    return ({k: v for k, v in sd.items() if not k.startswith(CSM_CODEC_PREFIX)},
+            {k[n:]: v for k, v in sd.items() if k.startswith(CSM_CODEC_PREFIX)})
+
+
+def load_csm_snapshot(local: str) -> Tuple[Dict, SD]:
+    """A transformers CSM snapshot directory -> (its config.json, the flat
+    state dict of model.safetensors or of the shards its
+    model.safetensors.index.json lists)."""
+    with open(os.path.join(local, "config.json")) as f:
+        cfg = json.load(f)
+    index = os.path.join(local, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            files = sorted(set(json.load(f)["weight_map"].values()))
+    else:
+        files = ["model.safetensors"]
+    flat: SD = {}
+    for name in files:
+        flat.update(load_flat_safetensors(os.path.join(local, name)))
+    return cfg, flat

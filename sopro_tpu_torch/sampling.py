@@ -152,6 +152,26 @@ def sample_full_vocab(
     return torch.where(degenerate, tok_g, tok_s)
 
 
+def gumbel_for_ids(key: torch.Tensor, v: int) -> torch.Tensor:
+    """Gumbel noise -log(-log(u)) for vocab ids 0..v-1, u from
+    `uniform_for_ids`: key [..., 2] -> [..., v] float32."""
+    ids = torch.arange(v, dtype=torch.int64, device=key.device)
+    return -torch.log(-torch.log(uniform_for_ids(key, ids)))
+
+
+def sample_topk(logits: torch.Tensor, gumbel: torch.Tensor, temperature: float,
+                top_k: int) -> torch.Tensor:
+    """`sample_full_vocab` without the repetition penalty and the nucleus:
+    temperature, top-k, Gumbel-max with noise keyed by vocab id (`gumbel`,
+    from `gumbel_for_ids`), the lowest id on a tie. The top-k set is every
+    logit at or above the k-th largest (Sesame's `sample_topk`), which is
+    the bisection's set wherever the k-th and (k+1)-th values lie farther
+    apart than its resolution. logits, gumbel [B, V] -> tok [B] int64."""
+    x = torch.nan_to_num(logits.float(), nan=-1e9, posinf=1e9, neginf=-1e9) / temperature
+    kth = torch.topk(x, min(int(top_k), x.shape[-1]), dim=-1).values[..., -1:]
+    return torch.argmax(torch.where(x >= kth, x + gumbel, float("-inf")), dim=-1)
+
+
 def history_member(hist: torch.Tensor, v: int) -> torch.Tensor:
     """[B, H] history -> [B, V] bool: ids present in the valid (>= 0) window."""
     member = torch.zeros((hist.shape[0], v + 1), dtype=torch.bool, device=hist.device)
