@@ -142,21 +142,37 @@ Phases (each raises, so the script exits non-zero, on failure):
    of both within the same tolerances; no kernel of K1-K5 launched; step
    ms (CUDA events), host ms, valid frames/s and peak memory per card
    beside the unsharded step timed in the same turn and phase 11's.
+16. CSM-1B (`csrc/csm_depth.cu`, K6: a frame's 31 depth passes and their
+   samples in one launch). K6 at CSM-1B's widths (random depth weights from
+   a seed, `bench_csm.depth_model`; top-k 50, temperature 0.9) against its
+   plain version (`ops/csm_depth.depth_plain`: the eager passes with
+   `sample_topk`) on 8 frames of the same noise: codes equal up to the
+   first decision whose score gap or top-k edge margin is under 1e-4,
+   forced-mode logits within 1e-5 of their peak, a second run bit for bit;
+   ms a frame of K6, of the plain passes and of the same passes replayed as
+   one CUDA graph (`bench_csm.LibraryGraph`, the library yardstick), and
+   the bound (`bench_csm.depth_bytes` over HBM's rate). Then `CsmTTS` at
+   the published widths (the benchmark's configuration and weights,
+   `cudabench/configs/csm-1b-fp32.json`), three 100-frame `synthesize`
+   requests, the counters zeroed before each and read after: one K6
+   launch a frame computed, K3 once, no Sopro kernel; a repeat equal bit
+   for bit; seconds, ms a frame, seconds of audio per second.
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}. Per kernel the record holds its
 launches in its path's counted run and per request of that run (K1, K2 and
 K4 also in the serve run, per session), its time,
 its plain version's, the library's (K2: einsum + argmax; K3 and K4: the
-stack as cuDNN convs, `bench_kernels.seanet_library`; K1 and K5: none), and
+stack as cuDNN convs, `bench_kernels.seanet_library`; K6: the passes as one
+CUDA graph; K1 and K5: none), and
 its bound (`bench_kernels.bound`: bytes over HBM's rate, or operations over
 the 3-pass TF32 rate for the tensor-core kernels K2, K3 and K4 and the fp32
-rate for K1 and K5); K2 also at 6, 187, 401 and 1,604 rows and at the
+rate for K1 and K5; K6's bytes, `bench_csm.depth_bytes`); K2 also at 6, 187, 401 and 1,604 rows and at the
 serve tick's window, K1 also at 1, 4, 7, 8, 16 and 32 serving rows (with
 its launch facts), K3 also at
 B = 4, K4 also at chunk 16, with errors against float64 plain versions.
 Each record's "bf16" entry holds the same keys for the kernel's bfloat16
 instantiation (launches from the bf16 path it belongs to; bounds at 2
-bytes an element and the bf16 tensor-core rate).
+bytes an element and the bf16 tensor-core rate); K6 has none.
 """
 
 from __future__ import annotations
@@ -187,6 +203,7 @@ KERNELS = {
     "nar_heads": ("sopro_tpu_torch/csrc/nar_heads.cu", "sopro_tpu/ops/pallas_nar.py:53"),
     "seanet": ("sopro_tpu_torch/csrc/seanet.cu", "sopro_tpu/codec/pallas_vocoder.py:353"),
     "seanet_chunk": ("sopro_tpu_torch/csrc/seanet.cu", "sopro_tpu/codec/pallas_vocoder.py:383"),
+    "csm_depth": ("sopro_tpu_torch/csrc/csm_depth.cu", "none: CSM is port-only"),
 }
 CHUNK = 6  # stream() default chunk, AR frames
 # K4 as the serving tick runs it: 8 rows, chunk 16 (32 rows at 25 Hz), rows at different ages
@@ -2702,6 +2719,128 @@ def drive_mesh(tts, ref, hop, sr):
     return out
 
 
+CSM_FRAMES = 100  # frames a CSM request, as the CSM cell asks
+CSM_REQUESTS = 3
+CSM_VOICE = (150, 40)  # a voice's frames and transcript ids, as the CSM cell's
+CSM_TEXTS = (16, 64, 128)  # text ids of the three requests
+
+
+@torch.inference_mode()
+def check_csm_depth(dev):
+    """Phase 16's K6 check at CSM-1B's widths (module docstring)."""
+    from cudabench.reference import csm as R
+    from sopro_tpu_torch import bench_csm as BC
+    from sopro_tpu_torch import sampling as S
+    from sopro_tpu_torch.models.csm import CsmConfig, KVCache
+    from sopro_tpu_torch.ops.csm_depth import DepthKernel, depth_plain
+
+    cfg, nf, t, k = CsmConfig(), 8, BC.TEMPERATURE, BC.TOP_K
+    q, v = cfg.num_codebooks, cfg.vocab_size
+    model = BC.depth_model(cfg, dev, SEED + 16)
+    cache = KVCache(cfg.depth, cfg.depth.max_position_embeddings, dev)
+    kernel = DepthKernel(model, cache)
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    noise = -torch.log(-torch.log(torch.rand((nf, q, v), generator=g, device=dev).clamp_(1e-7, 1 - 1e-7)))
+    hs = torch.randn((nf, 1, cfg.backbone.hidden_size), generator=g, device=dev)
+    c0s = torch.randint(0, v, (nf, 1), generator=g, device=dev)
+    out = torch.zeros((q,), dtype=torch.int64, device=dev)
+    k6 = lambda f, o: kernel(hs[f], c0s[f], o, noise=noise[f], temperature=t, top_k=k)
+    got, again, plain = (torch.zeros((nf, q), dtype=torch.int64, device=dev) for _ in range(3))
+    near = []
+    for f in range(nf):
+        k6(f, got[f])
+
+        def pick(i, x, f=f):
+            _, gap, _, margin, _ = R.sample(x, noise[f, i: i + 1], t, k)
+            near.append(min(float(gap[0]), float(margin[0])) < 1e-4)
+            return S.sample_topk(x, noise[f, i: i + 1], t, k)
+        depth_plain(model, cache, hs[f], c0s[f], pick, plain[f])
+    for f in range(nf):
+        k6(f, again[f])
+    if not torch.equal(again, got):
+        raise AssertionError("K6: a second run gave other codes")
+    first = near.index(True) if True in near else len(near)
+    agree = got[:, 1:].flatten()[:first] == plain[:, 1:].flatten()[:first]
+    if not bool(agree.all()):
+        raise AssertionError(f"K6: codes differ from the plain passes' at decision "
+                             f"{int((~agree).nonzero()[0])}, before the first near-tie ({first})")
+    err = rel = 0.0
+    for f in range(nf):
+        forced, lg, want = plain[f, 1:].contiguous(), torch.zeros((q - 1, v), device=dev), []
+        kernel(hs[f], c0s[f], out, forced=forced, logits=lg)
+        depth_plain(model, cache, hs[f], c0s[f], lambda i, x: (want.append(x[0]), forced[i - 1: i])[1], out)
+        d = float((lg - torch.stack(want)).abs().max())
+        err, rel = max(err, d), max(rel, d / float(torch.stack(want).abs().max()))
+    if rel > 1e-5:
+        raise AssertionError(f"K6: forced logits {rel:.3e} of their peak from the plain passes'")
+    graph = BC.LibraryGraph(model, cache, noise)
+    step = iter(range(10 ** 9))
+    ms = cuda_ms(lambda: k6(next(step) % nf, out), 30)
+    library = cuda_ms(lambda: graph(hs[0], c0s[0], noise[0], out), 30)
+    plain_ms = cuda_ms(lambda: depth_plain(model, cache, hs[0], c0s[0], lambda i, x: S.sample_topk(
+        x, noise[0, i: i + 1], t, k), out), 3)
+    bound = BC.depth_bytes(cfg) / BC.HBM * 1e3
+    log(f"  K6 codes equal the plain passes' over {first} of {len(near)} decisions (first "
+        f"near-tie: {first}), a repeat bit for bit; forced logits max|err| {err:.3e}, {rel:.3e} of "
+        f"their peak")
+    log(f"  K6 {ms:.3f} ms a frame, plain {plain_ms:.3f}, library graph {library:.3f}, bound "
+        f"{bound:.3f} ({100 * bound / ms:.1f} % of it)")
+    return {"max_abs_err": err, "logits_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": library,
+            "codes_equal_until": first, "decisions": len(near)}
+
+
+def drive_csm(dev, rng, cfg):
+    """Phase 16's `CsmTTS.synthesize` run (module docstring) on the
+    benchmark's configuration `cfg` (its JSON)."""
+    from cudabench.families import csm as FAM
+    from cudabench import weights as CW
+    from cudabench.run import SeededTokenizer
+    from sopro_tpu_torch import kernels
+    from sopro_tpu_torch.csm_engine import EOS_EVERY
+
+    vocab, tok = int(cfg["text_vocab"]), SeededTokenizer(int(cfg["text_vocab"]))
+    t0 = time.perf_counter()
+    tts = FAM.build(cfg, CW.make(FAM.specs(cfg), SEED + 18, dev), dev, tok)
+    log(f"  CsmTTS at the published widths: {time.perf_counter() - t0:.2f} s")
+    q, hop = tts.engine.cfg.num_codebooks, tts.hop_length
+    sr = tts.engine.mimi.cfg.sampling_rate
+    frames, words = CSM_VOICE
+    ref = tts.prepare_reference(ref_tokens_tq=rng.integers(0, int(cfg["mimi"]["codebook_size"]), (frames, q)),
+                                transcript_ids=FAM.segment_ids(rng.integers(0, vocab, words), cfg))
+    tts.synthesize(tok.add(rng.integers(0, vocab, 8)), ref=ref, max_frames=8, seed=0)
+    torch.cuda.synchronize()
+    texts = [tok.add(rng.integers(0, vocab, n)) for n in CSM_TEXTS]
+    out = {"launches": 0, "frames": [], "seconds": [], "k6_launches": []}
+    for i, text in enumerate(texts):
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        wav = tts.synthesize(text, ref=ref, max_frames=CSM_FRAMES, seed=SEED + 100 + i)
+        sec = time.perf_counter() - t1
+        n = launched("CSM synthesize", ("csm_depth", "seanet"))
+        frames = wav.shape[1] // hop
+        if wav.shape != (1, frames * hop) or not np.isfinite(wav).all():
+            raise AssertionError(f"CsmTTS.synthesize: bad waveform {wav.shape}")
+        computed = CSM_FRAMES if frames == CSM_FRAMES else None
+        ok = (n["csm_depth"] == computed if computed else
+              frames < n["csm_depth"] <= min(CSM_FRAMES, frames + EOS_EVERY + 1))
+        if not ok or n["seanet"] != 1 or any(n[x] for x in ("ar_loop", "ar_step", "nar_heads", "seanet_chunk")):
+            raise AssertionError(f"CsmTTS.synthesize: launches {n} for {frames} frames")
+        out["frames"].append(frames)
+        out["seconds"].append(sec)
+        out["k6_launches"].append(n["csm_depth"])
+        out["launches"] += n["csm_depth"]
+        log(f"  request {i}: {frames} frames, {frames * hop / sr:.2f} s of audio in {sec:.3f} s "
+            f"({1e3 * sec / frames:.2f} ms a frame)")
+    again = tts.synthesize(texts[0], ref=ref, max_frames=CSM_FRAMES, seed=SEED + 100)
+    first = tts.synthesize(texts[0], ref=ref, max_frames=CSM_FRAMES, seed=SEED + 100)
+    if not np.array_equal(again, first):
+        raise AssertionError("CsmTTS.synthesize: a repeated request gave a different waveform")
+    out["audio_s_per_s"] = sum(out["frames"]) * hop / sr / sum(out["seconds"])
+    log(f"  {out['audio_s_per_s']:.3f} s of audio per second; a repeat bit for bit")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2773,16 +2912,25 @@ def main() -> int:
     tp_out = drive_tp(train_tree, train_host, cfg, train)
     log(f"  tp summary: {json.dumps(tp_out)}")
     del train_tree, train_host
+    log("[16] CSM-1B: K6 against its plain version, CsmTTS.synthesize x3")
+    stats["csm_depth"] = check_csm_depth(dev)
+    torch.cuda.empty_cache()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "cudabench", "configs",
+                           "csm-1b-fp32.json")) as f:
+        csm = drive_csm(dev, rng, json.load(f))
+    stats["csm_depth"].update(frames=csm["frames"], request_s=csm["seconds"],
+                              audio_s_per_s=csm["audio_s_per_s"])
 
     # each kernel's count from the path it belongs to (K4: the stream, K5: the per-step
     # route), and per request of that path's counted run
     launches = dict(synth_launches, seanet_chunk=stream_launches["seanet_chunk"],
-                    ar_step=step_launches["ar_step"])
+                    ar_step=step_launches["ar_step"], csm_depth=csm["launches"])
     requests = dict({name: len(REQUESTS) for name in KERNELS},
-                    seanet_chunk=len(STREAM_REQUESTS), ar_step=PER_STEP_REQUESTS)
+                    seanet_chunk=len(STREAM_REQUESTS), ar_step=PER_STEP_REQUESTS, csm_depth=CSM_REQUESTS)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("bound_rate", "fp32_bound_ms", "err_f64", "plain_err_f64", "by_rows", "B4",
-             "chunk16", "serve_b8", "err_f64_worst", "us_per_step", "first_diff_production")
+             "chunk16", "serve_b8", "err_f64_worst", "us_per_step", "first_diff_production",
+             "logits_rel_err", "codes_equal_until", "decisions", "frames", "request_s", "audio_s_per_s")
     for name in ("ar_loop", "nar_heads", "seanet_chunk"):
         n = serve["launches"][name]
         stats[name].update(serve_launches=n, serve_launches_per_session=n / serve["sessions"])
@@ -2798,7 +2946,7 @@ def main() -> int:
                          ar_step=bf16_paths["per_step"]["ar_step"])
     bf16_extra = ("bound_rate", "design_bound_ms", "by_rows", "B4", "chunk16", "serve_b8",
                   "us_per_step", "first_diff", "state_logit_err", "serve_rows")
-    for name in KERNELS:
+    for name in bf16_stats:
         s16 = bf16_stats[name]
         stats[name]["bf16"] = dict(launches=bf16_launches[name], **{k: s16[k] for k in keys},
                                    **{k: s16[k] for k in bf16_extra if k in s16})

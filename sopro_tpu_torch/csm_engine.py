@@ -16,15 +16,12 @@ under the frame's key; vocab id v's uniform the block at counters (v, 0)
 under the codebook's key (`sampling.gumbel_for_ids`). All of a call's
 Gumbel noise is drawn in `csm.prepare`, so the frame loop only adds it.
 
-On the card a frame's 31 depth passes and their samples run as one CUDA
-graph (`DepthGraph`, one per temperature and top-k), replayed once a frame;
-the backbone step stays eager (its cache grows a position a frame). The CPU
-runs the same passes eagerly, and so does the card while torch.profiler
-runs: stopping the profiler in one thread while another replays a graph
-hung the process in CUPTI on an H100 (CUDA 12.8, torch 2.11; three
-traced runs of three, the stop in `_disable_profiler`, the replay in
-`CUDAGraph.replay`). Both run the same kernels on the same buffers, so the
-codes are the same.
+A frame's 31 depth passes and their samples are one call of
+`ops/csm_depth.csm_depth`: on the card one launch of kernel K6, which
+streams the depth weights through every pass and samples in the kernel, with
+or without a profiler; on the CPU the same passes eagerly (`_depth`,
+`ops/csm_depth.depth_plain`) with `sampling.sample_topk`. The backbone step
+stays eager (its cache grows a position a frame).
 
 The host reads "an end frame was sampled" once every `EOS_EVERY` frames,
 the one wait for the card inside the frame loop: it stops within
@@ -34,16 +31,16 @@ dropped.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.autograd import profiler as _autograd_profiler
 
 from sopro_tpu_torch import sampling as S
 from sopro_tpu_torch.codec.mimi import MimiCodec
 from sopro_tpu_torch.engine import configure_cuda_numerics
 from sopro_tpu_torch.models.csm import CsmModel, KVCache
+from sopro_tpu_torch.ops.csm_depth import DepthKernel, csm_depth, depth_plain
 from sopro_tpu_torch.profiling import span
 
 NOISE_BLOCK = 64  # frames of Gumbel noise drawn per Threefry call
@@ -87,7 +84,7 @@ class CsmEngine:
         if self.device.type == "cuda":
             configure_cuda_numerics()
         self._caches: Optional[Tuple[KVCache, KVCache]] = None
-        self._graphs: Dict[Tuple[float, int], "DepthGraph"] = {}
+        self._kernel: Optional[DepthKernel] = None
 
     def caches(self) -> Tuple[KVCache, KVCache]:
         """The backbone's cache (its whole context) and the depth decoder's
@@ -127,37 +124,38 @@ class CsmEngine:
             out[f0: f0 + len(f)] = S.gumbel_for_ids(torch.stack(ck, -1), v)
         return out
 
+    def depth_kernel(self) -> Optional[DepthKernel]:
+        """K6's launch over the model and the depth cache on a CUDA device
+        (made at first use); None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        if self._kernel is None:
+            self._kernel = DepthKernel(self.model, self.caches()[1])
+        return self._kernel
+
     def _depth(self, h: torch.Tensor, c: torch.Tensor,
                pick: Callable[[int, torch.Tensor], torch.Tensor], out: torch.Tensor) -> None:
-        """One frame's depth passes after the backbone's last hidden state h
-        [1, D] and codebook 0's code c [1]: `pick(i, logits [1, V])` gives
-        codebook i's code; the frame's codes go to `out` [Q]."""
-        m, dc = self.model, self.caches()[1]
-        frame = [c]
-        dc.reset()
-        x = torch.cat([h, m.depth_input(0, c)])
-        for i in range(1, self.cfg.num_codebooks):
-            c = pick(i, m.codebook_logits(i, m.depth(x, dc)))
-            frame.append(c)
-            x = m.depth_input(i, c)
-        torch.cat(frame, out=out)
+        """One frame's depth passes eagerly (`depth_plain`) after the
+        backbone's last hidden state h [1, D] and codebook 0's code c [1]:
+        `pick(i, logits [1, V])` gives codebook i's code; the frame's codes
+        go to `out` [Q]."""
+        depth_plain(self.model, self.caches()[1], h, c, pick, out)
 
     def _frames(self, tokens: torch.Tensor, mask: torch.Tensor, max_frames: int,
                 pick: Callable[[int, int, torch.Tensor], torch.Tensor],
                 stop: Callable[[torch.Tensor, int], bool],
-                depth: Optional[Callable] = None) -> Tuple[torch.Tensor, int]:
-        """The frame loop over the prompt: `pick(f, i, logits [1, V])` gives
-        codebook i's code [1] of frame f, `stop(codes, f)` after frame f says
-        whether to end; `depth(f, h, c, out)` runs a frame's depth passes
-        (by default `_depth` with `pick`). -> (codes [max_frames, Q] int64,
-        frames computed)."""
+                depth: Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor], None]
+                ) -> Tuple[torch.Tensor, int]:
+        """The frame loop over the prompt: `pick(f, 0, logits [1, V])` gives
+        codebook 0's code [1] of frame f, `depth(f, h, c, out)` runs the
+        frame's depth passes and writes its codes to `out` [Q], `stop(codes,
+        f)` after frame f says whether to end. -> (codes [max_frames, Q]
+        int64, frames computed)."""
         m, q, dev = self.model, self.cfg.num_codebooks, self.device
         room = self.cfg.backbone.max_position_embeddings - tokens.shape[0]
         if max_frames < 1 or max_frames > room:
             raise ValueError(f"max_frames {max_frames}: the prompt of {tokens.shape[0]} positions "
                              f"leaves room for 1..{room} frames")
-        if depth is None:
-            depth = lambda f, h, c, out: self._depth(h, c, lambda i, x: pick(f, i, x), out)
         bc = self.caches()[0]
         bc.reset()
         codes = torch.zeros((max_frames, q), dtype=torch.int64, device=dev)
@@ -194,15 +192,9 @@ class CsmEngine:
         with span("csm.prepare"):
             noise = self.gumbel(seed, max_frames)
         sample = lambda f, i, logits: S.sample_topk(logits, noise[f, i: i + 1], temperature, top_k)
-        key = (float(temperature), int(top_k))
-
-        def depth(f, h, c, out):
-            if self.device.type != "cuda" or _autograd_profiler._is_profiler_enabled:
-                self._depth(h, c, lambda i, x: sample(f, i, x), out)  # module docstring
-                return
-            if key not in self._graphs:
-                self._graphs[key] = DepthGraph(self, *key)
-            self._graphs[key](h, c, noise[f], out)
+        m, dc, kernel = self.model, self.caches()[1], self.depth_kernel()
+        depth = lambda f, h, c, out: csm_depth(m, dc, h, c, out, noise=noise[f], temperature=temperature,
+                                               top_k=top_k, kernel=kernel)
         return self._frames(tokens, mask, max_frames, sample, self._eos_poll(), depth)
 
     @torch.inference_mode()
@@ -230,44 +222,14 @@ class CsmEngine:
         0's logits [F, V] (prefill, then backbone steps through the cache) and
         codebooks 1..Q-1's [F, Q - 1, V] (depth passes through theirs)."""
         n, q = codes.shape
+        codes = codes.to(self.device)
         logits = torch.zeros((n, q, self.cfg.vocab_size), device=self.device)
+        m, dc, kernel = self.model, self.caches()[1], self.depth_kernel()
 
         def keep(f, i, x):
             logits[f, i] = x[0]
             return codes[f, i: i + 1]
-        self._frames(tokens, mask, n, keep, lambda c, f: False)
+        depth = lambda f, h, c, out: csm_depth(m, dc, h, c, out, forced=codes[f, 1:],
+                                               logits=logits[f, 1:], kernel=kernel)
+        self._frames(tokens, mask, n, keep, lambda c, f: False, depth)
         return logits[:, 0], logits[:, 1:]
-
-
-class DepthGraph:
-    """`CsmEngine._depth` with its samples, captured once as a CUDA graph over
-    static inputs (the backbone's last hidden state, codebook 0's code, the
-    frame's Gumbel noise) at one temperature and top-k, and replayed once a
-    frame: the same kernels on the same buffers, one launch in place of
-    ~2,300. The depth cache's positions are the same every frame, so the
-    captured passes write and read it as the eager ones do."""
-
-    def __init__(self, engine: CsmEngine, temperature: float, top_k: int):
-        cfg, dev = engine.cfg, engine.device
-        self.h = torch.zeros((1, cfg.backbone.hidden_size), device=dev)
-        self.c0 = torch.zeros((1,), dtype=torch.int64, device=dev)
-        self.noise = torch.zeros((cfg.num_codebooks, cfg.vocab_size), device=dev)
-        self.codes = torch.zeros((cfg.num_codebooks,), dtype=torch.int64, device=dev)
-        pick = lambda i, x: S.sample_topk(x, self.noise[i: i + 1], temperature, top_k)
-        run = lambda: engine._depth(self.h, self.c0, pick, self.codes)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            run()  # cuBLAS and SDPA set themselves up outside the capture
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            run()
-
-    def __call__(self, h: torch.Tensor, c0: torch.Tensor, noise: torch.Tensor,
-                 out: torch.Tensor) -> None:
-        self.h.copy_(h)
-        self.c0.copy_(c0)
-        self.noise.copy_(noise)
-        self.graph.replay()
-        out.copy_(self.codes)

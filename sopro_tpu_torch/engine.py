@@ -529,7 +529,7 @@ class Engine:
         nothing. `text_len` and `max_frames` are capped at what the
         config's position tables hold (`max_text_len`, `pos_emb_max` + 7)."""
         if self.device.type == "cuda":
-            kernels.build()
+            kernels.build(kernels.SOPRO_SOURCES)
         ref = self.prepare_reference(
             np.zeros((int(12.0 * self.cfg.mimi_fps), int(self.cfg.num_codebooks)), np.int32))
         ids = np.ones((min(int(text_len), int(self.cfg.max_text_len)),), np.int32)

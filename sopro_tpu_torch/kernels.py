@@ -10,7 +10,9 @@ turns into an exception.
 
 `KERNELS` names the kernels, each counted on its own; `SOURCES` the files
 they are built from (K1 `ar_loop` and K5 `ar_step` share `ar_loop.cu`, K3
-`seanet` and K4 `seanet_chunk` share `seanet.cu`).
+`seanet` and K4 `seanet_chunk` share `seanet.cu`; K6 `csm_depth`, CSM's
+depth passes, is `csm_depth.cu`). `SOPRO_SOURCES` are the ones Sopro's
+paths run, which its warm-up builds; K6 is built at CSM's first use.
 `LAUNCHES` counts, per kernel, the wrapper calls that launched its float32
 instantiation on the device, `LAUNCHES_BF16` those of its bfloat16
 instantiation (`count(name, dtype)`; `LAUNCHES_BY_DTYPE` maps the dtype
@@ -37,8 +39,9 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("ar_loop", "ar_step", "nar_heads", "seanet", "seanet_chunk")
-SOURCES = ("ar_loop", "nar_heads", "seanet")
+KERNELS = ("ar_loop", "ar_step", "nar_heads", "seanet", "seanet_chunk", "csm_depth")
+SOPRO_SOURCES = ("ar_loop", "nar_heads", "seanet")
+SOURCES = SOPRO_SOURCES + ("csm_depth",)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

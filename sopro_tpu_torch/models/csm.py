@@ -24,6 +24,8 @@ and gate/up each stacked into one matrix: `text_embed` [Vt, D],
 `audio_embed` [Q * V, D], `lm_head` [V, D], `backbone` and `depth`
 (`layers`, `norm`; the depth decoder's `proj` [d, D]), `heads` [Q - 1, d,
 V]. `hub.csm_params_from_flat` converts transformers' names into it.
+`CsmModel` holds the heads as rows, [Q - 1, V, d]: a logit's weights
+contiguous, as kernel K6 (`ops/csm_depth.py`) streams them.
 """
 
 from __future__ import annotations
@@ -174,11 +176,11 @@ def decoder(p: Dict[str, Any], cfg: TransformerConfig, rope: Rope, x: torch.Tens
 
 
 class CsmModel(ParamModule):
-    """CSM's parameters (the tree of the module docstring) with the two
-    transformers' RoPE tables; inference only."""
+    """CSM's parameters (the tree of the module docstring, the heads as
+    rows) with the two transformers' RoPE tables; inference only."""
 
     def __init__(self, tree: Dict[str, Any], cfg: CsmConfig):
-        super().__init__(tree, trainable=False)
+        super().__init__(dict(tree, heads=tree["heads"].transpose(1, 2).contiguous()), trainable=False)
         self.cfg = cfg
         self._ropes: Optional[List[Rope]] = None
 
@@ -236,5 +238,5 @@ class CsmModel(ParamModule):
     def codebook_logits(self, codebook: int, h: torch.Tensor) -> torch.Tensor:
         """Codebook `codebook` (>= 1)'s logits from the depth decoder's hidden
         state at its position."""
-        return h @ self.p["heads"][codebook - 1]
+        return h @ self.p["heads"][codebook - 1].t()
 

@@ -4,9 +4,11 @@ the cached one-position decoding of both transformers against the
 reference's full forward, the depth cache started afresh every frame, the
 sampler's noise and tokens, a whole `CsmTTS.synthesize` call, the `hub`
 converter and a snapshot, the shared RoPE helper's llama3 scaling, and the
-reference itself against transformers' `CsmForConditionalGeneration`. On
-the card (`cuda`): the depth passes' CUDA graph against the eager passes and
-its rows in a trace, and the teacher-forced logits at the published widths.
+reference itself against transformers' `CsmForConditionalGeneration`; the
+depth wrapper (`ops/csm_depth.py`) on CPU tensors, the widths kernel K6
+takes, the heads held as rows. On the card (`cuda`): K6 against the eager passes,
+run twice and under a profiler, its forced mode's picks and logits, and the
+teacher-forced logits at the published widths.
 
 Tolerances. Logits: 1e-5 of their largest magnitude. Both sides compute in
 float32 with other kernels and orders (SDPA and fused norms against plain
@@ -17,6 +19,7 @@ rounding through the Mimi decoder. Noise and tokens: exact (the same
 Threefry bits; the sampled ids where no score gap is within 1e-4).
 """
 
+import dataclasses
 import json
 import os
 
@@ -29,10 +32,12 @@ from cudabench.families import csm as FAM
 from cudabench.reference import csm as R
 from cudabench.reference.precision import Precision
 from sopro_tpu_torch import hub as H
+from sopro_tpu_torch import kernels
 from sopro_tpu_torch import sampling as S
 from sopro_tpu_torch.codec.mimi_config import MimiConfig
 from sopro_tpu_torch.csm import CsmTTS
 from sopro_tpu_torch.models.csm import CsmConfig
+from sopro_tpu_torch.ops import csm_depth as K6
 from sopro_tpu_torch.ops.rope import inv_freq
 
 ROPE = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
@@ -293,6 +298,123 @@ def test_reference_matches_transformers(sds):
             _close(ref.codebook(i, torch.stack(inputs)[None])[0], dd[i - 1])
 
 
+def _frame_inputs(tts, seed):
+    """A backbone state h [1, D], codebook 0's code, a frame's noise [Q, V]
+    and forced codes [Q - 1] on the engine's device."""
+    eng, rng = tts.engine, np.random.default_rng(seed)
+    dev, cfg = eng.device, eng.cfg
+    h = torch.from_numpy(rng.standard_normal((1, cfg.backbone.hidden_size)).astype(np.float32)).to(dev)
+    c0 = torch.tensor([int(rng.integers(1, cfg.vocab_size))], device=dev)
+    forced = torch.from_numpy(rng.integers(1, cfg.vocab_size, cfg.num_codebooks - 1)).to(dev)
+    return h, c0, eng.gumbel(2 ** 31 + seed, 1)[0], forced
+
+
+def _eager_frame(eng, h, c0, noise=None, forced=None):
+    """The eager passes (`_depth`) with `sample_topk` on `noise`, or fed
+    `forced`: (codes [Q], logits [Q - 1, V])."""
+    q = eng.cfg.num_codebooks
+    out = torch.zeros(q, dtype=torch.int64, device=h.device)
+    logits = []
+
+    def pick(i, x):
+        logits.append(x[0].clone())
+        return S.sample_topk(x, noise[i: i + 1], 0.9, 5) if forced is None else forced[i - 1: i]
+    eng._depth(h, c0, pick, out)
+    return out, torch.stack(logits)
+
+
+def test_depth_wrapper_on_cpu_tensors_takes_the_eager_passes(tts):
+    """On CPU tensors `csm_depth` runs `_depth` with `sample_topk`: the same
+    codes as the eager passes on the same noise; forced, the eager passes'
+    logits, the forced codes fed forward and, with noise, `sample_topk`'s
+    picks of those logits. Nothing counts as a K6 launch."""
+    eng = tts.engine
+    m, dc = eng.model, eng.caches()[1]
+    kernels.reset_launches()
+    with torch.inference_mode():
+        for seed in (0, 1, 2):
+            h, c0, noise, forced = _frame_inputs(tts, seed)
+            want, _ = _eager_frame(eng, h, c0, noise=noise)
+            got = torch.zeros_like(want)
+            K6.csm_depth(m, dc, h, c0, got, noise=noise, temperature=0.9, top_k=5)
+            assert torch.equal(got, want)
+            fed, want_logits = _eager_frame(eng, h, c0, forced=forced)
+            lg = torch.zeros_like(want_logits)
+            out = torch.zeros_like(want)
+            K6.csm_depth(m, dc, h, c0, out, forced=forced, logits=lg)
+            assert torch.equal(lg, want_logits) and torch.equal(out, fed)
+            assert torch.equal(out[1:], forced) and int(out[0]) == int(c0)
+            K6.csm_depth(m, dc, h, c0, out, noise=noise, temperature=0.9, top_k=5, forced=forced,
+                         logits=lg)
+            assert torch.equal(lg, want_logits)
+            picks = [int(S.sample_topk(lg[i - 1: i], noise[i: i + 1], 0.9, 5)) for i in range(1, 4)]
+            assert out.tolist() == [int(c0)] + picks
+            assert dc.filled == 4
+        with pytest.raises(ValueError, match="noise, its forced codes"):
+            K6.csm_depth(m, dc, h, c0, out)
+    assert kernels.LAUNCHES["csm_depth"] == 0
+
+
+def _widths(backbone=None, top=None, **depth):
+    """CSM-1B's CsmConfig with depth-decoder fields, backbone fields or its
+    own changed."""
+    cfg = CsmConfig()
+    return dataclasses.replace(cfg, depth=dataclasses.replace(cfg.depth, **depth),
+                               backbone=dataclasses.replace(cfg.backbone, **(backbone or {})),
+                               **(top or {}))
+
+
+@pytest.mark.parametrize("cfg,top_k,why", [
+    (_widths(), 50, None),
+    (CsmConfig.from_dict(CSM), 5, None),
+    (_widths(), 10 ** 6, None),  # past V: the whole vocabulary, as sample_topk
+    (_widths(), 0, "top_k 0"),
+    (_widths(head_dim=126), 50, "head_dim 126"),
+    (_widths(hidden_size=1000), 50, "depth hidden_size 1000"),
+    (_widths(hidden_size=2560, num_attention_heads=20, num_key_value_heads=4), 50,
+     "depth hidden_size 2560"),
+    (_widths(top={"vocab_size": 4100}), 50, "vocab_size 4100"),
+    (_widths(intermediate_size=8704), 50, "depth intermediate_size 8704"),
+    (_widths(intermediate_size=4096 + 4), 50, "depth intermediate_size 4100"),
+    (_widths(backbone={"hidden_size": 24}), 50, "backbone hidden_size 24"),
+    (_widths(num_hidden_layers=9), 50, "9 depth layers"),
+    (_widths(num_attention_heads=8, num_key_value_heads=3), 50, "kv heads"),
+    (_widths(top={"num_codebooks": 40}), 50, "40 codebooks"),
+    (_widths(num_key_value_heads=8), 50, "bytes of shared memory"),
+])
+def test_k6_width_checks_name_what_they_refuse(cfg, top_k, why):
+    """`widths_problem` is a pure function of the widths: None where K6
+    takes them (CSM-1B, the toy config above), else what it refuses, which
+    `check_widths` raises. CSM-1B's block fits the H100's shared memory."""
+    got = K6.widths_problem(cfg, top_k)
+    if why is None:
+        assert got is None and K6.smem_bytes(cfg) <= K6.MAX_SMEM
+        K6.check_widths(cfg, top_k)
+    else:
+        assert got is not None and why in got, got
+        with pytest.raises(ValueError, match="csm_depth: "):
+            K6.check_widths(cfg, top_k)
+    assert K6.smem_bytes(CsmConfig()) == 227904 and K6.work_floats(CsmConfig()) == 23559
+
+
+def test_packed_heads_give_the_same_logits(tts, sds):
+    """The model holds the codebook heads as rows [Q - 1, V, d], as K6
+    streams them: the converter's [Q - 1, d, V] (transformers' layout)
+    transposed. Its `codebook_logits` equal each row dotted with the hidden
+    state (in float64, in the kernel's row-by-row shape) and the product in
+    transformers' layout."""
+    m = tts.engine.model
+    heads = torch.as_tensor(H.csm_params_from_flat(sds[0], CsmConfig.from_dict(CSM))["heads"])
+    packed = m.p["heads"]
+    assert packed.is_contiguous() and packed.shape == (3, 67, 32)
+    assert torch.equal(packed.transpose(1, 2), heads)
+    h = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 32)).astype(np.float32))
+    for i in range(1, 4):
+        rows = (packed[i - 1].double() * h.double()).sum(-1)
+        _close(m.codebook_logits(i, h)[0], rows, rel=1e-6)
+        _close(m.codebook_logits(i, h), h @ heads[i - 1], rel=1e-6)
+
+
 @pytest.fixture(scope="module")
 def card():
     if not torch.cuda.is_available():
@@ -300,66 +422,109 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-def test_depth_graph_samples_as_the_eager_passes(sds, card):
-    """On the card the depth passes run as one CUDA graph a frame, and
-    eagerly under a profiler: the same codes either way. A graph replayed
-    under a profiler in the calling thread reaches the trace as one graph
-    launch and the same rows every time (`cudabench/spans_csm.py`)."""
-    from cudabench import spans, spans_csm, trace
-    from sopro_tpu_torch import csm_engine as E
+def _card_tts(sds, card):
+    return CsmTTS.from_state_dicts(*sds, CsmConfig.from_dict(CSM), MimiConfig.from_dict(MIMI),
+                                   device=card, tokenizer=FAM.SegmentTokenizer(_Seeded(), CFG))
 
-    tts = CsmTTS.from_state_dicts(*sds, CsmConfig.from_dict(CSM), MimiConfig.from_dict(MIMI),
-                                  device=card, tokenizer=FAM.SegmentTokenizer(_Seeded(), CFG))
+
+@pytest.mark.cuda
+def test_k6_samples_as_the_eager_passes(sds, card):
+    """On the card each frame's depth passes are one K6 launch. Its codes
+    equal the eager passes' (`_depth`: cuBLAS, SDPA, `sample_topk`) on the
+    same noise up to the first near-tied decision (a kept top-two score gap,
+    or the top-k edge's margin, under 1e-4: float32 sums in another order
+    may resolve it either way). Two K6 calls, and one under torch.profiler,
+    give the same codes bit for bit; the profiled one shows one K6 launch
+    in each `csm.depth` span and nothing else launched there (no cuBLAS or
+    SDPA row), and one K6 row a frame on the card."""
+    from cudabench import trace
+
+    tts = _card_tts(sds, card)
     eng = tts.engine
     voice, ids = _prompt(seed=13)
     r = eng.prepare_reference(voice.transcript_ids, voice.codes)
     kw = dict(max_frames=20, seed=2 ** 31 + 5, temperature=0.9, top_k=5)
-    graphed, n = eng.generate(*eng.prompt(ids, r), **kw)
-    assert len(eng._graphs) == 1 and n == 20
+    kernels.reset_launches()
+    k6, n = eng.generate(*eng.prompt(ids, r), **kw)
+    assert n == 20 and kernels.LAUNCHES["csm_depth"] == n
+    near = []
     with torch.inference_mode():
         noise = eng.gumbel(kw["seed"], 20)
-        eager, _ = eng._frames(*eng.prompt(ids, r), 20,
-                               lambda f, i, x: S.sample_topk(x, noise[f, i: i + 1], 0.9, 5),
-                               lambda c, f: False)
-    assert torch.equal(graphed, eager)
-    again, _ = eng.generate(*eng.prompt(ids, r), **kw)  # the graph replayed for a second call
-    assert torch.equal(again, graphed) and len(eng._graphs) == 1
+
+        def pick(f, i, x):
+            _, gap, _, margin, _ = R.sample(x, noise[f, i: i + 1], 0.9, 5)
+            near.append(min(float(gap[0]), float(margin[0])) < 1e-4)
+            return S.sample_topk(x, noise[f, i: i + 1], 0.9, 5)
+        eager, _ = eng._frames(*eng.prompt(ids, r), 20, pick, lambda c, f: False,
+                               lambda f, h, c, out: eng._depth(h, c, lambda i, x: pick(f, i, x), out))
+    first = near.index(True) if True in near else len(near)
+    assert first > 0 and torch.equal(k6.flatten()[:first], eager.flatten()[:first]), (first, near)
+    again, _ = eng.generate(*eng.prompt(ids, r), **kw)
+    assert torch.equal(again, k6)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts):
-        profiled, _ = eng.generate(*eng.prompt(ids, r), **kw)  # eager passes under a profiler
+    kernels.reset_launches()
+    with torch.profiler.profile(activities=acts) as prof:
+        profiled, _ = eng.generate(*eng.prompt(ids, r), **kw)
         torch.cuda.synchronize()
-    assert torch.equal(profiled, graphed)
-    graph = eng._graphs[(0.9, 5)]
-    assert isinstance(graph, E.DepthGraph)
-    with torch.inference_mode(), torch.profiler.profile(activities=acts) as prof:
-        replayed, _ = eng._frames(*eng.prompt(ids, r), 20,
-                                  lambda f, i, x: S.sample_topk(x, noise[f, i: i + 1], 0.9, 5),
-                                  lambda c, f: False,
-                                  lambda f, h, c, out: graph(h, c, noise[f], out))
-        torch.cuda.synchronize()
-    assert torch.equal(replayed, graphed)
+    assert torch.equal(profiled, k6) and kernels.LAUNCHES["csm_depth"] == 20
     tr = trace.collect(prof)
-    host = [n for _, n in sorted((a, n) for n, a, _ in tr["host"])
-            if n.startswith(spans.WORK + spans_csm.GRAPH)]
-    dev = [n for _, n in sorted((a, n) for n, a, *_ in tr["kernels"])]
-    hk, dk = spans_csm._kinds(host), spans_csm._kinds(dev)
-    replays = int((hk == spans_csm.REPLAY).sum())
-    assert replays == 20
-    rows, s = spans_csm.pairing(hk, dk)
-    assert s == 0 and len(dk) == len(hk) - replays + replays * rows
+    spans = [(a, b) for name, a, b in tr["host"] if name == "csm.depth"]
+    assert len(spans) == 20
+    for a, b in spans:
+        inside = [name for name, x, _ in tr["host"] if a < x < b]
+        launches = [x for x in inside if x.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+        assert len(launches) == 1, inside
+        assert not [x for x in inside if any(w in x.lower() for w in
+                                              ("mm", "gemv", "cublas", "scaled_dot", "attention"))]
+    rows = [name for name, *_ in tr["kernels"] if "csm_depth_kernel" in name]
+    assert len(rows) == 20, sorted({name for name, *_ in tr["kernels"]})
+
+
+@pytest.mark.cuda
+def test_k6_forced_picks_are_sample_topk_of_its_logits(sds, card):
+    """K6 forced (teacher forcing, with the frame's noise): its logits are
+    the eager forced passes' within 1e-5 of their peak, repeat bit for bit,
+    and its picks are `sample_topk` of its own logits on the same noise, bit
+    for bit (on the CPU, whose division by the temperature is IEEE's, as
+    K6's). The shared memory it launches with is `smem_bytes`'s. CUDA
+    tensors without the engine's `DepthKernel` raise."""
+    tts = _card_tts(sds, card)
+    eng = tts.engine
+    m, dc, kernel = eng.model, eng.caches()[1], eng.depth_kernel()
+    assert kernel._args.Q == 4
+    with torch.inference_mode():
+        for seed in range(6):
+            h, c0, noise, forced = _frame_inputs(tts, seed)
+            _, want = _eager_frame(eng, h, c0, forced=forced)
+            out = torch.zeros(4, dtype=torch.int64, device=card)
+            lg = torch.zeros_like(want)
+            K6.csm_depth(m, dc, h, c0, out, noise=noise, temperature=0.9, top_k=5, forced=forced,
+                         logits=lg, kernel=kernel)
+            _close(lg, want)
+            out2, lg2 = torch.zeros_like(out), torch.zeros_like(lg)
+            K6.csm_depth(m, dc, h, c0, out2, noise=noise, temperature=0.9, top_k=5, forced=forced,
+                         logits=lg2, kernel=kernel)
+            assert torch.equal(out2, out) and torch.equal(lg2, lg)
+            picks = [int(S.sample_topk(lg[i - 1: i].cpu(), noise[i: i + 1].cpu(), 0.9, 5))
+                     for i in range(1, 4)]
+            assert out.tolist() == [int(c0)] + picks
+            fed = torch.zeros_like(out)
+            K6.csm_depth(m, dc, h, c0, fed, forced=forced, kernel=kernel)
+            assert fed.tolist() == [int(c0)] + forced.tolist()
+        with pytest.raises(ValueError, match="need `kernel`"):
+            K6.csm_depth(m, dc, h, c0, fed, forced=forced)
 
 
 @pytest.mark.cuda
 def test_teacher_forced_logits_at_published_widths(card):
     """CSM-1B at its published widths in float32 on the card: the program's
     codebook-0 logits (the prefill, then the backbone's cache) and depth
-    logits (the depth decoder's cache), on its own sampled codes of 2 calls
-    of the benchmark cell's traffic (100 frames each), against the
-    reference's full forward. Tolerance 1e-4 of the largest logit: on an
-    H100 the program read 4.7e-6 - 6.0e-6 and the reference in bfloat16
-    2.2e-2 - 3.4e-2, so the tolerance sits 16x above the one and 220x below
-    the other."""
+    logits (K6 in forced mode), on its own sampled codes of 2 calls of the
+    benchmark cell's traffic (100 frames each), against the reference's
+    full forward. Tolerance 1e-4 of the largest logit: on an H100 the
+    program read 4.3e-6 - 6.7e-6 and the reference in bfloat16 2.2e-2 -
+    3.4e-2, so the tolerance sits 15x above the one and 220x below the
+    other."""
     from cudabench import run as harness
     from cudabench.traffic import Traffic
 
@@ -389,5 +554,8 @@ def test_teacher_forced_logits_at_published_widths(card):
         c0, depth = eng.teacher_forced(tokens, mask, codes)
         with torch.inference_mode():
             r0, rd = _ref_logits(ref, tokens, mask, codes)
+        print("teacher-forced logits, error over the largest: codebook 0",
+              float((c0 - r0).abs().max() / r0.abs().max()), "depth",
+              float((depth - rd).abs().max() / rd.abs().max()))
         _close(c0, r0, rel=1e-4)
         _close(depth, rd, rel=1e-4)

@@ -713,7 +713,7 @@ def _kernel_outputs(dev):
 
 @pytest.mark.cuda
 def test_launch_device_kernels_run_on_their_tensors_card(cuda):
-    """With cuda:0 current, K1, K5, K2, K3 and K4 on tensors of the last
+    """With cuda:0 current, K1, K5, K2, K3 and K4 (Sopro's kernels) on tensors of the last
     card launch there (each entry point runs inside `kernels.on_device`)
     and equal the same launches on cuda:0: ids and tokens exact, floats
     within 1e-6 of their peak (one card model, one kernel). Skips with
@@ -726,7 +726,7 @@ def test_launch_device_kernels_run_on_their_tensors_card(cuda):
     kernels.reset_launches()
     got = _kernel_outputs(torch.device("cuda", n - 1))
     assert torch.cuda.current_device() == 0
-    assert all(kernels.LAUNCHES[k] > 0 for k in kernels.KERNELS), kernels.LAUNCHES
+    assert all(kernels.LAUNCHES[k] > 0 for k in kernels.KERNELS if k != "csm_depth"), kernels.LAUNCHES
     for k, w in want.items():
         if w.is_floating_point():
             assert float((got[k] - w).abs().max()) <= 1e-6 * float(w.abs().max()), k
