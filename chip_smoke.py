@@ -88,7 +88,8 @@ Phases (each raises, so the script exits non-zero, on failure):
    finite and falling, no kernel of K1-K5 launched; step ms by CUDA
    events, median after 3 warm steps;
    valid frames per second; peak memory; the step's FLOPs from
-   `profiling.train_step_flops` and their share of the fp32 peak; a
+   `profiling.train_step_flops` and their share of the benchmark's float32
+   peak (`cudabench.flops.PEAK_FLOPS`); a
    profiler trace of two more steps for the kernels' busy share, launches
    and synchronisations per step and the largest kernels; one more step split
    into forward, backward and optimizer). With deterministic algorithms on: the step through
@@ -151,7 +152,7 @@ Phases (each raises, so the script exits non-zero, on failure):
    forced-mode logits within 1e-5 of their peak, a second run bit for bit;
    ms a frame of K6, of the plain passes and of the same passes replayed as
    one CUDA graph (`bench_csm.LibraryGraph`, the library yardstick), and
-   the bound (`bench_csm.depth_bytes` over HBM's rate). Then `CsmTTS` at
+   the bound (`bench_csm.bound_ms`). Then `CsmTTS` at
    the published widths (the benchmark's configuration and weights,
    `cudabench/configs/csm-1b-fp32.json`), three 100-frame `synthesize`
    requests, the counters zeroed before each and read after: one K6
@@ -164,20 +165,22 @@ K4 also in the serve run, per session), its time,
 its plain version's, the library's (K2: einsum + argmax; K3 and K4: the
 stack as cuDNN convs, `bench_kernels.seanet_library`; K6: the passes as one
 CUDA graph; K1 and K5: none), and
-its bound (`bench_kernels.bound`: bytes over HBM's rate, or operations over
-the 3-pass TF32 rate for the tensor-core kernels K2, K3 and K4 and the fp32
-rate for K1 and K5; K6's bytes, `bench_csm.depth_bytes`); K2 also at 6, 187, 401 and 1,604 rows and at the
-serve tick's window, K1 also at 1, 4, 7, 8, 16 and 32 serving rows (with
-its launch facts), K3 also at
-B = 4, K4 also at chunk 16, with errors against float64 plain versions.
-Each record's "bf16" entry holds the same keys for the kernel's bfloat16
-instantiation (launches from the bf16 path it belongs to; bounds at 2
-bytes an element and the bf16 tensor-core rate); K6 has none.
+its bound and its share of it, the count the benchmark's cells read
+(`cudabench/flops.py`: K1 `k1_bound_s` over the steps run, K5 at one step,
+K2 `k2_bound_s`, K3 `k3_bound_s`, K4 `k3_bound_s` over the chunk's frames;
+K6 `bench_csm.bound_ms`); K2 also at 6, 187, 401 and 1,604 rows and at the
+serve tick's window (no bound: no cell counts that window), K1 also at 1,
+4, 7, 8, 16 and 32 serving rows (with its launch facts), K3 also at B = 4,
+K4 also at chunk 16, with errors against float64 plain versions. Each
+record's "bf16" entry holds the same keys for the kernel's bfloat16
+instantiation (launches from the bf16 path it belongs to; the bound in
+bfloat16); K6 has none.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -189,6 +192,11 @@ import time
 
 import numpy as np
 import torch
+
+from cudabench import flops
+from sopro_tpu_torch.bench_kernels import (
+    cuda_ms, nar_library, roofline, seanet_library, seanet_library_weights,
+)
 
 SEED = 0
 MAX_FRAMES = 400
@@ -228,21 +236,6 @@ PARAGRAPH = (
 
 def log(*a):
     print(*a, flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of `fn` on the device (CUDA events, one warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def gpu_lines() -> list:
@@ -294,12 +287,11 @@ def check_nar_heads(model, dev, rng):
     version's wherever the top-2 margin is above 1e-5; the error is the
     largest gap between the float64 logit of the chosen id and the float64
     maximum. The plain version (einsum + argmax) is also the library call."""
-    from sopro_tpu_torch.bench_kernels import bound, nar_cost
     from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax, nar_heads_argmax_plain
 
     out = {"max_abs_err": 0.0, "mismatches": 0}
     for rows in NAR_ROWS:
-        ms = plain_ms = flop = nbytes = 0.0
+        ms = plain_ms = 0.0
         for stage, (hid, w, b, packed) in model.nar.head_stacks().items():
             z = torch.from_numpy(rng.standard_normal((1, rows, w.shape[1])).astype(np.float32)).to(dev)
             got = nar_heads_argmax(z, hid, w, b, packed)
@@ -317,15 +309,12 @@ def check_nar_heads(model, dev, rng):
             out["max_abs_err"] = max(out["max_abs_err"], float((top2[..., 0] - gl).max()))
             ms += cuda_ms(lambda: nar_heads_argmax(z, hid, w, b, packed), 20)
             plain_ms += cuda_ms(lambda: nar_heads_argmax_plain(z, hid, w, b), 20)
-            f, n = nar_cost(rows, *w.shape)
-            flop, nbytes = flop + f, nbytes + n
             if differ.any():
                 log(f"  nar_heads {rows} rows stage {stage}: ids differ at {int(differ.sum())} "
                     f"near-tie positions of {differ.numel()}")
-        bnd = bound(flop, nbytes, tf32x3=True)
+        bnd = roofline(flops.k2_bound_s(model.cfg.to_dict(), rows, "float32"), ms)
         log(f"  nar_heads {rows} rows, 4 stages: {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms "
-            f"(plain = einsum + argmax); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_rate']}), "
-            f"fp32 bound {bnd['fp32_bound_ms']:.4f} ms")
+            f"(plain = einsum + argmax); bound {bnd['bound_ms']:.4f} ms ({bnd['share_pct']:.1f} %)")
         out[rows] = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms, **bnd)
     log(f"  nar_heads: ids differ only at near-ties ({out['mismatches']} positions); worst float64 "
         f"logit gap of a chosen id {out['max_abs_err']:.3e}")
@@ -344,9 +333,6 @@ def check_seanet(mimi, dev, rng, b=1):
     within 1e-4 of peak of the float32 plain version; its error against a
     float64 plain version, and the float32 plain version's own; timed beside
     the plain version and the library stack (cuDNN convs, TF32 off)."""
-    from sopro_tpu_torch.bench_kernels import (
-        bound, conv_stack_cost, seanet_library, seanet_library_weights,
-    )
     from sopro_tpu_torch.codec.mimi import decode_embeddings, seanet_apply
     from sopro_tpu_torch.codec.mimi_config import decoder_plan
     from sopro_tpu_torch.codec.vocoder import seanet_decode
@@ -379,10 +365,9 @@ def check_seanet(mimi, dev, rng, b=1):
         ms = cuda_ms(lambda: seanet_decode(packed, cfg, emb), 5)
         plain_ms = cuda_ms(lambda: seanet_apply(mimi.p["decoder"], plan, emb), 5)
         library_ms = cuda_ms(lambda: seanet_library(lib_w, emb), 5)
-    bnd = bound(*conv_stack_cost(packed["ops"], b, emb.shape[1], causal=True), tf32x3=True)
+    bnd = roofline(flops.k3_bound_s(dataclasses.asdict(cfg), b * (MAX_FRAMES + 1), "float32"), ms)
     log(f"  seanet B={b}: {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms (plain), {library_ms:.3f} ms "
-        f"(cuDNN stack); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_rate']}), fp32 bound "
-        f"{bnd['fp32_bound_ms']:.4f} ms")
+        f"(cuDNN stack); bound {bnd['bound_ms']:.4f} ms ({bnd['share_pct']:.1f} %)")
     return dict(max_abs_err=err, err_f64=err64, plain_err_f64=plain64, peak=peak, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, **bnd)
 
@@ -395,9 +380,6 @@ def check_seanet_chunk(mimi, dev, rng):
     of peak of the float32 plain version, its error against a float64 plain
     version reported, and a repeated call bit-identical (the split-K
     partials meet in a fixed order); timed at each shape."""
-    from sopro_tpu_torch.bench_kernels import (
-        bound, conv_stack_cost, seanet_library, seanet_library_weights,
-    )
     from sopro_tpu_torch.codec.mimi import decode_embeddings
     from sopro_tpu_torch.codec.mimi_config import decoder_plan, required_halo
     from sopro_tpu_torch.codec.vocoder import seanet_decode_chunk, seanet_decode_chunk_plain
@@ -441,10 +423,10 @@ def check_seanet_chunk(mimi, dev, rng):
                 if not float((lib - want).abs().max()) <= 1e-4 * peak:
                     raise AssertionError(f"{what}: the library stack disagrees with the plain version")
                 row["library_ms"] = cuda_ms(lambda: seanet_library(lib_w, ext)[:, -n_out:], 20)
-                row.update(bound(*conv_stack_cost(packed["ops"], b, ext.shape[1], causal=False,
-                                                  keep=m25 * hop25), tf32x3=True))
+                row.update(roofline(flops.k3_bound_s(dataclasses.asdict(cfg), b * m25 // 2, "float32"),
+                                    ms))
                 extra = (f"; library {row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-                         f"({row['bound_rate']}), fp32 bound {row['fp32_bound_ms']:.4f} ms")
+                         f"({row['share_pct']:.1f} %)")
             log(f"  {what} -> wav {tuple(got.shape)}: max|err| {err:.3e} (float64: kernel "
                 f"{row['err_f64']:.3e}, float32 plain {row['plain_err_f64']:.3e}), max|wav| "
                 f"{peak:.3e}, repeat bit-identical; {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms "
@@ -511,12 +493,11 @@ def check_ar_loop(model, mimi, dev, rng):
         out["steps"] = int(st["t"][0])
         out["us_per_step"] = out["ms"] * 1e3 / out["steps"]
     from sopro_tpu_torch import kernels
-    from sopro_tpu_torch.bench_kernels import ar_cost, bound
 
-    kv_k = torch.stack([c["k"] for c in ctx.kv if c is not None])
-    out.update(bound(*ar_cost(ctx.stacked, kv_k, out["steps"], 1), tf32x3=False), library_ms=None)
+    out.update(roofline(flops.k1_bound_s(cfg.to_dict(), out["steps"], 1, len(ids), "float32"), out["ms"]),
+               library_ms=None)
     log(f"  ar_loop: {out['steps']} steps {out['ms']:.3f} ms (kernel) vs "
-        f"{out['plain_ms']:.3f} ms (plain); bound {out['bound_ms']:.4f} ms ({out['bound_rate']}); "
+        f"{out['plain_ms']:.3f} ms (plain); bound {out['bound_ms']:.4f} ms ({out['share_pct']:.3f} %); "
         f"launch {kernels.LAUNCH_INFO.get('ar_loop')}")
     return out
 
@@ -579,11 +560,11 @@ def check_ar_step(model, mimi, dev, rng, k1):
             f"{'identical to' if same else 'DIFFER from'} the K1 route ({int(k1_run.t[0])} steps)")
         if not same:
             raise AssertionError("ar_step near-greedy: tokens differ from K1")
-    from sopro_tpu_torch.bench_kernels import ar_cost, bound
-
-    out.update(bound(*ar_cost(step_ctx.stacked, step_ctx.kv_k, 1, 1), tf32x3=False),
+    text_len = len(tok.encode(REQUESTS[0][0]))
+    out.update(roofline(flops.k1_bound_s(cfg.to_dict(), 1, 1, text_len, "float32"), out["ms"]),
                max_abs_err=worst, library_ms=None)
-    log(f"  K5 bound (B = 1, L = 64): {out['bound_ms'] * 1e3:.2f} µs ({out['bound_rate']})")
+    log(f"  K5 bound (B = 1, {text_len} text tokens): {out['bound_ms'] * 1e3:.2f} µs "
+        f"({out['share_pct']:.2f} %)")
     log(f"  per step (B = 1, L = 64): K5 {out['ms'] * 1e3:.1f} µs, plain step "
         f"{out['plain_ms'] * 1e3:.1f} µs, K1 {k1['ms'] / k1['steps'] * 1e3:.1f} µs "
         f"({k1['ms']:.3f} ms / {k1['steps']} steps)")
@@ -933,8 +914,6 @@ def write_word_tokenizer(path):
 def write_mimi_snapshot(mdir, mcfg):
     """The phase-4 Mimi (`init_mimi_params(SEED)`) as a snapshot directory in
     HF names with its config.json."""
-    import dataclasses
-
     from sopro_tpu_torch import hub as H
     from sopro_tpu_torch import weights as W
 
@@ -1254,7 +1233,6 @@ def check_nar_tick(tts, st, dev):
     plain version timed per stage."""
     import torch.nn.functional as F
 
-    from sopro_tpu_torch.bench_kernels import bound, nar_cost
     from sopro_tpu_torch.engine import serve_window
     from sopro_tpu_torch.models import nar as N
     from sopro_tpu_torch.models import sopro as M
@@ -1264,7 +1242,6 @@ def check_nar_tick(tts, st, dev):
     cf, ctx_frames = 16, int(cfg.rf_nar())
     w, c, s = cf + ctx_frames, st.carry, st.cond.shape[1]
     out = {"ms": 0.0, "plain_ms": 0.0, "rows": [], "mismatches": 0, "max_abs_err": 0.0}
-    flop = nbytes = 0.0
     with torch.inference_mode():
         emitted = torch.tensor(SERVE_EMITTED, dtype=torch.int32, device=dev)
         valid = torch.minimum(torch.minimum(c.first_eos, c.t), st.rows["max_frames"] + 1)
@@ -1303,19 +1280,15 @@ def check_nar_tick(tts, st, dev):
             out["mismatches"] += int(differ.sum())
             out["ms"] += cuda_ms(lambda: nar_heads_argmax(z, hid, wst, bst, packed), 20)
             out["plain_ms"] += cuda_ms(lambda: nar_heads_argmax_plain(z, hid, wst, bst), 20)
-            rows = z.shape[0] * z.shape[1]
-            out["rows"].append(rows)
-            f, n = nar_cost(rows, *wst.shape)
-            flop, nbytes = flop + f, nbytes + n
+            out["rows"].append(z.shape[0] * z.shape[1])
             if stage != stages[-1]:
                 prev_tokens = torch.cat([prev_tokens, got], dim=-1)
                 prev_cbs = prev_cbs + list(idx[stage])
-    out.update(bound(flop, nbytes, tf32x3=True), library_ms=out["plain_ms"])
+    out["library_ms"] = out["plain_ms"]
     log(f"  nar_heads at the serve tick (rows per stage {out['rows']}, emitted {SERVE_EMITTED}): "
         f"gather equal to per-row slices, ids equal to nar_refine's and to plain's but "
         f"{out['mismatches']} near-ties (worst float64 logit gap {out['max_abs_err']:.3e}); "
-        f"{out['ms']:.3f} ms (kernel) vs {out['plain_ms']:.3f} ms (plain = einsum + argmax); "
-        f"bound {out['bound_ms']:.4f} ms ({out['bound_rate']})")
+        f"{out['ms']:.3f} ms (kernel) vs {out['plain_ms']:.3f} ms (plain = einsum + argmax)")
     return out
 
 
@@ -1691,7 +1664,6 @@ def drive_train(tts, ref_tokens, dev, rng, cfg, mcfg):
     from sopro_tpu_torch import profiling as PR
     from sopro_tpu_torch import train as T
     from sopro_tpu_torch import weights as W
-    from sopro_tpu_torch.bench_kernels import PEAK_FP32
     from sopro_tpu_torch.engine import Engine
     from sopro_tpu_torch.tokenizer import SimpleCharTokenizer
     from sopro_tpu_torch.tts import SoproTTS
@@ -1762,15 +1734,15 @@ def drive_train(tts, ref_tokens, dev, rng, cfg, mcfg):
     losses = [float(x) for x in losses]
     ms = statistics.median(times[TRAIN_WARM:])
     frames = int(host_batch.frame_mask.sum())
-    flops = PR.train_step_flops(cfg, b, TRAIN_S, l, tr)
+    step_flops, peak_ops = PR.train_step_flops(cfg, b, TRAIN_S, l, tr), flops.PEAK_FLOPS["float32"]
     log(f"  {TRAIN_STEPS} steps at B = {b}, S = {TRAIN_S} ({frames} valid frames): loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; {[round(x, 3) for x in losses]}")
     log(f"  step {ms:.3f} ms (CUDA events, median of steps {TRAIN_WARM + 1}-{TRAIN_STEPS}; "
         f"{min(times[TRAIN_WARM:]):.3f}-{max(times[TRAIN_WARM:]):.3f}), host wall {wall * 1e3:.3f} ms "
         f"per step; {frames / (ms / 1e3):.0f} valid frames/s; peak memory {peak / 2**30:.2f} GiB")
-    log(f"  fwd+bwd {flops / 1e12:.4f} TFLOP per step (profiling.train_step_flops): "
-        f"{flops / (ms / 1e3) / 1e12:.2f} TF/s = {flops / (ms / 1e3) / PEAK_FP32 * 100:.1f} % of the "
-        f"fp32 peak; bound {flops / PEAK_FP32 * 1e3:.2f} ms")
+    log(f"  fwd+bwd {step_flops / 1e12:.4f} TFLOP per step (profiling.train_step_flops): "
+        f"{step_flops / (ms / 1e3) / 1e12:.2f} TF/s = {step_flops / (ms / 1e3) / peak_ops * 100:.1f} % "
+        f"of the benchmark's float32 peak; bound {step_flops / peak_ops * 1e3:.2f} ms")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: the loss did not fall: {losses}")
     busy, launches, syncs, top, _ = profile_steps(step, batch)
@@ -1781,7 +1753,8 @@ def drive_train(tts, ref_tokens, dev, rng, cfg, mcfg):
     log("  one more step by phase, host ms to dispatch / ms between CUDA events: " + "; ".join(
         f"{k} {h:.2f} / {d:.2f}" for k, (h, d) in phases.items()))
     out.update(step_ms=ms, host_ms=wall * 1e3, frames_per_s=frames / (ms / 1e3),
-               peak_gib=peak / 2**30, tflop=flops / 1e12, fp32_share=flops / (ms / 1e3) / PEAK_FP32,
+               peak_gib=peak / 2**30, tflop=step_flops / 1e12,
+               fp32_share=step_flops / (ms / 1e3) / peak_ops,
                loss_first=losses[0], loss_last=losses[-1], kernels_busy=busy,
                launches_per_step=launches, syncs_per_step=syncs, phases=phases)
 
@@ -2161,15 +2134,8 @@ def first_divergence(got, want, logits, row, what, tol=BF16_TOL):
 def check_bf16_kernels(tts16, dev, rng):
     """Each bfloat16 kernel against its bfloat16 plain version on the card at
     the main paths' shapes, timed beside the plain version and the bf16
-    library yardstick; bounds at 2 bytes an element and the 989 TFLOP/s
-    bfloat16 tensor-core rate (`design_bound_ms`: at the rate of the design
-    taken, the bfloat16 tensor cores for K2, K3 and K4, the fp32 cores for
-    K1 and K5)."""
+    library yardstick; each bound from `cudabench.flops` in bfloat16."""
     from sopro_tpu_torch import kernels
-    from sopro_tpu_torch.bench_kernels import (
-        ar_cost, bound, conv_stack_cost, nar_cost, nar_library, seanet_library,
-        seanet_library_weights,
-    )
     from sopro_tpu_torch.codec.mimi import decode_embeddings, seanet_apply
     from sopro_tpu_torch.codec.mimi_config import decoder_plan, required_halo
     from sopro_tpu_torch.codec.vocoder import (
@@ -2184,13 +2150,14 @@ def check_bf16_kernels(tts16, dev, rng):
     bf16 = torch.bfloat16
     model, mimi, eng, cfg = tts16.engine.model, tts16.engine.mimi, tts16.engine, tts16.cfg
     mcfg, plan = mimi.cfg, decoder_plan(mimi.cfg)
+    c, m = cfg.to_dict(), dataclasses.asdict(mcfg)
     stats = {}
 
     # K2 at NAR_ROWS rows per stage
     out = {"max_abs_err": 0.0, "mismatches": 0}
     with torch.inference_mode():
         for rows in NAR_ROWS:
-            ms = plain_ms = lib_ms = flop = nbytes = 0.0
+            ms = plain_ms = lib_ms = 0.0
             for stage, (hid, w, b, packed) in model.nar.head_stacks().items():
                 z = torch.from_numpy(rng.standard_normal((1, rows, w.shape[1])).astype(np.float32))
                 z = z.to(dev, bf16)
@@ -2208,12 +2175,10 @@ def check_bf16_kernels(tts16, dev, rng):
                 ms += cuda_ms(lambda: nar_heads_argmax(z, hid, w, b, packed), 20)
                 plain_ms += cuda_ms(lambda: nar_heads_argmax_plain(z, hid, w, b), 20)
                 lib_ms += cuda_ms(lambda: nar_library(z, hid, w, b), 20)
-                f, n = nar_cost(rows, *w.shape, es=2)
-                flop, nbytes = flop + f, nbytes + n
-            bnd = bound(flop, nbytes, tf32x3=True, bf16=True)
+            bnd = roofline(flops.k2_bound_s(c, rows, "bfloat16"), ms)
             log(f"  bf16 nar_heads {rows} rows, 4 stages: {ms:.3f} ms (kernel) vs {plain_ms:.3f} ms "
                 f"(plain), {lib_ms:.3f} ms (bf16 einsum + argmax); bound {bnd['bound_ms']:.4f} ms "
-                f"({bnd['bound_rate']}), design bound {bnd['design_bound_ms']:.4f} ms")
+                f"({bnd['share_pct']:.1f} %)")
             out[rows] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
     log(f"  bf16 nar_heads: ids differ only at near-ties ({out['mismatches']} positions); worst "
         f"float64 logit gap of a chosen id {out['max_abs_err']:.3e}")
@@ -2237,13 +2202,11 @@ def check_bf16_kernels(tts16, dev, rng):
                 raise AssertionError(f"seanet bf16 B={b}: max|err| {err} > {BF16_TOL} * peak {peak}")
             row = dict(max_abs_err=err, peak=peak, ms=cuda_ms(lambda: seanet_decode(packed, mcfg, emb), 5),
                        plain_ms=cuda_ms(lambda: seanet_apply(mimi.p["decoder"], plan, emb), 5),
-                       library_ms=cuda_ms(lambda: seanet_library(lib_w, emb), 5),
-                       **bound(*conv_stack_cost(packed["ops"], b, emb.shape[1], causal=True),
-                               tf32x3=True, bf16=True))
+                       library_ms=cuda_ms(lambda: seanet_library(lib_w, emb), 5))
+            row.update(roofline(flops.k3_bound_s(m, b * (MAX_FRAMES + 1), "bfloat16"), row["ms"]))
             log(f"  bf16 seanet B={b}: max|err| {err:.3e} of peak {peak:.3e}; {row['ms']:.3f} ms "
                 f"(kernel) vs {row['plain_ms']:.3f} ms (plain), {row['library_ms']:.3f} ms (cuDNN "
-                f"bf16 stack); bound {row['bound_ms']:.4f} ms ({row['bound_rate']}), design bound "
-                f"{row['design_bound_ms']:.4f} ms")
+                f"bf16 stack); bound {row['bound_ms']:.4f} ms ({row['share_pct']:.1f} %)")
             k3[b] = row
     stats["seanet"] = dict(k3[1], B4=k3[4])
 
@@ -2272,13 +2235,11 @@ def check_bf16_kernels(tts16, dev, rng):
             if hist is None:
                 n_out = m25 * hop25
                 row["library_ms"] = cuda_ms(lambda: seanet_library(lib_w, ext)[:, -n_out:], 20)
-                row.update(bound(*conv_stack_cost(packed["ops"], b, ext.shape[1], causal=False,
-                                                  keep=n_out), tf32x3=True, bf16=True))
+                row.update(roofline(flops.k3_bound_s(m, b * m25 // 2, "bfloat16"), row["ms"]))
             log(f"  {what}: max|err| {err:.3e} of peak {peak:.3e}, repeat bit-identical; "
                 f"{row['ms']:.3f} ms (kernel) vs {row['plain_ms']:.3f} ms (plain)"
                 + (f", {row['library_ms']:.3f} ms (cuDNN bf16), bound {row['bound_ms']:.4f} ms "
-                   f"({row['bound_rate']}), design bound {row['design_bound_ms']:.4f} ms"
-                   if hist is None else ""))
+                   f"({row['share_pct']:.1f} %)" if hist is None else ""))
             k4[(b, m25, hist)] = row
     stats["seanet_chunk"] = dict(k4[(1, 2 * CHUNK, None)], chunk16=k4[(1, 32, None)],
                                  serve_b8=k4[SERVE_K4],
@@ -2341,12 +2302,11 @@ def check_bf16_kernels(tts16, dev, rng):
         _, st = ar_loop(ctx, cond, fresh(), prod, s, True)
         k1["steps"] = int(st["t"][0])
         k1["us_per_step"] = k1["ms"] * 1e3 / k1["steps"]
-        kv_k = torch.stack([c["k"] for c in ctx.kv if c is not None])
-        k1.update(bound(*ar_cost(model.ar.stacked(), kv_k, k1["steps"], 1), tf32x3=False, bf16=True),
+        k1.update(roofline(flops.k1_bound_s(c, k1["steps"], 1, len(ids), "bfloat16"), k1["ms"]),
                   library_ms=None)
         log(f"  bf16 ar_loop: {k1['steps']} steps {k1['ms']:.3f} ms (kernel, "
             f"{k1['us_per_step']:.1f} µs per step) vs {k1['plain_ms']:.3f} ms (plain); bound "
-            f"{k1['bound_ms']:.4f} ms ({k1['bound_rate']}), design bound {k1['design_bound_ms']:.4f} ms")
+            f"{k1['bound_ms']:.4f} ms ({k1['share_pct']:.3f} %)")
         rows, texts = {}, [REQUESTS[i % 3][0] for i in range(max(K1_ROWS))]
         for b in K1_ROWS:
             pad_ids, mask = eng._padded([np.asarray(SimpleCharTokenizer().encode(t), np.int32)
@@ -2400,11 +2360,10 @@ def check_bf16_kernels(tts16, dev, rng):
             if b == 1:
                 k5["ms"] = cuda_ms(lambda: ar_step(sctx, x, bufs), 50)
                 k5["plain_ms"] = cuda_ms(lambda: ar_step_plain(sctx, x, bufs), 20)
-                k5.update(bound(*ar_cost(model.ar.stacked(), sctx.kv_k, 1, 1), tf32x3=False, bf16=True))
+                k5.update(roofline(flops.k1_bound_s(c, 1, 1, len(ids), "bfloat16"), k5["ms"]))
     k5.update(max_abs_err=worst, library_ms=None)
     log(f"  bf16 ar_step (B = 1): {k5['ms'] * 1e3:.1f} µs (kernel) vs {k5['plain_ms'] * 1e3:.1f} µs "
-        f"(plain); bound {k5['bound_ms'] * 1e3:.2f} µs ({k5['bound_rate']}), design bound "
-        f"{k5['design_bound_ms'] * 1e3:.2f} µs")
+        f"(plain); bound {k5['bound_ms'] * 1e3:.2f} µs ({k5['share_pct']:.2f} %)")
     stats["ar_step"] = k5
     return stats
 
@@ -2779,14 +2738,14 @@ def check_csm_depth(dev):
     library = cuda_ms(lambda: graph(hs[0], c0s[0], noise[0], out), 30)
     plain_ms = cuda_ms(lambda: depth_plain(model, cache, hs[0], c0s[0], lambda i, x: S.sample_topk(
         x, noise[0, i: i + 1], t, k), out), 3)
-    bound = BC.depth_bytes(cfg) / BC.HBM * 1e3
+    bound = BC.bound_ms(cfg)
     log(f"  K6 codes equal the plain passes' over {first} of {len(near)} decisions (first "
         f"near-tie: {first}), a repeat bit for bit; forced logits max|err| {err:.3e}, {rel:.3e} of "
         f"their peak")
     log(f"  K6 {ms:.3f} ms a frame, plain {plain_ms:.3f}, library graph {library:.3f}, bound "
         f"{bound:.3f} ({100 * bound / ms:.1f} % of it)")
     return {"max_abs_err": err, "logits_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": library,
+            "bound_ms": bound, "share_pct": 100.0 * bound / ms, "library_ms": library,
             "codes_equal_until": first, "decisions": len(near)}
 
 
@@ -2861,9 +2820,8 @@ def main() -> int:
     build_s = kernels.build()
     log(f"  build: {build_s:.2f} s")
     for name in kernels.SOURCES:
-        for line in kernels.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in kernels.ptxas(name):
+            log(f"  {name}: {line}")
     check_hopper_sass()
 
     log("[3] kernels against their plain versions (main-path shapes, fp32, TF32 off)")
@@ -2927,8 +2885,8 @@ def main() -> int:
                     ar_step=step_launches["ar_step"], csm_depth=csm["launches"])
     requests = dict({name: len(REQUESTS) for name in KERNELS},
                     seanet_chunk=len(STREAM_REQUESTS), ar_step=PER_STEP_REQUESTS, csm_depth=CSM_REQUESTS)
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("bound_rate", "fp32_bound_ms", "err_f64", "plain_err_f64", "by_rows", "B4",
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "share_pct", "library_ms")
+    extra = ("err_f64", "plain_err_f64", "by_rows", "B4",
              "chunk16", "serve_b8", "err_f64_worst", "us_per_step", "first_diff_production",
              "logits_rel_err", "codes_equal_until", "decisions", "frames", "request_s", "audio_s_per_s")
     for name in ("ar_loop", "nar_heads", "seanet_chunk"):
@@ -2944,7 +2902,7 @@ def main() -> int:
     # the bf16 instantiations: launches from the bf16 path each belongs to
     bf16_launches = dict(bf16_paths["synthesize"], seanet_chunk=bf16_paths["stream"]["seanet_chunk"],
                          ar_step=bf16_paths["per_step"]["ar_step"])
-    bf16_extra = ("bound_rate", "design_bound_ms", "by_rows", "B4", "chunk16", "serve_b8",
+    bf16_extra = ("by_rows", "B4", "chunk16", "serve_b8",
                   "us_per_step", "first_diff", "state_logit_err", "serve_rows")
     for name in bf16_stats:
         s16 = bf16_stats[name]

@@ -3,29 +3,31 @@ kernels costs, and what the chunked accumulation buys in accuracy.
 
     python -m sopro_tpu_torch.bench_ablation [--out PATH]
 
-Builds copies of `csrc/` with one text edit each (ABLATIONS; an edit whose
-text is missing fails the run): the kernels (K2, K3's conv and fused
-residual blocks) without their MMAs,
-the conv kernel without its A fragments, its ELU pass, its epilogue, or
-with one accumulator through all of K; K2 and the conv reading only the hi
-weight tiles (half the weight bytes); the fused block without its ELU pass,
-its residual loads, its final conv or its epilogue. Loads each copy in place of the
-tree's kernels, and times on the same inputs, in one process: every K3 launch at
-B = 1 (emb [1, 802, 512] of N(0, 0.25)), the whole of K3 at B = 1 and 4 with
-its largest error over the float32 plain version's peak, and K2's four
-stages at 401 and 1,604 rows. Full Sopro v1.5 and Mimi widths, random
-weights from seed 0, TF32 off, CUDA-event medians. An ablated copy computes
-wrong numbers; only its time is read (its error shows how wrong). Prints a
-table and writes it as JSON to PATH (default build/bench_ablation.json).
+Builds the tree's sources again with each entry of ABLATIONS, text edits
+(`kernels.build_variant`: an edit whose text is missing fails the run
+before nvcc runs): the kernels (K2, K3's conv and fused residual blocks)
+without their MMAs, the conv kernel without its A fragments, its ELU pass,
+its epilogue, or with one accumulator through all of K; K2 and the conv
+reading only the hi weight tiles (half the weight bytes); the fused block
+without its ELU pass, its residual loads, its final conv or its epilogue.
+Swaps each build in for the tree's (`kernels.using`) and times on the same
+inputs, in one process: every K3 launch at B = 1 (emb [1, 802, 512] of
+N(0, 0.25)), the whole of K3 at B = 1 and 4 with its largest error over the
+float32 plain version's peak, and K2's four stages at 401 and 1,604 rows.
+Full Sopro v1.5 and Mimi widths, random weights from seed 0, TF32 off,
+CUDA-event medians. An ablated build computes wrong numbers; only its time
+is read (its error shows how wrong). Prints a table and writes it as JSON
+to PATH (default build/bench_ablation.json).
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
+import contextlib
 import json
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -91,34 +93,19 @@ ABLATIONS = {
 SOURCES = ("nar_heads", "seanet")
 
 
-def build_copies(root: Path) -> dict:
-    """{name: {source: CDLL}} for the tree ("as is") and every ablation."""
-    csrc = kernels.CSRC
-    files = [p.name for p in csrc.glob("*.cu*")]
-    jobs = []
-    for i, (name, edits) in enumerate([("as is", [])] + list(ABLATIONS.items())):
-        d = root / f"ablation_{i}"
-        d.mkdir(parents=True, exist_ok=True)
-        for f in files:
-            text = (csrc / f).read_text()
-            for ef, old, new in edits:
-                if ef == f:
-                    if old not in text:
-                        raise RuntimeError(f"ablation {name!r}: text not found in {f}")
-                    text = text.replace(old, new)
-            (d / f).write_text(text)
-        for src in SOURCES:
-            out = d / f"lib{src}.so"
-            cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out), str(d / f"{src}.cu")]
-            jobs.append((name, src, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                          stderr=subprocess.STDOUT)))
-    libs: dict = {}
-    for name, src, out, proc in jobs:
-        log = proc.communicate()[0].decode()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name!r} {src}.cu:\n{log[-3000:]}")
-        libs.setdefault(name, {})[src] = ctypes.CDLL(str(out))
-    return libs
+def build_copies() -> dict:
+    """{name: {source: CDLL}} for the tree ("as is") and every ablation: each
+    source with the ablation's edits of it built by `kernels.build_variant`
+    (the builds run side by side), a source it leaves alone the tree's."""
+    tree = {src: kernels.lib(src) for src in SOURCES}
+    with ThreadPoolExecutor(8) as pool:
+        jobs = {name: {src: pool.submit(kernels.build_variant, src, edits=mine)
+                       for src in SOURCES
+                       if (mine := [(old, new) for f, old, new in edits if f == f"{src}.cu"])}
+                for name, edits in ABLATIONS.items()}
+    return {"as is": tree, **{name: {src: built[src].result() if src in built else tree[src]
+                                     for src in SOURCES}
+                              for name, built in jobs.items()}}
 
 
 def main(argv=None) -> int:
@@ -140,7 +127,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    libs = build_copies(kernels.BUILD_DIR.parent)
+    kernels.build(SOURCES)
+    libs = build_copies()
     mcfg, cfg = MimiConfig(), SoproTTSConfig()
     mtree, tree = W.init_mimi_params(0, mcfg), W.init_sopro_params(0, cfg, 259)
     W.fill_zero_inits(tree, mtree, 1)
@@ -154,10 +142,12 @@ def main(argv=None) -> int:
     z = {r: torch.randn(1, r, 256, generator=g).to(dev) for r in (401, 1604)}
 
     def use(name):
+        stack = contextlib.ExitStack()
         for src in SOURCES:
-            kernels._LIBS[src] = libs[name][src]
+            stack.enter_context(kernels.using(src, libs[name][src]))
+        return stack
 
-    use("as is")  # every launch's input, from running the tree's K3 once
+    # every launch's input, from running the tree's K3 once
     cases, x, block_in = [], emb[1], None
     with torch.inference_mode():
         for i, launch in enumerate(packed["k3"]):
@@ -176,26 +166,26 @@ def main(argv=None) -> int:
     print(card)
     with torch.inference_mode():
         for name in libs:
-            use(name)
-            row = {"ablation": name, "launch_ms": {}}
-            for cname, launch, xin, res in cases:
-                if launch["kind"] == "resblock":
-                    fn = (lambda launch=launch, xin=xin: _resblock_cuda(launch, xin))
-                else:
-                    fn = (lambda launch=launch, xin=xin, res=res: _conv_cuda(launch, xin, res))
-                row["launch_ms"][cname] = cuda_ms(fn, 5)
-            for b in emb:
-                wav = seanet_decode(packed, mcfg, emb[b])
-                row[f"k3_b{b}_ms"] = cuda_ms(lambda b=b: seanet_decode(packed, mcfg, emb[b]), 5)
-                row[f"k3_b{b}_err_over_peak"] = float((wav - want[b]).abs().max()
-                                                      / want[b].abs().max())
-            for r, zr in z.items():
-                row[f"k2_{r}_ms"] = sum(cuda_ms(lambda s=s, zr=zr: nar_heads_argmax(zr, *s), 10)
-                                        for s in stacks.values())
-            result["rows"].append(row)
-            print(f"{name:22s} | " + " | ".join(f"{k} {v:.4f}" for k, v in row["launch_ms"].items())
-                  + " | " + " | ".join(f"{k} {v:.4g}" for k, v in row.items()
-                                       if k not in ("ablation", "launch_ms")), flush=True)
+            with use(name):
+                row = {"ablation": name, "launch_ms": {}}
+                for cname, launch, xin, res in cases:
+                    if launch["kind"] == "resblock":
+                        fn = (lambda launch=launch, xin=xin: _resblock_cuda(launch, xin))
+                    else:
+                        fn = (lambda launch=launch, xin=xin, res=res: _conv_cuda(launch, xin, res))
+                    row["launch_ms"][cname] = cuda_ms(fn, 5)
+                for b in emb:
+                    wav = seanet_decode(packed, mcfg, emb[b])
+                    row[f"k3_b{b}_ms"] = cuda_ms(lambda b=b: seanet_decode(packed, mcfg, emb[b]), 5)
+                    row[f"k3_b{b}_err_over_peak"] = float((wav - want[b]).abs().max()
+                                                          / want[b].abs().max())
+                for r, zr in z.items():
+                    row[f"k2_{r}_ms"] = sum(cuda_ms(lambda s=s, zr=zr: nar_heads_argmax(zr, *s), 10)
+                                            for s in stacks.values())
+                result["rows"].append(row)
+                print(f"{name:22s} | " + " | ".join(f"{k} {v:.4f}" for k, v in row["launch_ms"].items())
+                      + " | " + " | ".join(f"{k} {v:.4g}" for k, v in row.items()
+                                           if k not in ("ablation", "launch_ms")), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     return 0

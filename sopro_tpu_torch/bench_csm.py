@@ -12,13 +12,14 @@ torch seed (N(0, 0.02), norms 1), TF32 off; the sampler at top-k 50 and
 temperature 0.9 on Gumbel noise. A reading is the CUDA-event time of N
 frames back to back over N, after a warm-up; R readings of each in turns
 (K6, graph, plain, graph, K6, ...), and their medians. The weights, 461 MB a
-pass, never fit the 50 MB L2, so every pass reads them from HBM. The bound:
-each pass's depth weights, projector, embedding row, head slice and cache
-read once (`depth_bytes`, as the benchmark counts them) over 3.35 TB/s.
+pass, never fit the 50 MB L2, so every pass reads them from HBM. The bound
+(`bound_ms`): the benchmark's bytes of a frame's passes
+(`cudabench.flops_csm.depth_bytes`) over its HBM rate.
 Checks beside the times: K6's codes against the graph's on the same inputs
 up to the first near-tie, K6's forced logits against the eager passes',
 and a second K6 run bit for bit. `--clocks` builds the source again with
--DSOPRO_CSM_CLOCKS and reports, per frame and block, the microseconds of
+-DSOPRO_CSM_CLOCKS (`kernels.build_variant`, launched inside
+`kernels.using`) and reports, per frame and block, the microseconds of
 each phase kind's input, slot waits, products and grid barrier, the
 sampler's, and the producer's waits for a free slot. Prints one JSON line
 and writes it to PATH (default build/bench_csm.json).
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -35,13 +37,13 @@ from pathlib import Path
 
 import torch
 
-from sopro_tpu_torch import bench_ar, kernels
+from cudabench import flops, flops_csm
+from sopro_tpu_torch import kernels
 from sopro_tpu_torch import sampling as S
 from sopro_tpu_torch.engine import configure_cuda_numerics
 from sopro_tpu_torch.models.csm import CsmConfig, CsmModel, KVCache
 from sopro_tpu_torch.ops.csm_depth import DepthKernel, depth_plain
 
-HBM = 3.35e12
 TEMPERATURE, TOP_K = 0.9, 50
 KINDS = ("proj", "qkv", "attn_o", "gate_up", "down", "head", "sample")
 PARTS = ("input", "slot_wait", "rows", "barrier")
@@ -64,16 +66,14 @@ def depth_model(cfg: CsmConfig, dev, seed: int) -> CsmModel:
     return CsmModel(tree, cfg)
 
 
-def depth_bytes(cfg: CsmConfig) -> float:
-    """A frame's depth passes: the layer weights and norms, the final norm,
-    the projector, an embedding row and a head slice once a pass, and the
-    cache's keys and values."""
-    c, q, v, D = cfg.depth, cfg.num_codebooks, cfg.vocab_size, cfg.backbone.hidden_size
-    d, f, h, kvh, hd = c.hidden_size, c.intermediate_size, c.num_attention_heads, c.num_key_value_heads, c.head_dim
-    layer = d * (h + 2 * kvh) * hd + h * hd * d + 3 * d * f + 2 * d
-    per_pass = c.num_hidden_layers * layer + d + d * D + D + d * v
-    kv = sum(c.num_hidden_layers * 2 * kvh * hd * (i + 1) for i in range(1, q))
-    return 4.0 * ((q - 1) * per_pass + kv)
+def bound_ms(cfg: CsmConfig) -> float:
+    """The cell's bound of a frame's depth passes: `cudabench.flops_csm`'s
+    bytes (each pass's depth weights, projector, embedding row, head slice
+    and cache read once) over HBM's rate, from `cfg` laid out as
+    transformers' config.json (`CsmConfig.from_dict`'s input)."""
+    c = dict(dataclasses.asdict(cfg.backbone), num_codebooks=cfg.num_codebooks,
+             vocab_size=cfg.vocab_size, depth_decoder_config=dataclasses.asdict(cfg.depth))
+    return 1e3 * flops_csm.depth_bytes(c) / flops.PEAK_BYTES
 
 
 class LibraryGraph:
@@ -181,16 +181,13 @@ def main(argv=None) -> int:
     ms = {name: statistics.median(t) for name, t in times.items()}
     clocks = None
     if args.clocks:
-        base = kernels.lib("csm_depth")
-        lib = bench_ar._build((kernels.CSRC / "csm_depth.cu").read_text(), "csm_depth_clocks",
-                              ["-DSOPRO_CSM_CLOCKS"])
-        kernels._LIBS["csm_depth"] = lib
-        per_frame_ms(runs["k6"], 3)
-        buf = (ctypes.c_ulonglong * 40)()
-        lib.sopro_csm_depth_clocks(buf)
-        frame_ms = per_frame_ms(runs["k6"], args.frames)
-        lib.sopro_csm_depth_clocks(buf)
-        kernels._LIBS["csm_depth"] = base
+        lib = kernels.build_variant("csm_depth", defines=["-DSOPRO_CSM_CLOCKS"])
+        with kernels.using("csm_depth", lib):
+            per_frame_ms(runs["k6"], 3)
+            buf = (ctypes.c_ulonglong * 40)()
+            lib.sopro_csm_depth_clocks(buf)
+            frame_ms = per_frame_ms(runs["k6"], args.frames)
+            lib.sopro_csm_depth_clocks(buf)
         blocks = torch.cuda.get_device_properties(dev).multi_processor_count
         per = [x / (args.frames * blocks) for x in buf]
         mhz = per[29] / (frame_ms * 1e3)  # cycles of a launch over its microseconds
@@ -202,7 +199,7 @@ def main(argv=None) -> int:
                                            (us(x) for x in per[32:36]))),
                   "phases_us": {k: {pt: us(per[4 * i + j]) for j, pt in enumerate(PARTS)}
                                 for i, k in enumerate(KINDS)}}
-    bound_ms = depth_bytes(cfg) / HBM * 1e3
+    bound = bound_ms(cfg)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     result = {
@@ -210,13 +207,13 @@ def main(argv=None) -> int:
         "frames": args.frames, "reps": args.reps,
         "k6_ms": ms["k6"], "graph_ms": ms["graph"], "plain_ms": ms["plain"],
         "k6_ms_all": times["k6"], "graph_ms_all": times["graph"], "plain_ms_all": times["plain"],
-        "bound_ms": bound_ms, "k6_share_pct": 100.0 * bound_ms / ms["k6"],
-        "graph_share_pct": 100.0 * bound_ms / ms["graph"],
-        "k6_gb_per_s": depth_bytes(cfg) / (ms["k6"] * 1e-3) / 1e9,
+        "bound_ms": bound, "k6_share_pct": 100.0 * bound / ms["k6"],
+        "graph_share_pct": 100.0 * bound / ms["graph"],
+        "k6_gb_per_s": bound * flops.PEAK_BYTES / ms["k6"] / 1e9,
         "codes_frames_equal_graph": same_frames, "codes_frames": nf,
         "k6_repeats": bool(torch.equal(torch.stack(k6_again), codes["k6"])),
         "forced_logits_rel_err": logits_err,
-        "clocks": clocks, "clocks_ptxas": bench_ar.PTXAS.get("csm_depth_clocks"),
+        "clocks": clocks, "clocks_ptxas": kernels.ptxas(lib) if args.clocks else None,
     }
     line = json.dumps(result)
     print(line, flush=True)

@@ -1,42 +1,38 @@
 """Per-stage timing of kernel K2, per-launch timing of kernels K3 and K4,
 in float32 and bfloat16, and (with `--old-src`) the same kernels of an older
 `csrc/` beside them, plus K1 and K5 as `bench_ar` compares them, on one
-NVIDIA GPU, beside the library calls for the same work and the bounds.
+NVIDIA GPU, beside the library calls for the same work and each bound.
 
     python -m sopro_tpu_torch.bench_kernels [--old-src DIR] [--out PATH]
 
 Full Sopro v1.5 and Mimi widths, random weights from a numpy seed, TF32 off,
-CUDA-event medians with warm caches. K2 at 6, 187, 401 and 1,604 rows per
-stage: this tree's kernel, the older one and einsum + argmax. K3 at B = 1
-and 4: cuDNN (`F.conv1d` / `F.conv_transpose1d`, the conv alone) per conv
-of the decoder plan, this tree's and the older kernels per launch, the whole
-stack. K4 at chunks of 6 and 16 AR frames (ext of 8 + 12 and 8 + 32 rows,
-B = 1 and 2): both trees' launches one by one and whole, the plain version
-and the cuDNN stack. An older `csrc/` (from before K2 and K3's conv moved
-to `wgmma`) takes row-major packs ([H, kp, vp] and [taps, cinp, np]):
-`old_pack` transposes this tree's K-major ones, and its libraries are built
-with this tree's nvcc flags and swapped in for the wrappers' (`swapped`).
-bfloat16: the same shapes with the weights and inputs cast. Bounds per row:
-FLOP over 67 TFLOP/s (fp32 CUDA cores) and three times the FLOP over
-495 TFLOP/s (3-pass TF32 tensor cores), bytes (inputs read once, output
-written once) over 3.35 TB/s. `bound(..., bf16=True)` is the bound of a
-kernel's bfloat16 instantiation: its bytes at 2 bytes an element, its
-products (bfloat16 operands, float32 accumulation) over the card's
-989 TFLOP/s bfloat16 tensor-core rate, K1 / K5 included; `design_bound_ms`
-keeps the ceiling of the design the kernels took (K2-K4: bfloat16 `wgmma`,
-the same; K1 / K5: fp32 FMAs on widened bfloat16 weights at the CUDA-core
-rate). `nar_library`
-is K2's library yardstick in either dtype (einsum + argmax in the inputs'
-dtype; timed only, the port never calls it). Prints tables and writes them
-as JSON to PATH (default build/bench_kernels.json).
+CUDA-event medians with warm caches. K2 at 6, 187, 401 and 1,604 rows: per
+stage this tree's kernel, the older one and einsum + argmax, and the four
+stages together against the bound. K3 at B = 1 and 4: cuDNN
+(`F.conv1d` / `F.conv_transpose1d`, the conv alone) per conv of the decoder
+plan, both trees' kernels per launch, the whole stack. K4 at chunks of 6 and
+16 AR frames (ext of 8 + 12 and 8 + 32 rows, B = 1 and 2): both trees'
+launches one by one and whole, the plain version and the cuDNN stack. DIR is
+an older `csrc/` with today's packs and entry points: `kernels.build_variant`
+builds it with this tree's nvcc flags and `kernels.using` swaps it in for
+the wrappers' library. bfloat16: the same shapes with the weights and inputs
+cast.
+
+Bounds are the benchmark's (`cudabench/flops.py`), so a share here is what
+the cell's `k*_roofline_pct` reads: K2 `k2_bound_s` at the rows, K3
+`k3_bound_s` over B x 401 frames, K4 `k3_bound_s` over the chunk's frames;
+a single launch its own operations over the dtype's peak or its bytes
+(input, weights and output once) over HBM's rate, the larger
+(`launch_bound_ms`). `nar_library` is K2's library yardstick in either dtype
+(einsum + argmax in the inputs' dtype; timed only, the port never calls it).
+Prints tables and writes them as JSON to PATH (default
+build/bench_kernels.json).
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
-import hashlib
+import dataclasses
 import json
 import math
 import statistics
@@ -48,13 +44,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cudabench import flops
 from sopro_tpu_torch import kernels
 
-PEAK_FP32, PEAK_TF32, PEAK_BF16, HBM = 67e12, 495e12, 989e12, 3.35e12
 NAR_ROWS = (6, 187, 401, 1604)
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
+    """Median milliseconds of `fn` on the device (CUDA events, one warm-up)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -68,42 +65,31 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def bounds(flop: float, nbytes: float) -> dict:
-    return {"gflop": flop / 1e9, "mbytes": nbytes / 1e6, "fp32_ms": flop / PEAK_FP32 * 1e3,
-            "tf32x3_ms": 3 * flop / PEAK_TF32 * 1e3, "bytes_ms": nbytes / HBM * 1e3}
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
-def bound(flop: float, nbytes: float, tf32x3: bool, bf16: bool = False) -> dict:
-    """The least time the card could take (ms): the larger of the bytes over
-    HBM's rate and the operations over the card's peak rate for their type.
-    Float32 (`bf16` false): 3xTF32 on the tensor cores where the kernel uses
-    them (`tf32x3`), else the fp32 CUDA cores. Bfloat16: the 989 TFLOP/s
-    bfloat16 tensor-core rate whatever the design, whose own ceiling (the
-    bfloat16 tensor cores themselves for the `wgmma` kernels, the fp32 cores
-    where not `tf32x3`) is `design_bound_ms`.
-    `nbytes` counts the instantiation's own element size. `fp32_bound_ms`
-    keeps the CUDA-core bound beside it."""
-    b = bounds(flop, nbytes)
-    if bf16:
-        ops_ms, rate = flop / PEAK_BF16 * 1e3, "bf16 tensor cores"
-        design_ms = ops_ms if tf32x3 else b["fp32_ms"]
-    else:
-        ops_ms, rate = ((b["tf32x3_ms"], "3xTF32 tensor cores") if tf32x3
-                        else (b["fp32_ms"], "fp32 cores"))
-    by_ops = ops_ms >= b["bytes_ms"]
-    out = {"bound_ms": max(ops_ms, b["bytes_ms"]), "bound_by": "operations" if by_ops else "bytes",
-           "bound_rate": rate if by_ops else "HBM",
-           "fp32_bound_ms": max(b["fp32_ms"], b["bytes_ms"])}
-    if bf16:
-        out["design_bound_ms"] = max(design_ms, b["bytes_ms"])
+def launch_bound_ms(flop: float, nbytes: float, dtype) -> float:
+    """One launch's bound at the benchmark's peaks: its operations over the
+    dtype's peak or its bytes over HBM's rate, the larger (ms)."""
+    return 1e3 * max(flop / flops.PEAK_FLOPS[dtype_name(dtype)], nbytes / flops.PEAK_BYTES)
+
+
+def roofline(bound_s: float, ms: float) -> dict:
+    """A bound from `cudabench.flops` (seconds) in ms, and its share of a
+    time `ms` in percent, as the cells' `k*_roofline_pct` read it."""
+    return {"bound_ms": 1e3 * bound_s, "share_pct": 1e5 * bound_s / ms}
+
+
+def _trees(old, source: str, measure) -> dict:
+    """`measure()` on this tree's library and, with `old` (another build of
+    `source`), again on that build (`kernels.using`), its keys prefixed
+    "old_"."""
+    out = measure()
+    if old is not None:
+        with kernels.using(source, old):
+            out.update({f"old_{k}": v for k, v in measure().items()})
     return out
-
-
-def nar_cost(rows: int, h: int, hd: int, v: int, es: int = 4):
-    """(FLOP, bytes) of one K2 stage: the products, and z, hid, W, b read
-    (`es` bytes an element) and the int32 ids written once."""
-    return (2.0 * rows * h * hd * v,
-            es * (rows * hd + h * hd + h * hd * v + h * v) + 4.0 * rows * h)
 
 
 def nar_library(z: torch.Tensor, hid: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
@@ -112,35 +98,6 @@ def nar_library(z: torch.Tensor, hid: torch.Tensor, w: torch.Tensor, b: torch.Te
     `configure_cuda_numerics`), the bias, and argmax."""
     zh = z[:, :, None, :] + hid[None, None]
     return torch.argmax(torch.einsum("bthd,hdv->bthv", zh, w) + b[None, None], dim=-1)
-
-
-def conv_stack_cost(ops, b: int, t_in: int, causal: bool, keep=None):
-    """(FLOP, bytes) of the SEANet over b rows of t_in frames, from the
-    per-conv ops (`pack_seanet_decoder(...)["ops"]`): causal convs keep the
-    length, valid ones shrink by the receptive field, and the last conv
-    computes only `keep` rows when given. Bytes: the embeddings and the
-    weights read, the waveform written, at the weights' element size."""
-    flop, t, cin0 = 0.0, t_in, int(ops[0]["w"].shape[-2])
-    for i, op in enumerate(ops):
-        taps, cin, cout = (int(s) for s in op["w"].shape[-3:])
-        t_out = t if causal else t - (taps - 1) * int(op["dil"])
-        if keep is not None and i == len(ops) - 1:
-            t_out = keep
-        flop += 2.0 * b * t_out * int(op["phases"]) * taps * cin * cout
-        t = t_out * int(op["phases"])
-    weights = sum(op["w"].numel() + op["b"].numel() for op in ops)
-    return flop, float(ops[0]["w"].element_size()) * (b * t_in * cin0 + weights + b * t)
-
-
-def ar_cost(stacked, kv_k, steps: int, rows: int):
-    """(FLOP, bytes) of `steps` AR steps of `rows` rows on the kernel's
-    stacked weights: each weight element one multiply-add per row and step,
-    the text attention 4 L D per attention layer; the weights and the text
-    KV read once, at their element size."""
-    weights = sum(t.numel() for t in stacked.values())
-    a, _, heads, l_txt, hd = kv_k.shape
-    flop = 2.0 * steps * rows * (weights + 2 * a * l_txt * heads * hd)
-    return flop, float(kv_k.element_size()) * (weights + 2 * kv_k.numel())
 
 
 def seanet_library_weights(params, plan):
@@ -191,100 +148,30 @@ def seanet_library(lib_weights, x: torch.Tensor) -> torch.Tensor:
     return h[:, 0]
 
 
-def old_lib(src_dir: Path, name: str) -> ctypes.CDLL:
-    """Build `src_dir/name.cu` with this tree's nvcc flags (cached by hash)."""
-    src = Path(src_dir) / f"{name}.cu"
-    h = hashlib.sha256(" ".join(kernels.NVCC_FLAGS).encode())
-    for f in [src] + sorted(Path(src_dir).glob("*.cuh")):
-        h.update(f.read_bytes())
-    out = kernels.BUILD_DIR.parent / "kernels_old" / f"lib{name}_{h.hexdigest()[:16]}.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out), str(src)],
-                       check=True, capture_output=True)
-    return ctypes.CDLL(str(out))
-
-
-@contextlib.contextmanager
-def swapped(name: str, lib):
-    """The wrappers launch `lib` (an older build of source `name`) inside."""
-    if lib is None:
-        yield
-        return
-    saved = kernels.lib(name)
-    kernels._LIBS[name] = lib
-    try:
-        yield
-    finally:
-        kernels._LIBS[name] = saved
-
-
-def old_pack(packed):
-    """This tree's K-major packs in the older sources' layouts: a K2 pack
-    {"hi", "lo"} [H, vp, kp] -> row-major [H, kp, vp]; a K3 pack -> its
-    launch list with each conv's hi / lo [taps, np, cinp] -> [taps, cinp,
-    np] and the ELU back on the input of the conv that reads it (the older
-    kernels have no ELU on the output), each fused block's w1 [3 * C/2, C]
-    -> [3C, C/2] and w2 [C, C/2] (K in `resblock_k_order`) -> [C/2, C]."""
-    from sopro_tpu_torch.codec.vocoder import resblock_k_order
-
-    t = (lambda x: None if x is None else x.transpose(-1, -2).contiguous())
-    if "k3" not in packed:
-        return {k: t(v) for k, v in packed.items()}
-    out = []
-    for x in packed["k3"]:
-        if x["kind"] == "conv":
-            out.append(dict(x, hi=t(x["hi"]), lo=t(x["lo"]), elu_out=False,
-                            elu_in=bool(packed["ops"][x["op"]]["elu_in"])))
-            continue
-        c, h = x["c"], x["c"] // 2
-        back = torch.argsort(resblock_k_order(h, x["w2hi"].dtype))
-        w1 = (lambda w: None if w is None else w.reshape(3, h, c).transpose(1, 2).reshape(3 * c, h).contiguous())
-        w2 = (lambda w: None if w is None else w[:, back].t().contiguous())
-        out.append(dict(x, w1hi=w1(x["w1hi"]), w1lo=w1(x["w1lo"]), w2hi=w2(x["w2hi"]),
-                        w2lo=w2(x["w2lo"]), elu_out=False))
-    return out
-
-
-def nar_old(lib, z, hid, b, packed_old):
-    """An older nar_heads.cu's entry point on its row-major pack."""
-    bf16 = z.dtype == torch.bfloat16
-    fn = getattr(lib, "sopro_nar_heads_argmax" + ("_bf16" if bf16 else ""))
-    fn.argtypes = [ctypes.c_void_p] * (5 if bf16 else 6) + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    h, kp, vp = packed_old["hi"].shape
-    out = torch.empty(tuple(z.shape[:2]) + (h,), dtype=torch.int32, device=z.device)
-    ptrs = [z, hid, packed_old["hi"]] + ([] if bf16 else [packed_old["lo"]]) + [b, out]
-    with kernels.on_device(z.device) as stream:
-        rc = fn(*[kernels.ptr(x) for x in ptrs], int(z.shape[0] * z.shape[1]), h, int(z.shape[2]),
-                kp, int(b.shape[1]), vp, stream)
-    kernels.check(rc, "nar_heads (old)")
-    return out
-
-
 def bench_nar(model, dev, rng, old, dtype) -> list:
+    """K2 at NAR_ROWS rows: per stage both trees' kernels and the library
+    call, and the stages' sum against `k2_bound_s` at the rows."""
     from sopro_tpu_torch.ops.nar_heads import nar_heads_argmax, nar_heads_argmax_plain, pack_nar_heads
 
-    es = torch.finfo(dtype).bits // 8
+    c = model.cfg.to_dict()
     rows_out = []
     for rows in NAR_ROWS:
+        stages = []
         for stage, stack in model.nar.head_stacks().items():
             hid, w, b = (x.to(dtype) for x in stack[:3])
             packed = stack[3] if dtype == torch.float32 else pack_nar_heads(w)
-            h, hd, v = w.shape
-            z = torch.from_numpy(rng.standard_normal((1, rows, hd)).astype(np.float32)).to(dev, dtype)
-            flop, nbytes = nar_cost(rows, h, hd, v, es)
-            row = {"rows": rows, "stage": stage, "H": h, **bounds(flop, nbytes),
-                   **bound(flop, nbytes, tf32x3=True, bf16=dtype == torch.bfloat16),
-                   "library_ms": cuda_ms(lambda: nar_library(z, hid, w, b)),
-                   "ms": cuda_ms(lambda: nar_heads_argmax(z, hid, w, b, packed))}
+            z = torch.from_numpy(rng.standard_normal((1, rows, w.shape[1])).astype(np.float32)).to(dev, dtype)
             want = nar_heads_argmax_plain(z, hid, w, b)
-            row["ids_differ"] = int((nar_heads_argmax(z, hid, w, b, packed) != want).sum())
-            if old is not None:
-                po = old_pack(packed)
-                row["old_ms"] = cuda_ms(lambda: nar_old(old, z, hid, b, po))
-                row["old_ids_differ"] = int((nar_old(old, z, hid, b, po) != want).sum())
-            rows_out.append(row)
+            run = (lambda: nar_heads_argmax(z, hid, w, b, packed))
+            stages.append({"stage": stage, "H": w.shape[0],
+                           "library_ms": cuda_ms(lambda: nar_library(z, hid, w, b)),
+                           **_trees(old, "nar_heads", lambda: {
+                               "ms": cuda_ms(run), "ids_differ": int((run() != want).sum())})})
+        row = {"rows": rows, "stages": stages}
+        for key in ("ms", "old_ms", "library_ms"):
+            if key in stages[0]:
+                row[key] = sum(s[key] for s in stages)
+        rows_out.append(dict(row, **roofline(flops.k2_bound_s(c, rows, dtype_name(dtype)), row["ms"])))
     return rows_out
 
 
@@ -317,19 +204,22 @@ def _decoder(mimi, dtype):
 
 
 def bench_seanet(mimi, dev, rng, b: int, old, dtype) -> dict:
+    """K3 over B x 401 frames: cuDNN per conv (float32), both trees' launches
+    and whole stacks, the plain version and the cuDNN stack, against
+    `k3_bound_s`."""
     from sopro_tpu_torch.codec.mimi import decode_embeddings, seanet_apply
     from sopro_tpu_torch.codec.mimi_config import decoder_plan
-    from sopro_tpu_torch.codec.vocoder import run_launches, seanet_decode
+    from sopro_tpu_torch.codec.vocoder import seanet_decode
 
     cfg = mimi.cfg
-    bf16 = dtype == torch.bfloat16
     params, packed = _decoder(mimi, dtype)
     plan = decoder_plan(cfg)
-    codes = torch.from_numpy(rng.integers(0, cfg.codebook_size, (b, 401, cfg.num_quantizers))).to(dev)
-    out = {"B": b, "dtype": str(dtype).replace("torch.", ""), "convs": []}
+    frames = 401
+    codes = torch.from_numpy(rng.integers(0, cfg.codebook_size, (b, frames, cfg.num_quantizers))).to(dev)
+    out = {"B": b, "dtype": dtype_name(dtype), "convs": []}
     with torch.inference_mode():
         emb = decode_embeddings(mimi.p, cfg, codes).contiguous().to(dtype)
-        if not bf16:  # cuDNN per conv of the plan, inputs from the plain stack
+        if dtype == torch.float32:  # cuDNN per conv of the plan, inputs from the plain stack
             inputs, x, block_in = [], emb, None
             for op in packed["ops"]:
                 res = block_in if op["residual"] else None
@@ -350,26 +240,20 @@ def bench_seanet(mimi, dev, rng, b: int, old, dtype) -> dict:
                     xt = F.pad(xt, (c["pad"], 0))
                     lib = (lambda xt=xt, c=c: F.conv1d(xt, c["w"], dilation=c["dil"]))
                 out["convs"].append({"conv": name, "M": bb * t, "N": ph * cout, "K": taps * cin,
-                                     **bounds(flop, nbytes), "library_ms": cuda_ms(lib, 5)})
-        out["launches"] = _bench_k3_launches(packed["k3"], emb)
+                                     "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
+                                     "bound_ms": launch_bound_ms(flop, nbytes, dtype),
+                                     "library_ms": cuda_ms(lib, 5)})
         want = seanet_apply(params, plan, emb)[..., 0]
+        ref64 = _float64(params, plan, emb)
         out["plain_ms"] = cuda_ms(lambda: seanet_apply(params, plan, emb), 5)
         lib_w = seanet_library_weights(params, plan)
         out["library_ms"] = cuda_ms(lambda: seanet_library(lib_w, emb), 5)
-        out["ms"] = cuda_ms(lambda: seanet_decode(packed, cfg, emb), 5)
-        out.update(bound(*conv_stack_cost(packed["ops"], b, emb.shape[1], causal=True),
-                         tf32x3=True, bf16=bf16))
-        got = seanet_decode(packed, cfg, emb)
-        out["err"] = _errors(got, emb, params, plan, want)
-        if old is not None:
-            launches_old = old_pack(packed)
-            with swapped("seanet", old):
-                old_rows = _bench_k3_launches(launches_old, emb)
-                out["old_ms"] = cuda_ms(lambda: run_launches(launches_old, emb), 5)
-                out["old_err"] = float((run_launches(launches_old, emb) - want).abs().max())
-            for r, o in zip(out["launches"], old_rows):
-                r["old_ms"] = o["ms"]
-    return out
+        out.update(_trees(old, "seanet", lambda: {
+            "launches": _bench_k3_launches(packed["k3"], emb),
+            "ms": cuda_ms(lambda: seanet_decode(packed, cfg, emb), 5),
+            "err": _errors(seanet_decode(packed, cfg, emb), want, ref64)}))
+    return dict(out, **roofline(flops.k3_bound_s(dataclasses.asdict(cfg), b * frames, dtype_name(dtype)),
+                                out["ms"]))
 
 
 def _bench_k3_launches(launches, emb, valid: bool = False, keep=None, reps: int = 5) -> list:
@@ -400,7 +284,8 @@ def _bench_k3_launches(launches, emb, valid: bool = False, keep=None, reps: int 
             nbytes = es * (x.numel() + m * launch["n"] * (2 if res is not None else 1)
                            + launch["taps"] * launch["cin"] * launch["n"])
             name = f"conv k{launch['taps']} {launch['cin']}->{launch['n']}"
-        rows.append({"launch": name, "M": m, **bounds(flop, nbytes), "ms": cuda_ms(fn, reps)})
+        rows.append({"launch": name, "M": m, "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
+                     "bound_ms": launch_bound_ms(flop, nbytes, emb.dtype), "ms": cuda_ms(fn, reps)})
         x = fn()
     return rows
 
@@ -408,7 +293,8 @@ def _bench_k3_launches(launches, emb, valid: bool = False, keep=None, reps: int 
 def bench_seanet_chunk(mimi, dev, rng, old, b: int, m25: int, dtype) -> dict:
     """K4 on ext [b, halo + m25, H] (full history): both trees' launches one
     by one and whole, the plain version and the cuDNN stack
-    (`seanet_library`)."""
+    (`seanet_library`), against `k3_bound_s` over the chunk's b x m25 / 2
+    frames."""
     from sopro_tpu_torch.codec.mimi import decode_embeddings
     from sopro_tpu_torch.codec.mimi_config import decoder_plan, required_halo
     from sopro_tpu_torch.codec.vocoder import seanet_decode_chunk, seanet_decode_chunk_plain
@@ -420,26 +306,18 @@ def bench_seanet_chunk(mimi, dev, rng, old, b: int, m25: int, dtype) -> dict:
     codes = torch.from_numpy(rng.integers(0, cfg.codebook_size,
                                           (b, -(-(halo + m25) // 2), cfg.num_quantizers))).to(dev)
     lib_w = seanet_library_weights(params, decoder_plan(cfg))
-    out = {"B": b, "m25": m25, "dtype": str(dtype).replace("torch.", "")}
+    out = {"B": b, "m25": m25, "dtype": dtype_name(dtype)}
     with torch.inference_mode():
         ext = decode_embeddings(mimi.p, cfg, codes)[:, -(halo + m25):].contiguous().to(dtype)
-        out["launches"] = _bench_k3_launches(packed["k3"], ext, valid=True, keep=n_out, reps=20)
-        out["ms"] = cuda_ms(lambda: seanet_decode_chunk(packed, cfg, ext))
         out["plain_ms"] = cuda_ms(lambda: seanet_decode_chunk_plain(params, cfg, ext))
         out["library_ms"] = cuda_ms(lambda: seanet_library(lib_w, ext)[:, -n_out:])
-        out.update(bound(*conv_stack_cost(packed["ops"], b, ext.shape[1], causal=False, keep=n_out),
-                         tf32x3=True, bf16=dtype == torch.bfloat16))
         want = seanet_decode_chunk_plain(params, cfg, ext)
-        out["err"] = float((seanet_decode_chunk(packed, cfg, ext) - want).abs().max())
-        if old is not None:
-            packed_old = dict(packed, k3=old_pack(packed))
-            with swapped("seanet", old):
-                old_rows = _bench_k3_launches(packed_old["k3"], ext, valid=True, keep=n_out, reps=20)
-                out["old_ms"] = cuda_ms(lambda: seanet_decode_chunk(packed_old, cfg, ext))
-                out["old_err"] = float((seanet_decode_chunk(packed_old, cfg, ext) - want).abs().max())
-            for r, o in zip(out["launches"], old_rows):
-                r["old_ms"] = o["ms"]
-    return out
+        out.update(_trees(old, "seanet", lambda: {
+            "launches": _bench_k3_launches(packed["k3"], ext, valid=True, keep=n_out, reps=20),
+            "ms": cuda_ms(lambda: seanet_decode_chunk(packed, cfg, ext)),
+            "err": float((seanet_decode_chunk(packed, cfg, ext) - want).abs().max())}))
+    return dict(out, **roofline(flops.k3_bound_s(dataclasses.asdict(cfg), b * m25 // 2, dtype_name(dtype)),
+                                out["ms"]))
 
 
 def _conv_plain(op, x, res):
@@ -455,16 +333,19 @@ def _conv_plain(op, x, res):
     return y if res is None else y + res
 
 
-def _errors(got, emb, params, plan, want) -> dict:
-    """max|err| against the float32 plain version and a float64 one, over peak."""
+def _float64(params, plan, emb):
+    """The plain SEANet in float64 over emb."""
     from sopro_tpu_torch.codec.mimi import seanet_apply
     from sopro_tpu_torch.models.base import tree_map
 
     p64 = tree_map(lambda a: a.double() if torch.is_floating_point(a) else a, params)
-    ref64 = seanet_apply(p64, plan, emb.double())[..., 0]
-    peak = float(ref64.abs().max())
+    return seanet_apply(p64, plan, emb.double())[..., 0]
+
+
+def _errors(got, want, ref64) -> dict:
+    """max|err| against the plain version (`want`) and a float64 one, and the peak."""
     return {"vs_plain": float((got - want).abs().max()), "vs_f64": float((got.double() - ref64).abs().max()),
-            "plain_vs_f64": float((want.double() - ref64).abs().max()), "peak": peak}
+            "plain_vs_f64": float((want.double() - ref64).abs().max()), "peak": float(ref64.abs().max())}
 
 
 def main(argv=None) -> int:
@@ -486,7 +367,8 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     kernels.build()
-    old = {name: old_lib(args.old_src, name) for name in ("nar_heads", "seanet")} if args.old_src else {}
+    old = ({s: kernels.build_variant(s, src_dir=args.old_src) for s in ("nar_heads", "seanet")}
+           if args.old_src else {})
     cfg, mcfg = SoproTTSConfig(), MimiConfig()
     tree, mtree = W.init_sopro_params(args.seed, cfg, 259), W.init_mimi_params(args.seed, mcfg)
     W.fill_zero_inits(tree, mtree, args.seed + 1)
@@ -511,39 +393,43 @@ def main(argv=None) -> int:
     return 0
 
 
+def _launch_rows(s) -> None:
+    old = s.get("old_launches") or [{}] * len(s["launches"])
+    for r, o in zip(s["launches"], old):
+        print(f"  {r['launch']:28s} {r['M']:8d} | {r['gflop']:.3f} {r['mbytes']:.1f} | "
+              f"{r['bound_ms']:.4f} | {r['ms']:.4f} | {o.get('ms', math.nan):.4f}")
+
+
 def report(result) -> None:
     nan = math.nan
     print(result["card"])
     for key in ("", "_bf16"):
         dt = "bfloat16" if key else "float32"
-        print(f"K2 {dt} per stage: rows stage H | GFLOP MB | bound ms | kernel ms | old ms | "
-              "einsum+argmax ms | ids differ (new, old)")
+        print(f"K2 {dt}: rows | bound ms | kernel ms (share) | old ms | einsum+argmax ms; per stage: "
+              "H | ms | old ms | library ms | ids differ (new, old)")
         for r in result["nar" + key]:
-            print(f"  {r['rows']:5d} {r['stage']} {r['H']:2d} | {r['gflop']:.3f} {r['mbytes']:.1f} | "
-                  f"{r['bound_ms']:.4f} | {r['ms']:.4f} | {r.get('old_ms', nan):.4f} | "
-                  f"{r['library_ms']:.4f} | {r['ids_differ']}, {r.get('old_ids_differ', '-')}")
+            print(f"  {r['rows']:5d} | {r['bound_ms']:.4f} | {r['ms']:.4f} ({r['share_pct']:.1f} %) | "
+                  f"{r.get('old_ms', nan):.4f} | {r['library_ms']:.4f}")
+            for s in r["stages"]:
+                print(f"        {s['stage']} {s['H']:2d} | {s['ms']:.4f} | {s.get('old_ms', nan):.4f} | "
+                      f"{s['library_ms']:.4f} | {s['ids_differ']}, {s.get('old_ids_differ', '-')}")
         for s in result["seanet" + key]:
             for r in s["convs"]:
                 print(f"  cuDNN {r['conv']:28s} {r['M']:8d} {r['N']:5d} {r['K']:5d} | "
-                      f"{r['gflop']:.2f} {r['mbytes']:.1f} | {r['tf32x3_ms']:.4f} {r['bytes_ms']:.4f} | "
-                      f"{r['library_ms']:.4f}")
-            print(f"K3 {dt} B={s['B']} launches: M | GFLOP MB | 3xTF32 / bytes bound ms | ms | old ms")
-            for r in s["launches"]:
-                print(f"  {r['launch']:28s} {r['M']:8d} | {r['gflop']:.2f} {r['mbytes']:.1f} | "
-                      f"{r['tf32x3_ms']:.4f} {r['bytes_ms']:.4f} | {r['ms']:.4f} | {r.get('old_ms', nan):.4f}")
+                      f"{r['gflop']:.2f} {r['mbytes']:.1f} | {r['bound_ms']:.4f} | {r['library_ms']:.4f}")
+            print(f"K3 {dt} B={s['B']} launches: M | GFLOP MB | bound ms | ms | old ms")
+            _launch_rows(s)
             print(f"  whole stack: kernel {s['ms']:.3f} ms, old {s.get('old_ms', nan):.3f} ms, plain "
                   f"{s['plain_ms']:.3f} ms, cuDNN stack {s['library_ms']:.3f} ms, bound "
-                  f"{s['bound_ms']:.4f} ms ({s['bound_rate']}); errors {s['err']}, old vs plain "
-                  f"{s.get('old_err', nan):.3e}")
+                  f"{s['bound_ms']:.4f} ms ({s['share_pct']:.1f} %); errors {s['err']}, old "
+                  f"{s.get('old_err', '-')}")
         for s in result["seanet_chunk" + key]:
-            print(f"K4 {dt} B={s['B']} m25={s['m25']}: launch | M | GFLOP MB | 3xTF32 / bytes bound ms "
-                  "| ms | old ms")
-            for r in s["launches"]:
-                print(f"  {r['launch']:28s} {r['M']:7d} | {r['gflop']:.3f} {r['mbytes']:.1f} | "
-                      f"{r['tf32x3_ms']:.4f} {r['bytes_ms']:.4f} | {r['ms']:.4f} | {r.get('old_ms', nan):.4f}")
+            print(f"K4 {dt} B={s['B']} m25={s['m25']}: launch | M | GFLOP MB | bound ms | ms | old ms")
+            _launch_rows(s)
             print(f"  chunk: kernel {s['ms']:.3f} ms, old {s.get('old_ms', nan):.3f} ms, plain "
                   f"{s['plain_ms']:.3f} ms, cuDNN stack {s['library_ms']:.3f} ms, bound "
-                  f"{s['bound_ms']:.4f} ms; max|err| new {s['err']:.3e}, old {s.get('old_err', nan):.3e}")
+                  f"{s['bound_ms']:.4f} ms ({s['share_pct']:.1f} %); max|err| new {s['err']:.3e}, "
+                  f"old {s.get('old_err', nan):.3e}")
     if "ar" in result:
         from sopro_tpu_torch import bench_ar
 

@@ -19,6 +19,10 @@ instantiation (`count(name, dtype)`; `LAUNCHES_BY_DTYPE` maps the dtype
 name to the dict); `reset_launches()` zeroes both. `LAUNCH_INFO` keeps
 what a kernel chose at launch time (the AR kernels' cluster size).
 
+Tools that time another build of a source (an older `csrc/`, a text edit,
+a define) build it with `build_variant` and launch it through the same
+wrappers inside `using(source, lib)`; nothing else builds or swaps a library.
+
 Every C entry point runs inside `on_device(tensor.device)`: the CUDA runtime
 launches, sets a kernel's shared-memory attribute and answers occupancy
 queries for the *current* device only, so a call for tensors on another card
@@ -31,11 +35,12 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -81,25 +86,43 @@ def _nvcc() -> str:
     return _tool("nvcc")
 
 
-def _sources(name: str):
-    return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+def _plan(name: str, src_dir=None, edits=(), defines=()):
+    """(library path, source bytes, nvcc flags, source directory) of
+    `<src_dir>/<name>.cu` (default `csrc/`) with its text `edits` applied and
+    `defines` added to the tree's flags. The path hashes the flags, the
+    edited source and the directory's headers: the tree's own source maps to
+    the tree's library wherever it lies."""
+    src_dir = CSRC if src_dir is None else Path(src_dir)
+    data = (src_dir / f"{name}.cu").read_bytes()
+    for old, new in edits:
+        if old.encode() not in data:
+            raise ValueError(f"{name}.cu: edit text not found: {old!r}")
+        data = data.replace(old.encode(), new.encode())
+    flags = [*NVCC_FLAGS, *defines]
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(f"{name}.cu".encode())
+    h.update(data)
+    for header in sorted(src_dir.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so", data, flags, src_dir
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(name):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return _plan(name)[0]
 
 
-def _start_build(name: str):
-    out = _lib_path(name)
+def _start_build(name: str, src_dir=None, edits=(), defines=()):
+    out, data, flags, src_dir = _plan(name, src_dir, edits, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = src_dir / f"{name}.cu"
+    if edits:  # the edited copy beside the library, its headers from src_dir
+        src = out.with_suffix(".cu")
+        src.write_bytes(data)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *flags, "-I", str(src_dir), "-o", str(tmp), str(src)]
     log = open(out.with_suffix(".log"), "w")
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     return proc, log, tmp, out
@@ -126,10 +149,29 @@ def build(names: Iterable[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def build_log(name: str) -> str:
-    """nvcc's output (ptxas register / shared-memory report) for a source."""
-    path = _lib_path(name).with_suffix(".log")
-    return path.read_text() if path.exists() else ""
+def build_variant(source: str, *, edits=(), defines=(), src_dir=None) -> ctypes.CDLL:
+    """Another build of `csrc/<source>.cu`, or of the same file under
+    `src_dir` (an older `csrc/` with today's packs and entry points), for
+    tools that time it beside the tree's: `edits` are (text, replacement)
+    pairs applied first (a missing text raises ValueError before nvcc
+    runs), `defines` extra nvcc flags ("-DSOPRO_AR_CLOCKS"). Built with the
+    tree's NVCC_FLAGS into `build/kernels/`, cached by content hash
+    (`ptxas(lib)` reads its register report); launch it through the
+    wrappers inside `using(source, lib)`."""
+    job = _start_build(source, src_dir, edits, defines)
+    if job is not None:
+        _finish_build(source, job)
+    return ctypes.CDLL(str(_plan(source, src_dir, edits, defines)[0]))
+
+
+def ptxas(library) -> List[str]:
+    """ptxas' register and spill lines of a build: a source name (the
+    tree's library) or a library `build_variant` returned."""
+    path = _lib_path(library) if isinstance(library, str) else Path(library._name)
+    log = path.with_suffix(".log")
+    if not log.exists():
+        return []
+    return [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
 
 
 def sass_counts(name: str, kernel: str, opcodes: Iterable[str]) -> Dict[str, Dict[str, int]]:
@@ -155,6 +197,30 @@ def lib(name: str) -> ctypes.CDLL:
         build([name])
         _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return _LIBS[name]
+
+
+def entry_points(source: str) -> List[str]:
+    """The C entry points of `source`: the `extern "C"` functions of the
+    tree's file that the library the wrappers load exports (not those behind
+    a define)."""
+    text = (CSRC / f"{source}.cu").read_text()
+    return [n for n in re.findall(r'extern "C"[^(;]*?(\w+)\s*\(', text) if hasattr(lib(source), n)]
+
+
+@contextlib.contextmanager
+def using(source: str, variant: ctypes.CDLL):
+    """Inside, the wrappers launch `variant` (from `build_variant`) for
+    `source`; on leaving, even by an exception, the tree's library again.
+    A variant that lacks one of the tree's entry points is refused."""
+    tree = lib(source)
+    for name in entry_points(source):
+        if not hasattr(variant, name):
+            raise RuntimeError(f"{source}: the variant has no entry point {name}")
+    _LIBS[source] = variant
+    try:
+        yield variant
+    finally:
+        _LIBS[source] = tree
 
 
 def entry(source: str, name: str, argtypes) -> ctypes._CFuncPtr:

@@ -227,12 +227,14 @@ def test_train_step_flops_against_torch_flop_counter():
 
 
 def test_new_modules_and_chip_smoke_leave_jax_out():
-    """The training, data-parallel, CLI, profiling and native modules and
-    chip_smoke.py import neither JAX nor the JAX package (a fresh
-    interpreter)."""
+    """The training, data-parallel, CLI, profiling and native modules, the
+    kernel tools and chip_smoke.py import neither JAX nor the JAX package (a
+    fresh interpreter)."""
     code = (
         "import sys, chip_smoke, sopro_tpu_torch.train, sopro_tpu_torch.parallel, "
-        "sopro_tpu_torch.cli, sopro_tpu_torch.profiling, sopro_tpu_torch.native\n"
+        "sopro_tpu_torch.cli, sopro_tpu_torch.profiling, sopro_tpu_torch.native, "
+        "sopro_tpu_torch.bench_kernels, sopro_tpu_torch.bench_ar, "
+        "sopro_tpu_torch.bench_ablation, sopro_tpu_torch.bench_csm\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'sopro_tpu' or m.startswith('sopro_tpu.')]\n"
         "assert not bad, bad\n"
