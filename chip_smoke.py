@@ -145,36 +145,45 @@ Phases (each raises, so the script exits non-zero, on failure):
    beside the unsharded step timed in the same turn and phase 11's.
 16. CSM-1B (`csrc/csm_depth.cu`, K6: a frame's 31 depth passes and their
    samples in one launch). K6 at CSM-1B's widths (random depth weights from
-   a seed, `bench_csm.depth_model`; top-k 50, temperature 0.9) against its
+   a seed, `bench_csm.csm_model`; top-k 50, temperature 0.9) against its
    plain version (`ops/csm_depth.depth_plain`: the eager passes with
    `sample_topk`) on 8 frames of the same noise: codes equal up to the
    first decision whose score gap or top-k edge margin is under 1e-4,
    forced-mode logits within 1e-5 of their peak, a second run bit for bit;
    ms a frame of K6, of the plain passes and of the same passes replayed as
    one CUDA graph (`bench_csm.LibraryGraph`, the library yardstick), and
-   the bound (`bench_csm.bound_ms`). Then `CsmTTS` at
+   the bound (`bench_csm.bound_ms`). K7 (`csrc/csm_backbone.cu`, the
+   backbone step in one launch) at CSM-1B's widths from a backbone cache
+   prefilled to 300 positions (`bench_csm.backbone_record`), against its
+   plain version (`ops/csm_backbone.step_plain`) over 8 steps: picks equal
+   up to the first near-tie and equal to `sample_topk` of its own logits,
+   forced logits within 1e-5 of their peak, a second run bit for bit; ms a
+   step of K7 (30 steps from position 300), of the plain step and of the
+   same step replayed as one CUDA graph (`bench_csm.StepGraph`), and the
+   bound (`bench_csm.backbone_bound_ms`). Then `CsmTTS` at
    the published widths (the benchmark's configuration and weights,
    `cudabench/configs/csm-1b-fp32.json`), three 100-frame `synthesize`
    requests, the counters zeroed before each and read after: one K6
-   launch a frame computed, K3 once, no Sopro kernel; a repeat equal bit
-   for bit; seconds, ms a frame, seconds of audio per second.
+   launch a frame computed and one K7 launch a frame after the first, K3
+   once, no Sopro kernel; a repeat equal bit for bit; seconds, ms a frame,
+   seconds of audio per second.
 The last three lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}. Per kernel the record holds its
 launches in its path's counted run and per request of that run (K1, K2 and
 K4 also in the serve run, per session), its time,
 its plain version's, the library's (K2: einsum + argmax; K3 and K4: the
 stack as cuDNN convs, `bench_kernels.seanet_library`; K6: the passes as one
-CUDA graph; K1 and K5: none), and
+CUDA graph; K7: the step as one CUDA graph; K1 and K5: none), and
 its bound and its share of it, the count the benchmark's cells read
 (`cudabench/flops.py`: K1 `k1_bound_s` over the steps run, K5 at one step,
 K2 `k2_bound_s`, K3 `k3_bound_s`, K4 `k3_bound_s` over the chunk's frames;
-K6 `bench_csm.bound_ms`); K2 also at 6, 187, 401 and 1,604 rows and at the
+K6 `bench_csm.bound_ms`, K7 `bench_csm.backbone_bound_ms`); K2 also at 6, 187, 401 and 1,604 rows and at the
 serve tick's window (no bound: no cell counts that window), K1 also at 1,
 4, 7, 8, 16 and 32 serving rows (with its launch facts), K3 also at B = 4,
 K4 also at chunk 16, with errors against float64 plain versions. Each
 record's "bf16" entry holds the same keys for the kernel's bfloat16
 instantiation (launches from the bf16 path it belongs to; the bound in
-bfloat16); K6 has none.
+bfloat16); K6 and K7 have none.
 """
 
 from __future__ import annotations
@@ -212,6 +221,7 @@ KERNELS = {
     "seanet": ("sopro_tpu_torch/csrc/seanet.cu", "sopro_tpu/codec/pallas_vocoder.py:353"),
     "seanet_chunk": ("sopro_tpu_torch/csrc/seanet.cu", "sopro_tpu/codec/pallas_vocoder.py:383"),
     "csm_depth": ("sopro_tpu_torch/csrc/csm_depth.cu", "none: CSM is port-only"),
+    "csm_backbone": ("sopro_tpu_torch/csrc/csm_backbone.cu", "none: CSM is port-only"),
 }
 CHUNK = 6  # stream() default chunk, AR frames
 # K4 as the serving tick runs it: 8 rows, chunk 16 (32 rows at 25 Hz), rows at different ages
@@ -2687,7 +2697,6 @@ CSM_TEXTS = (16, 64, 128)  # text ids of the three requests
 @torch.inference_mode()
 def check_csm_depth(dev):
     """Phase 16's K6 check at CSM-1B's widths (module docstring)."""
-    from cudabench.reference import csm as R
     from sopro_tpu_torch import bench_csm as BC
     from sopro_tpu_torch import sampling as S
     from sopro_tpu_torch.models.csm import CsmConfig, KVCache
@@ -2695,7 +2704,7 @@ def check_csm_depth(dev):
 
     cfg, nf, t, k = CsmConfig(), 8, BC.TEMPERATURE, BC.TOP_K
     q, v = cfg.num_codebooks, cfg.vocab_size
-    model = BC.depth_model(cfg, dev, SEED + 16)
+    model = BC.csm_model(cfg, dev, SEED + 16)
     cache = KVCache(cfg.depth, cfg.depth.max_position_embeddings, dev)
     kernel = DepthKernel(model, cache)
     g = torch.Generator(device=dev).manual_seed(SEED + 17)
@@ -2710,8 +2719,7 @@ def check_csm_depth(dev):
         k6(f, got[f])
 
         def pick(i, x, f=f):
-            _, gap, _, margin, _ = R.sample(x, noise[f, i: i + 1], t, k)
-            near.append(min(float(gap[0]), float(margin[0])) < 1e-4)
+            near.append(BC.near_tie(x[0], noise[f, i]))
             return S.sample_topk(x, noise[f, i: i + 1], t, k)
         depth_plain(model, cache, hs[f], c0s[f], pick, plain[f])
     for f in range(nf):
@@ -2749,6 +2757,31 @@ def check_csm_depth(dev):
             "codes_equal_until": first, "decisions": len(near)}
 
 
+@torch.inference_mode()
+def check_csm_backbone(dev):
+    """Phase 16's K7 check at CSM-1B's widths (module docstring)."""
+    from sopro_tpu_torch import bench_csm as BC
+    from sopro_tpu_torch.models.csm import CsmConfig
+
+    model = BC.csm_model(CsmConfig(), dev, SEED + 19)
+    rec = BC.backbone_record(model, BC.POSITIONS, 30, 3, SEED + 20)
+    if not (rec["picks_equal"] and rec["picks_are_sample_topk"] and rec["repeats"]):
+        raise AssertionError(f"K7: picks or repeats differ: {rec}")
+    if rec["forced_logits_rel_err"] > 1e-5:
+        raise AssertionError(f"K7: forced logits {rec['forced_logits_rel_err']:.3e} of their peak from "
+                             f"the plain step's")
+    log(f"  K7 picks equal the plain step's over {rec['picks_equal_until']} of {rec['steps']} steps, "
+        f"equal sample_topk of its logits, a repeat bit for bit; forced logits "
+        f"{rec['forced_logits_rel_err']:.3e}, h {rec['h_rel_err']:.3e}, cache rows "
+        f"{rec['cache_rel_err']:.3e} of their peak")
+    log(f"  K7 {rec['k7_ms']:.3f} ms a step at positions 300-329, plain {rec['plain_ms']:.3f}, library "
+        f"graph {rec['graph_ms']:.3f}, bound {rec['bound_ms']:.3f} ({rec['k7_share_pct']:.1f} % of it)")
+    return {"max_abs_err": rec["forced_logits_max_abs_err"], "logits_rel_err": rec["forced_logits_rel_err"],
+            "ms": rec["k7_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "share_pct": rec["k7_share_pct"], "library_ms": rec["graph_ms"],
+            "codes_equal_until": rec["picks_equal_until"], "decisions": rec["steps"]}
+
+
 def drive_csm(dev, rng, cfg):
     """Phase 16's `CsmTTS.synthesize` run (module docstring) on the
     benchmark's configuration `cfg` (its JSON)."""
@@ -2770,25 +2803,29 @@ def drive_csm(dev, rng, cfg):
     tts.synthesize(tok.add(rng.integers(0, vocab, 8)), ref=ref, max_frames=8, seed=0)
     torch.cuda.synchronize()
     texts = [tok.add(rng.integers(0, vocab, n)) for n in CSM_TEXTS]
-    out = {"launches": 0, "frames": [], "seconds": [], "k6_launches": []}
+    out = {"launches": 0, "backbone_launches": 0, "frames": [], "seconds": [], "k6_launches": [],
+           "k7_launches": []}
     for i, text in enumerate(texts):
         kernels.reset_launches()
         t1 = time.perf_counter()
         wav = tts.synthesize(text, ref=ref, max_frames=CSM_FRAMES, seed=SEED + 100 + i)
         sec = time.perf_counter() - t1
-        n = launched("CSM synthesize", ("csm_depth", "seanet"))
+        n = launched("CSM synthesize", ("csm_depth", "csm_backbone", "seanet"))
         frames = wav.shape[1] // hop
         if wav.shape != (1, frames * hop) or not np.isfinite(wav).all():
             raise AssertionError(f"CsmTTS.synthesize: bad waveform {wav.shape}")
         computed = CSM_FRAMES if frames == CSM_FRAMES else None
         ok = (n["csm_depth"] == computed if computed else
               frames < n["csm_depth"] <= min(CSM_FRAMES, frames + EOS_EVERY + 1))
+        ok = ok and n["csm_backbone"] == n["csm_depth"] - 1  # every frame after the first
         if not ok or n["seanet"] != 1 or any(n[x] for x in ("ar_loop", "ar_step", "nar_heads", "seanet_chunk")):
             raise AssertionError(f"CsmTTS.synthesize: launches {n} for {frames} frames")
         out["frames"].append(frames)
         out["seconds"].append(sec)
         out["k6_launches"].append(n["csm_depth"])
+        out["k7_launches"].append(n["csm_backbone"])
         out["launches"] += n["csm_depth"]
+        out["backbone_launches"] += n["csm_backbone"]
         log(f"  request {i}: {frames} frames, {frames * hop / sr:.2f} s of audio in {sec:.3f} s "
             f"({1e3 * sec / frames:.2f} ms a frame)")
     again = tts.synthesize(texts[0], ref=ref, max_frames=CSM_FRAMES, seed=SEED + 100)
@@ -2870,8 +2907,10 @@ def main() -> int:
     tp_out = drive_tp(train_tree, train_host, cfg, train)
     log(f"  tp summary: {json.dumps(tp_out)}")
     del train_tree, train_host
-    log("[16] CSM-1B: K6 against its plain version, CsmTTS.synthesize x3")
+    log("[16] CSM-1B: K6 and K7 against their plain versions, CsmTTS.synthesize x3")
     stats["csm_depth"] = check_csm_depth(dev)
+    torch.cuda.empty_cache()
+    stats["csm_backbone"] = check_csm_backbone(dev)
     torch.cuda.empty_cache()
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "cudabench", "configs",
                            "csm-1b-fp32.json")) as f:
@@ -2882,9 +2921,11 @@ def main() -> int:
     # each kernel's count from the path it belongs to (K4: the stream, K5: the per-step
     # route), and per request of that path's counted run
     launches = dict(synth_launches, seanet_chunk=stream_launches["seanet_chunk"],
-                    ar_step=step_launches["ar_step"], csm_depth=csm["launches"])
+                    ar_step=step_launches["ar_step"], csm_depth=csm["launches"],
+                    csm_backbone=csm["backbone_launches"])
     requests = dict({name: len(REQUESTS) for name in KERNELS},
-                    seanet_chunk=len(STREAM_REQUESTS), ar_step=PER_STEP_REQUESTS, csm_depth=CSM_REQUESTS)
+                    seanet_chunk=len(STREAM_REQUESTS), ar_step=PER_STEP_REQUESTS, csm_depth=CSM_REQUESTS,
+                    csm_backbone=CSM_REQUESTS)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "share_pct", "library_ms")
     extra = ("err_f64", "plain_err_f64", "by_rows", "B4",
              "chunk16", "serve_b8", "err_f64_worst", "us_per_step", "first_diff_production",

@@ -16,12 +16,18 @@ under the frame's key; vocab id v's uniform the block at counters (v, 0)
 under the codebook's key (`sampling.gumbel_for_ids`). All of a call's
 Gumbel noise is drawn in `csm.prepare`, so the frame loop only adds it.
 
-A frame's 31 depth passes and their samples are one call of
-`ops/csm_depth.csm_depth`: on the card one launch of kernel K6, which
-streams the depth weights through every pass and samples in the kernel, with
-or without a profiler; on the CPU the same passes eagerly (`_depth`,
-`ops/csm_depth.depth_plain`) with `sampling.sample_topk`. The backbone step
-stays eager (its cache grows a position a frame).
+A frame's backbone step (frames 1.., after the prefill) and codebook 0's
+decision are one call of `ops/csm_backbone.csm_backbone`: on the card one
+launch of kernel K7, which sums the previous frame's code embeddings,
+streams the backbone weights through its layers at the cache's next
+position, applies the head and samples in the kernel; on the CPU the same
+step eagerly (`ops/csm_backbone.step_plain`: `decoder` at one position,
+`codebook0_logits`, `sampling.sample_topk`). Its 31 depth passes and their
+samples are one call of `ops/csm_depth.csm_depth`: on the card one launch of
+kernel K6, which streams the depth weights through every pass and samples
+in the kernel; on the CPU the same passes eagerly (`_depth`,
+`ops/csm_depth.depth_plain`) with `sampling.sample_topk`. Both kernels run
+the same with or without a profiler. The prefill stays eager.
 
 The host reads "an end frame was sampled" once every `EOS_EVERY` frames,
 the one wait for the card inside the frame loop: it stops within
@@ -40,6 +46,7 @@ from sopro_tpu_torch import sampling as S
 from sopro_tpu_torch.codec.mimi import MimiCodec
 from sopro_tpu_torch.engine import configure_cuda_numerics
 from sopro_tpu_torch.models.csm import CsmModel, KVCache
+from sopro_tpu_torch.ops.csm_backbone import BackboneKernel, csm_backbone
 from sopro_tpu_torch.ops.csm_depth import DepthKernel, csm_depth, depth_plain
 from sopro_tpu_torch.profiling import span
 
@@ -85,6 +92,7 @@ class CsmEngine:
             configure_cuda_numerics()
         self._caches: Optional[Tuple[KVCache, KVCache]] = None
         self._kernel: Optional[DepthKernel] = None
+        self._backbone: Optional[BackboneKernel] = None
 
     def caches(self) -> Tuple[KVCache, KVCache]:
         """The backbone's cache (its whole context) and the depth decoder's
@@ -133,6 +141,15 @@ class CsmEngine:
             self._kernel = DepthKernel(self.model, self.caches()[1])
         return self._kernel
 
+    def backbone_kernel(self) -> Optional[BackboneKernel]:
+        """K7's launch over the model and the backbone cache on a CUDA device
+        (made at first use); None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        if self._backbone is None:
+            self._backbone = BackboneKernel(self.model, self.caches()[0])
+        return self._backbone
+
     def _depth(self, h: torch.Tensor, c: torch.Tensor,
                pick: Callable[[int, torch.Tensor], torch.Tensor], out: torch.Tensor) -> None:
         """One frame's depth passes eagerly (`depth_plain`) after the
@@ -142,15 +159,18 @@ class CsmEngine:
         depth_plain(self.model, self.caches()[1], h, c, pick, out)
 
     def _frames(self, tokens: torch.Tensor, mask: torch.Tensor, max_frames: int,
-                pick: Callable[[int, int, torch.Tensor], torch.Tensor],
+                pick: Callable[[torch.Tensor], torch.Tensor],
                 stop: Callable[[torch.Tensor, int], bool],
+                step: Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor], None],
                 depth: Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor], None]
                 ) -> Tuple[torch.Tensor, int]:
-        """The frame loop over the prompt: `pick(f, 0, logits [1, V])` gives
-        codebook 0's code [1] of frame f, `depth(f, h, c, out)` runs the
-        frame's depth passes and writes its codes to `out` [Q], `stop(codes,
-        f)` after frame f says whether to end. -> (codes [max_frames, Q]
-        int64, frames computed)."""
+        """The frame loop over the prompt: `pick(logits [1, V])` gives
+        codebook 0's code [1] of frame 0 after the prefill, `step(f, prev, h,
+        c)` runs frame f's backbone step on frame f - 1's codes `prev` [Q]
+        and writes the final norm's output h [1, D] and codebook 0's code c
+        [1], `depth(f, h, c, out)` runs the frame's depth passes and writes
+        its codes to `out` [Q], `stop(codes, f)` after frame f says whether
+        to end. -> (codes [max_frames, Q] int64, frames computed)."""
         m, q, dev = self.model, self.cfg.num_codebooks, self.device
         room = self.cfg.backbone.max_position_embeddings - tokens.shape[0]
         if max_frames < 1 or max_frames > room:
@@ -159,14 +179,15 @@ class CsmEngine:
         bc = self.caches()[0]
         bc.reset()
         codes = torch.zeros((max_frames, q), dtype=torch.int64, device=dev)
+        h = torch.empty((1, self.cfg.backbone.hidden_size), device=dev)
+        c = torch.empty((1,), dtype=torch.int64, device=dev)
         with span("csm.prefill"):
-            h = m.backbone(m.embed_prompt(tokens, mask), bc)[-1:]
-            c = pick(0, 0, m.codebook0_logits(h))
+            h.copy_(m.backbone(m.embed_prompt(tokens, mask), bc)[-1:])
+            c.copy_(pick(m.codebook0_logits(h)))
         for f in range(max_frames):
             if f > 0:
                 with span("csm.backbone"):
-                    h = m.backbone(m.embed_frame(codes[f - 1]), bc)
-                    c = pick(f, 0, m.codebook0_logits(h))
+                    step(f, codes[f - 1], h, c)
             with span("csm.depth"):
                 depth(f, h, c, codes[f])
             if stop(codes, f):
@@ -191,11 +212,14 @@ class CsmEngine:
         int); the utterance is the frames before the first end frame."""
         with span("csm.prepare"):
             noise = self.gumbel(seed, max_frames)
-        sample = lambda f, i, logits: S.sample_topk(logits, noise[f, i: i + 1], temperature, top_k)
-        m, dc, kernel = self.model, self.caches()[1], self.depth_kernel()
+        sample = lambda logits: S.sample_topk(logits, noise[0, :1], temperature, top_k)
+        (bc, dc), m = self.caches(), self.model
+        backbone, kernel = self.backbone_kernel(), self.depth_kernel()
+        step = lambda f, prev, h, c: csm_backbone(m, bc, prev, h, c, noise=noise[f, 0],
+                                                  temperature=temperature, top_k=top_k, kernel=backbone)
         depth = lambda f, h, c, out: csm_depth(m, dc, h, c, out, noise=noise[f], temperature=temperature,
                                                top_k=top_k, kernel=kernel)
-        return self._frames(tokens, mask, max_frames, sample, self._eos_poll(), depth)
+        return self._frames(tokens, mask, max_frames, sample, self._eos_poll(), step, depth)
 
     @torch.inference_mode()
     def synthesize(self, ids: Sequence[int], ref: Optional[CsmReference], *, max_frames: int,
@@ -224,12 +248,15 @@ class CsmEngine:
         n, q = codes.shape
         codes = codes.to(self.device)
         logits = torch.zeros((n, q, self.cfg.vocab_size), device=self.device)
-        m, dc, kernel = self.model, self.caches()[1], self.depth_kernel()
+        (bc, dc), m = self.caches(), self.model
+        backbone, kernel = self.backbone_kernel(), self.depth_kernel()
 
-        def keep(f, i, x):
-            logits[f, i] = x[0]
-            return codes[f, i: i + 1]
+        def keep(x):
+            logits[0, 0] = x[0]
+            return codes[0, :1]
+        step = lambda f, prev, h, c: csm_backbone(m, bc, prev, h, c, forced=codes[f, :1],
+                                                  logits=logits[f, 0], kernel=backbone)
         depth = lambda f, h, c, out: csm_depth(m, dc, h, c, out, forced=codes[f, 1:],
                                                logits=logits[f, 1:], kernel=kernel)
-        self._frames(tokens, mask, n, keep, lambda c, f: False, depth)
+        self._frames(tokens, mask, n, keep, lambda c, f: False, step, depth)
         return logits[:, 0], logits[:, 1:]

@@ -64,6 +64,8 @@
 //     at launch). Every block draws the same code.
 //   * Reductions run in a fixed order and the only atomics count integers,
 //     so a frame's logits and codes repeat bit for bit.
+//   * The ring's bulk copies, the grid barrier's two halves and the sampler
+//     are `csm_stream.cuh`'s, shared with K7 (csm_backbone.cu).
 //
 // On an H100 (700 W) a frame at CSM-1B's widths takes 7.6-7.9 ms, 54-56 %
 // of the 4.27 ms bound (the library chain replayed as a CUDA graph: 11.5-12.6
@@ -73,6 +75,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "csm_stream.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -114,6 +117,8 @@ __device__ unsigned long long g_csm_clk[40];
 __shared__ unsigned long long csm_clk[40];
 #define CSM_CLK(x) x
 #define CSM_ADD(i, t0) do { if (threadIdx.x == 0) csm_clk[i] += clock64() - (t0); } while (0)
+#define CSM_SAMPLER_CLK (csm_clk + 4 * 6)
+constexpr bool kClocks = true;
 extern "C" int sopro_csm_depth_clocks(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_csm_clk, sizeof(g_csm_clk));
   if (e != cudaSuccess) return (int)e;
@@ -123,6 +128,8 @@ extern "C" int sopro_csm_depth_clocks(unsigned long long* out) {
 #else
 #define CSM_CLK(x)
 #define CSM_ADD(i, t0)
+#define CSM_SAMPLER_CLK nullptr
+constexpr bool kClocks = false;
 #endif
 
 // Mirrored field for field by `_Args` in ops/csm_depth.py. Every weight and
@@ -274,53 +281,9 @@ __device__ inline int slot_rows(const Phase& f) { return kStage / (f.K * (f.pair
 
 __device__ __forceinline__ void cbar() { hopper::named_sync(kBarrier, kConsumers); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// An L2 policy that evicts the streamed weights first, so that the exchange,
-// the cache and the embedding rows stay in L2 beside 14 GB a frame.
-__device__ __forceinline__ uint64_t evict_first() {
-  uint64_t pol;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
-  return pol;
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
-                                          uint64_t pol) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1], %2, [%3], %4;\n" ::"r"(hopper::smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(hopper::smem_addr(bar)), "l"(pol)
-      : "memory");
-}
-
 __device__ __forceinline__ void l2_prefetch(const void* src, uint32_t bytes) {
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
 }
-
-// 16 bytes global -> shared, asynchronous, through L2 (cp.async.cg); a
-// thread's copies are done at its cp_async_wait().
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(hopper::smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // Every consumer thread: this block's writes of the phase are done; wait
 // until every block's are (the `n`-th barrier of the launch). Thread 0
@@ -331,28 +294,11 @@ __device__ __forceinline__ void grid_sync(unsigned long long* ctr, unsigned long
   if (threadIdx.x == 0) {
     CSM_CLK(const long long c0 = clock64();)
     const unsigned long long target = n * gridDim.x;
-    unsigned long long v;
-    asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], 1;\n" : "=l"(v) : "l"(ctr) : "memory");
+    const unsigned long long v = csm::grid_arrive(ctr);
     CSM_CLK(if (v + 1 == target) { csm_clk[30] += clock64() - c0; csm_clk[31] += 1; })
-    const unsigned long long t0 = globaltimer();
-    if (v + 1 < target)
-      for (uint32_t tries = 0;; ++tries) {
-        asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(ctr) : "memory");
-        if (v >= target) break;
-        if ((tries & 255) == 255 && globaltimer() - t0 > kSpinNs) __trap();
-      }
+    csm::grid_wait(ctr, target, v, kSpinNs);
   }
   cbar();
-}
-
-// Ordered bits of a float: larger float, larger key (-0 below +0).
-__device__ __forceinline__ uint32_t fkey(float x) {
-  const uint32_t b = __float_as_uint(x);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_float(uint32_t k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
 // ---- the producer --------------------------------------------------------------
@@ -366,7 +312,7 @@ __device__ __forceinline__ float key_float(uint32_t k) {
 // behind them (one slot in flight measured best: PERF.md, K6).
 __device__ void produce(const CsmDepthArgs& a, const Smem& s, int G, int j) {
   const int nph = 2 + 4 * a.L;
-  const uint64_t pol = evict_first();
+  const uint64_t pol = csm::evict_first();
   uint32_t k = 0;  // slot uses so far
   for (int p = 1; p < a.Q; ++p)
     for (int ph = 0; ph < nph; ++ph) {
@@ -383,8 +329,8 @@ __device__ void produce(const CsmDepthArgs& a, const Smem& s, int G, int j) {
         float* dst = s.ring + (size_t)slot * kStage;
         const float* src = f.w + (size_t)(f.r0 + c) * f.K;
         hopper::mbar_expect_tx(&s.full[slot], f.pair ? 2 * bytes : bytes);
-        bulk_load(dst, src, bytes, &s.full[slot], pol);
-        if (f.pair) bulk_load(dst + (size_t)nr * f.K, src + f.pair, bytes, &s.full[slot], pol);
+        csm::bulk_load(dst, src, bytes, &s.full[slot], pol);
+        if (f.pair) csm::bulk_load(dst + (size_t)nr * f.K, src + f.pair, bytes, &s.full[slot], pol);
       }
     }
 }
@@ -410,7 +356,7 @@ __device__ void rms_rows(const float* res, int r0, int nrows, int d, const float
   }
 #pragma unroll
   for (int u = 0; u < kNormPer; ++u) ss = fmaf(v[u], v[u], ss);
-  ss = warp_sum(ss);
+  ss = csm::warp_sum(ss);
   if (lane == 0 && part < per) s.red[m * per + part] = ss;
   cbar();
   float t = 0.f;
@@ -433,9 +379,9 @@ __device__ void prefetch_kv(const CsmDepthArgs& a, const Smem& s, int l, int pos
     const int g = i / n4, r = i - g * n4;
     const int t = r / (a.hd / 4), col = 4 * r - t * a.hd;
     const size_t at = (((size_t)l * a.KVH + g) * a.P) * a.hd / 4 + r;
-    cp_async16(s.xs + X.k + ((size_t)g * a.Q + t) * (a.hd + 4) + col,
+    csm::cp_async16(s.xs + X.k + ((size_t)g * a.Q + t) * (a.hd + 4) + col,
                reinterpret_cast<const float4*>(a.cache_k) + at);
-    cp_async16(s.xs + X.v + (size_t)g * a.Q * a.hd + 4 * r, reinterpret_cast<const float4*>(a.cache_v) + at);
+    csm::cp_async16(s.xs + X.v + (size_t)g * a.Q * a.hd + 4 * r, reinterpret_cast<const float4*>(a.cache_v) + at);
   }
 }
 
@@ -453,7 +399,7 @@ __device__ void attention(const CsmDepthArgs& a, const Smem& s, const float* qg,
   float* ks = s.xs + X.k;
   float* vs = s.xs + X.v;
   CSM_CLK(long long ta = clock64();)
-  cp_async_wait();
+  csm::cp_async_wait();
   CSM_CLK(if (tid == 0) csm_clk[32] += clock64() - ta; ta = clock64();)
   // RoPE (rotate-half) pairs of the q and k heads, then the v values
   const int npair = M * nh * hf, nv = M * a.KVH * hd;
@@ -515,12 +461,12 @@ __device__ void attention(const CsmDepthArgs& a, const Smem& s, const float* qg,
       if (t < 32) e0 = sv;
       else e1 = sv;
     }
-    const float mx = warp_max(fmaxf(e0, e1));
+    const float mx = csm::warp_max(fmaxf(e0, e1));
     e0 = lane < n ? expf(e0 - mx) : 0.f;
     e1 = lane + 32 < n ? expf(e1 - mx) : 0.f;
     if (lane < n) sc[lane] = e0;
     if (lane + 32 < n) sc[lane + 32] = e1;
-    const float inv = 1.0f / warp_sum(e0 + e1);
+    const float inv = 1.0f / csm::warp_sum(e0 + e1);
     __syncwarp();
     for (int c = 4 * lane; c < hd; c += 128) {
       float4 acc[4];  // keys t = 4 i + q into acc[q], summed in q order
@@ -620,8 +566,8 @@ __device__ void run_rows(const CsmDepthArgs& a, const Smem& s, const Phase& f, i
           a1.w = fmaf(wv.w, yv.w, a1.w);
         }
       }
-      const float v0 = warp_sum((a0.x + a0.y) + (a0.z + a0.w));
-      const float v1 = Mx == 2 ? warp_sum((a1.x + a1.y) + (a1.z + a1.w)) : 0.f;
+      const float v0 = csm::warp_sum((a0.x + a0.y) + (a0.z + a0.w));
+      const float v1 = Mx == 2 ? csm::warp_sum((a1.x + a1.y) + (a1.z + a1.w)) : 0.f;
       const int out = r < nr ? r : r - nr;  // gate/up: gate row i and up row nr + i make output i
       int last = 0;
       if (lane == 0) {
@@ -642,95 +588,11 @@ __device__ void run_rows(const CsmDepthArgs& a, const Smem& s, const Phase& f, i
 }
 
 // Every consumer thread: codebook p's pick from the exchange's logits, as
-// `sampling.sample_topk` (module comment), its logits in registers. The k-th
-// largest: four rounds of an 8-bit radix select over the ordered bits, each
-// a histogram (hist[round], zeroed after its use) that every warp scans
-// itself, lane L over bins 8 L.. from the top. Every block computes the same.
+// `sampling.sample_topk` (module comment; `csm::sample_topk`). Every block
+// computes the same.
 __device__ long long sample(const CsmDepthArgs& a, const Smem& s, const float* lg, int p) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, V = a.V;
-  float x[kVPer];
-#pragma unroll
-  for (int u = 0; u < kVPer; ++u) {
-    const int v = tid + u * kConsumers;
-    float l = v < V ? __ldcg(lg + v) : 0.f;
-    if (isnan(l)) l = -1e9f;
-    else if (isinf(l)) l = l > 0.f ? 1e9f : -1e9f;
-    x[u] = __fdiv_rn(l, a.temperature);
-  }
-  CSM_CLK(long long tc = clock64();)
-  uint32_t prefix = 0u, mask = 0u;
-  int krem = min(a.top_k, V);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int shift = 24 - 8 * r;
-    int* hist = s.hist + 256 * r;
-#pragma unroll
-    for (int u = 0; u < kVPer; ++u) {
-      if (u * kConsumers >= V) break;  // the same in every thread
-      const uint32_t key = fkey(x[u]);
-      if (tid + u * kConsumers < V && (key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1);
-    }
-    cbar();
-    const int4 h0 = reinterpret_cast<const int4*>(hist)[2 * lane], h1 = reinterpret_cast<const int4*>(hist)[2 * lane + 1];
-    const int cnt[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};  // bins 8 lane + b
-    const int tot = ((cnt[0] + cnt[1]) + (cnt[2] + cnt[3])) + ((cnt[4] + cnt[5]) + (cnt[6] + cnt[7]));
-    int suf = tot;  // elements in this lane's bins and above
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_down_sync(0xffffffffu, suf, o);
-      if (lane + o < 32) suf += y;
-    }
-    const bool here = suf - tot < krem && krem <= suf;
-    int digit = 0, left = 0, acc = suf - tot;
-    bool found = false;
-#pragma unroll
-    for (int b = 7; b >= 0; --b) {
-      if (here && !found && acc + cnt[b] >= krem) {
-        digit = 8 * lane + b;
-        left = krem - acc;
-        found = true;
-      }
-      acc += cnt[b];
-    }
-    const int from = __ffs(__ballot_sync(0xffffffffu, here)) - 1;
-    prefix |= (uint32_t)__shfl_sync(0xffffffffu, digit, from) << shift;
-    mask |= 255u << shift;
-    krem = __shfl_sync(0xffffffffu, left, from);
-  }
-  const float kth = key_float(prefix);
-  CSM_CLK(if (tid == 0) csm_clk[4 * 6 + 1] += clock64() - tc; tc = clock64();)
-  const float* g = a.noise + (size_t)p * V;
-  float best = -INFINITY;
-  int bi = V;
-#pragma unroll
-  for (int u = 0; u < kVPer; ++u) {
-    const int v = tid + u * kConsumers;
-    if (v < V && x[u] >= kth) {
-      const float sc = x[u] + __ldg(g + v);
-      if (sc > best) best = sc, bi = v;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-    if (ob > best || (ob == best && oi < bi)) best = ob, bi = oi;
-  }
-  if (lane == 0) {
-    s.red[warp] = best;
-    s.red[kWarps + warp] = __int_as_float(bi);
-  }
-  cbar();
-  best = s.red[0];
-  bi = __float_as_int(s.red[kWarps]);
-  for (int w = 1; w < kWarps; ++w) {
-    const float b = s.red[w];
-    const int i = __float_as_int(s.red[kWarps + w]);
-    if (b > best || (b == best && i < bi)) best = b, bi = i;
-  }
-  for (int i = tid; i < 1024; i += kConsumers) s.hist[i] = 0;  // every warp is past its scans
-  CSM_CLK(if (tid == 0) csm_clk[4 * 6 + 2] += clock64() - tc;)
-  return bi;
+  return csm::sample_topk<kConsumers, kVPer, kWarps, kBarrier, kClocks>(
+      lg, a.noise + (size_t)p * a.V, a.V, a.temperature, a.top_k, s.hist, s.red, CSM_SAMPLER_CLK);
 }
 
 // The residual values the block's rows of phase f add to, [M][f.n].

@@ -11,13 +11,15 @@ turns into an exception.
 `KERNELS` names the kernels, each counted on its own; `SOURCES` the files
 they are built from (K1 `ar_loop` and K5 `ar_step` share `ar_loop.cu`, K3
 `seanet` and K4 `seanet_chunk` share `seanet.cu`; K6 `csm_depth`, CSM's
-depth passes, is `csm_depth.cu`). `SOPRO_SOURCES` are the ones Sopro's
-paths run, which its warm-up builds; K6 is built at CSM's first use.
+depth passes, is `csm_depth.cu`, and K7 `csm_backbone`, CSM's backbone
+step, `csm_backbone.cu`). `SOPRO_SOURCES` are the ones Sopro's paths run,
+which its warm-up builds; K6 and K7 are built at CSM's first use.
 `LAUNCHES` counts, per kernel, the wrapper calls that launched its float32
 instantiation on the device, `LAUNCHES_BF16` those of its bfloat16
 instantiation (`count(name, dtype)`; `LAUNCHES_BY_DTYPE` maps the dtype
 name to the dict); `reset_launches()` zeroes both. `LAUNCH_INFO` keeps
-what a kernel chose at launch time (the AR kernels' cluster size).
+what a kernel chose at launch time (the AR kernels' cluster size). The CSM
+wrappers check their tensors with `need`.
 
 Tools that time another build of a source (an older `csrc/`, a text edit,
 a define) build it with `build_variant` and launch it through the same
@@ -44,9 +46,9 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("ar_loop", "ar_step", "nar_heads", "seanet", "seanet_chunk", "csm_depth")
+KERNELS = ("ar_loop", "ar_step", "nar_heads", "seanet", "seanet_chunk", "csm_depth", "csm_backbone")
 SOPRO_SOURCES = ("ar_loop", "nar_heads", "seanet")
-SOURCES = SOPRO_SOURCES + ("csm_depth",)
+SOURCES = SOPRO_SOURCES + ("csm_depth", "csm_backbone")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -231,6 +233,19 @@ def entry(source: str, name: str, argtypes) -> ctypes._CFuncPtr:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def need(kernel: str, name: str, x, shape, dtype, device, align: int = 16) -> None:
+    """Tensor `x`, argument `name` of `kernel`'s wrapper, is `dtype` on
+    `device`, contiguous of `shape`, at an `align`-byte boundary (16 for
+    what a kernel reads 16 bytes at a time); raises ValueError naming it."""
+    if x is None:
+        raise ValueError(f"{kernel}: {name} is missing")
+    if x.device != device or x.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} must be {dtype} on {device}, got {x.dtype} on {x.device}")
+    if tuple(x.shape) != tuple(shape) or not x.is_contiguous() or x.data_ptr() % align:
+        raise ValueError(f"{kernel}: {name} must be contiguous {tuple(shape)} at a {align}-byte "
+                         f"boundary, got {tuple(x.shape)}")
 
 
 def check(rc: int, name: str) -> None:

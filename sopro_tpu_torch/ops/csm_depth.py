@@ -37,6 +37,7 @@ the heads as rows [Q - 1, V, d] (`models/csm.py`).
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Callable, Optional
 
 import torch
@@ -49,6 +50,7 @@ RESV, MAX_LAYERS, MAX_POS, MAX_SMEM = 128, 8, 64, 232448
 MAX_D, MAX_V = 2048, 4096  # kWarps / 2 * 32 * kNormPer, kVPer * kConsumers
 
 _VP = ctypes.c_void_p
+_need = partial(kernels.need, "csm_depth")  # (name, tensor, shape, dtype, device[, align])
 
 
 class _Args(ctypes.Structure):
@@ -147,18 +149,6 @@ def depth_plain(model, cache, h: torch.Tensor, c: torch.Tensor,
         frame.append(c)
         x = model.depth_input(i, c)
     torch.cat(frame, out=out)
-
-
-def _need(name: str, x: Optional[torch.Tensor], shape, dtype, device, align: int = 16) -> None:
-    """x is `dtype` on `device`, contiguous of `shape`, at an `align`-byte
-    boundary (16 for what K6 reads 16 bytes at a time)."""
-    if x is None:
-        raise ValueError(f"csm_depth: {name} is missing")
-    if x.device != device or x.dtype != dtype:
-        raise ValueError(f"csm_depth: {name} must be {dtype} on {device}, got {x.dtype} on {x.device}")
-    if tuple(x.shape) != tuple(shape) or not x.is_contiguous() or x.data_ptr() % align:
-        raise ValueError(f"csm_depth: {name} must be contiguous {tuple(shape)} at a {align}-byte "
-                         f"boundary, got {tuple(x.shape)}")
 
 
 class DepthKernel:

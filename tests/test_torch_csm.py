@@ -5,10 +5,12 @@ reference's full forward, the depth cache started afresh every frame, the
 sampler's noise and tokens, a whole `CsmTTS.synthesize` call, the `hub`
 converter and a snapshot, the shared RoPE helper's llama3 scaling, and the
 reference itself against transformers' `CsmForConditionalGeneration`; the
-depth wrapper (`ops/csm_depth.py`) on CPU tensors, the widths kernel K6
-takes, the heads held as rows. On the card (`cuda`): K6 against the eager passes,
-run twice and under a profiler, its forced mode's picks and logits, and the
-teacher-forced logits at the published widths.
+depth wrapper (`ops/csm_depth.py`) and the backbone-step wrapper
+(`ops/csm_backbone.py`) on CPU tensors, the widths kernels K6 and K7 take,
+the heads held as rows. On the card (`cuda`): K6 and K7 against the eager
+passes and step, run twice and under a profiler, K6's forced mode's picks and
+logits, K7 at the published widths from a cache prefilled to ~300 and to
+2,040 positions, and the teacher-forced logits at the published widths.
 
 Tolerances. Logits: 1e-5 of their largest magnitude. Both sides compute in
 float32 with other kernels and orders (SDPA and fused norms against plain
@@ -37,6 +39,7 @@ from sopro_tpu_torch import sampling as S
 from sopro_tpu_torch.codec.mimi_config import MimiConfig
 from sopro_tpu_torch.csm import CsmTTS
 from sopro_tpu_torch.models.csm import CsmConfig
+from sopro_tpu_torch.ops import csm_backbone as K7
 from sopro_tpu_torch.ops import csm_depth as K6
 from sopro_tpu_torch.ops.rope import inv_freq
 
@@ -415,6 +418,82 @@ def test_packed_heads_give_the_same_logits(tts, sds):
         _close(m.codebook_logits(i, h), h @ heads[i - 1], rel=1e-6)
 
 
+def test_backbone_wrapper_on_cpu_tensors_takes_the_eager_step(tts):
+    """On CPU tensors `csm_backbone` runs `step_plain`: the eager step
+    (`embed_frame`, `backbone` at one position, `codebook0_logits`) and
+    `sample_topk` on codebook 0's noise, bit for bit: the same h, logits,
+    code and cache rows; forced, the given code with the same logits. It
+    takes exactly one of noise and a forced code. Nothing counts as a K7
+    launch."""
+    eng = tts.engine
+    m, bc = eng.model, eng.caches()[0]
+    kernels.reset_launches()
+    rng = np.random.default_rng(8)
+    with torch.inference_mode():
+        bc.reset()
+        m.backbone(torch.from_numpy(rng.standard_normal((20, 64)).astype(np.float32)), bc)
+        k, v = bc.k.clone(), bc.v.clone()
+        noise = eng.gumbel(2 ** 31 + 8, 3)
+        for f in range(3):
+            prev = torch.from_numpy(rng.integers(0, 67, 4))
+            bc.filled = 20 + f
+            want_h = m.backbone(m.embed_frame(prev), bc)
+            want_lg = m.codebook0_logits(want_h)
+            want_c = S.sample_topk(want_lg, noise[f, :1], 0.9, 5)
+            want_k, want_v = bc.k.clone(), bc.v.clone()
+            for forced in (None, torch.tensor([f + 3])):
+                bc.k.copy_(k), bc.v.copy_(v)
+                bc.filled = 20 + f
+                h, c, lg = torch.zeros(1, 64), torch.zeros(1, dtype=torch.int64), torch.zeros(67)
+                kw = dict(noise=noise[f, 0], temperature=0.9, top_k=5) if forced is None else dict(forced=forced)
+                K7.csm_backbone(m, bc, prev, h, c, logits=lg, **kw)
+                assert bc.filled == 21 + f
+                assert torch.equal(h, want_h) and torch.equal(lg, want_lg[0])
+                assert torch.equal(c, want_c if forced is None else forced)
+                assert torch.equal(bc.k, want_k) and torch.equal(bc.v, want_v)
+            k, v = want_k, want_v
+        for kw in ({}, dict(noise=noise[0, 0], forced=torch.tensor([1]))):
+            with pytest.raises(ValueError, match="one of the two"):
+                K7.csm_backbone(m, bc, prev, h, c, **kw)
+    assert kernels.LAUNCHES["csm_backbone"] == 0
+
+
+@pytest.mark.parametrize("cfg,top_k,why", [
+    (_widths(), 50, None),
+    (CsmConfig.from_dict(CSM), 5, None),
+    (_widths(), 10 ** 6, None),  # past V: the whole vocabulary, as sample_topk
+    (_widths(), 0, "top_k 0"),
+    (_widths(backbone={"head_dim": 126}), 50, "head_dim 126"),
+    (_widths(backbone={"head_dim": 128, "num_attention_heads": 16, "num_key_value_heads": 4}), 50,
+     "head_dim 128"),
+    (_widths(backbone={"hidden_size": 5120}), 50, "backbone hidden_size 5120"),
+    (_widths(backbone={"hidden_size": 24}), 50, "backbone hidden_size 24"),
+    (_widths(backbone={"intermediate_size": 8704}), 50, "backbone intermediate_size 8704"),
+    (_widths(backbone={"intermediate_size": 4100}), 50, "backbone intermediate_size 4100"),
+    (_widths(backbone={"num_hidden_layers": 33}), 50, "33 backbone layers"),
+    (_widths(backbone={"num_key_value_heads": 3}), 50, "kv heads"),
+    (_widths(top={"num_codebooks": 65}), 50, "65 codebooks"),
+    (_widths(top={"vocab_size": 4100}), 50, "vocab_size 4100"),
+    (_widths(backbone={"max_position_embeddings": 2049}), 50, "a cache of 2049 positions"),
+    (_widths(backbone={"num_key_value_heads": 1}), 50, "bytes of shared memory"),
+])
+def test_k7_width_checks_name_what_they_refuse(cfg, top_k, why):
+    """K7's `widths_problem` is a pure function of the widths and the
+    cache's positions (the backbone's max_position_embeddings here): None
+    where K7 takes them (CSM-1B, the toy config above), else what it
+    refuses, which `check_widths` raises. CSM-1B's block fits the H100's
+    shared memory."""
+    got = K7.widths_problem(cfg, top_k)
+    if why is None:
+        assert got is None and K7.smem_bytes(cfg) <= K7.MAX_SMEM
+        K7.check_widths(cfg, top_k)
+    else:
+        assert got is not None and why in got, got
+        with pytest.raises(ValueError, match="csm_backbone: "):
+            K7.check_widths(cfg, top_k)
+    assert K7.smem_bytes(CsmConfig()) == 221432 and K7.work_floats(CsmConfig(), 2048) == 85068
+
+
 @pytest.fixture(scope="module")
 def card():
     if not torch.cuda.is_available():
@@ -429,15 +508,19 @@ def _card_tts(sds, card):
 
 @pytest.mark.cuda
 def test_k6_samples_as_the_eager_passes(sds, card):
-    """On the card each frame's depth passes are one K6 launch. Its codes
-    equal the eager passes' (`_depth`: cuBLAS, SDPA, `sample_topk`) on the
-    same noise up to the first near-tied decision (a kept top-two score gap,
-    or the top-k edge's margin, under 1e-4: float32 sums in another order
-    may resolve it either way). Two K6 calls, and one under torch.profiler,
-    give the same codes bit for bit; the profiled one shows one K6 launch
-    in each `csm.depth` span and nothing else launched there (no cuBLAS or
-    SDPA row), and one K6 row a frame on the card."""
+    """On the card each frame's depth passes are one K6 launch and each
+    backbone step after the prefill one K7 launch. Their codes equal the
+    eager passes' and step's (`_depth`, `step_plain`: cuBLAS, SDPA,
+    `sample_topk`) on the same noise up to the first near-tied decision (a
+    kept top-two score gap, or the top-k edge's margin, under 1e-4: float32
+    sums in another order may resolve it either way). Two calls, and one
+    under torch.profiler, give the same codes bit for bit; the profiled one
+    shows one K6 launch in each `csm.depth` span, one K7 launch in each
+    `csm.backbone` span and nothing else launched there (no cuBLAS or SDPA
+    row), and one K6 row a frame and one K7 row a frame after the first on
+    the card."""
     from cudabench import trace
+    from sopro_tpu_torch.ops.csm_backbone import step_plain
 
     tts = _card_tts(sds, card)
     eng = tts.engine
@@ -446,7 +529,7 @@ def test_k6_samples_as_the_eager_passes(sds, card):
     kw = dict(max_frames=20, seed=2 ** 31 + 5, temperature=0.9, top_k=5)
     kernels.reset_launches()
     k6, n = eng.generate(*eng.prompt(ids, r), **kw)
-    assert n == 20 and kernels.LAUNCHES["csm_depth"] == n
+    assert n == 20 and kernels.LAUNCHES["csm_depth"] == n and kernels.LAUNCHES["csm_backbone"] == n - 1
     near = []
     with torch.inference_mode():
         noise = eng.gumbel(kw["seed"], 20)
@@ -455,7 +538,13 @@ def test_k6_samples_as_the_eager_passes(sds, card):
             _, gap, _, margin, _ = R.sample(x, noise[f, i: i + 1], 0.9, 5)
             near.append(min(float(gap[0]), float(margin[0])) < 1e-4)
             return S.sample_topk(x, noise[f, i: i + 1], 0.9, 5)
-        eager, _ = eng._frames(*eng.prompt(ids, r), 20, pick, lambda c, f: False,
+
+        def step(f, prev, h, c):
+            lg = torch.zeros(eng.cfg.vocab_size, device=card)
+            step_plain(eng.model, eng.caches()[0], prev, h, c, noise=noise[f, 0], temperature=0.9, top_k=5,
+                       logits=lg)
+            pick(f, 0, lg[None])
+        eager, _ = eng._frames(*eng.prompt(ids, r), 20, lambda x: pick(0, 0, x), lambda c, f: False, step,
                                lambda f, h, c, out: eng._depth(h, c, lambda i, x: pick(f, i, x), out))
     first = near.index(True) if True in near else len(near)
     assert first > 0 and torch.equal(k6.flatten()[:first], eager.flatten()[:first]), (first, near)
@@ -467,17 +556,43 @@ def test_k6_samples_as_the_eager_passes(sds, card):
         profiled, _ = eng.generate(*eng.prompt(ids, r), **kw)
         torch.cuda.synchronize()
     assert torch.equal(profiled, k6) and kernels.LAUNCHES["csm_depth"] == 20
+    assert kernels.LAUNCHES["csm_backbone"] == 19
     tr = trace.collect(prof)
-    spans = [(a, b) for name, a, b in tr["host"] if name == "csm.depth"]
-    assert len(spans) == 20
-    for a, b in spans:
-        inside = [name for name, x, _ in tr["host"] if a < x < b]
-        launches = [x for x in inside if x.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
-        assert len(launches) == 1, inside
-        assert not [x for x in inside if any(w in x.lower() for w in
-                                              ("mm", "gemv", "cublas", "scaled_dot", "attention"))]
-    rows = [name for name, *_ in tr["kernels"] if "csm_depth_kernel" in name]
-    assert len(rows) == 20, sorted({name for name, *_ in tr["kernels"]})
+    for span_name, count in (("csm.depth", 20), ("csm.backbone", 19)):
+        spans = [(a, b) for name, a, b in tr["host"] if name == span_name]
+        assert len(spans) == count
+        for a, b in spans:
+            inside = [name for name, x, _ in tr["host"] if a < x < b]
+            launches = [x for x in inside if x.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+            assert len(launches) == 1, inside
+            assert not [x for x in inside if any(w in x.lower() for w in
+                                                  ("mm", "gemv", "cublas", "scaled_dot", "attention"))]
+    for kernel, count in (("csm_depth_kernel", 20), ("csm_backbone_kernel", 19)):
+        rows = [name for name, *_ in tr["kernels"] if kernel in name]
+        assert len(rows) == count, sorted({name for name, *_ in tr["kernels"]})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positions", [300, 2040])
+def test_k7_steps_as_the_eager_step_at_published_widths(card, positions):
+    """K7 at CSM-1B's widths (the backbone's weights, the audio table and
+    `lm_head` drawn from a seed, `bench_csm.csm_model`) over 8 steps from a
+    backbone cache prefilled eagerly to `positions` (the cell's prompts,
+    and the cache's end), against `step_plain` on the same codes and noise:
+    codebook-0 logits (forced) within 1e-4 of their peak, likewise the
+    final norm's output and the cache rows the steps write; picks equal up
+    to the first near-tie, and equal to `sample_topk` of K7's own logits;
+    a second run equal bit for bit (`bench_csm.backbone_record`). On an H100
+    the errors read 1.8e-6 - 2.8e-6 of the peak."""
+    from sopro_tpu_torch import bench_csm as BC
+
+    model = BC.csm_model(CsmConfig(), card, 23)
+    rec = BC.backbone_record(model, positions, 0, 1, 29)
+    print("K7 at", positions, "positions:", rec)
+    assert rec["picks_equal"] and rec["picks_equal_until"] > 0, rec
+    assert rec["picks_are_sample_topk"] and rec["repeats"], rec
+    for key in ("forced_logits_rel_err", "h_rel_err", "cache_rel_err"):
+        assert rec[key] <= 1e-4, rec
 
 
 @pytest.mark.cuda

@@ -8,10 +8,13 @@ entry points. The bound and share that `bench_kernels` reports for K2 at
 401 rows, K3 at B = 1 and K4 on a chunk are `cudabench.flops`' counts, the
 ones the cells' `k2_roofline_pct.synth` and `k3_roofline_pct.synth` read:
 the tool runs here at the test configs, its timer stubbed, K3's and K4's
-launches emulated (`tests/test_torch_seanet_chunk.py`).
+launches emulated (`tests/test_torch_seanet_chunk.py`). `kernels.need`,
+the CSM wrappers' tensor check, names the kernel and the argument it
+refuses.
 """
 
 import dataclasses
+import re
 import shutil
 import types
 
@@ -130,3 +133,19 @@ def test_k4_bound_is_the_cells_over_the_chunk(small_mimi):
     assert out["bound_ms"] == pytest.approx(want, rel=1e-12)
     assert out["share_pct"] == pytest.approx(100.0 * want / out["ms"], rel=1e-12)
     assert out["err"] < 1e-5 and len(out["launches"]) == len(small_mimi.packed_decoder()["k3"])
+
+
+def test_need_names_the_kernel_and_the_argument():
+    """`kernels.need`, the wrappers' one tensor check: each refusal names
+    the kernel and the argument; a tensor of the dtype, device, shape and
+    alignment asked for passes."""
+    x = torch.zeros(8, 4)
+    kernels.need("k", "x", x, (8, 4), torch.float32, x.device)
+    refused = [(None, (8, 4), torch.float32, 16, "is missing"),
+               (x, (8, 4), torch.int64, 16, "must be torch.int64"),
+               (x, (4, 8), torch.float32, 16, "must be contiguous (4, 8)"),
+               (x.t(), (4, 8), torch.float32, 16, "must be contiguous (4, 8)"),
+               (x.flatten()[1:], (31,), torch.float32, 16, "16-byte boundary")]
+    for t, shape, dtype, align, why in refused:
+        with pytest.raises(ValueError, match=r"^k: x .*" + re.escape(why)):
+            kernels.need("k", "x", t, shape, dtype, x.device, align)

@@ -240,4 +240,4 @@ def test_cpu_wrappers_run_plain_and_count_nothing(trees):
     for g, w in zip(ar_step(sctx, x, state["bufs"]), ar_step_plain(sctx, x, state["bufs"])):
         assert torch.equal(g, w)
     assert kernels.LAUNCHES == {"ar_loop": 0, "ar_step": 0, "nar_heads": 0, "seanet": 0,
-                                "seanet_chunk": 0, "csm_depth": 0}
+                                "seanet_chunk": 0, "csm_depth": 0, "csm_backbone": 0}
