@@ -58,8 +58,8 @@ class CsmTTS:
         from sopro_tpu_torch.tokenizer import TextTokenizer
 
         local = H.download_repo(repo_id, revision=revision, cache_dir=cache_dir, token=token)
-        raw, flat = H.load_csm_snapshot(local)
-        csm_sd, mimi_sd = H.split_csm_state_dict(flat)
+        raw, flat = H.load_snapshot(local)
+        csm_sd, mimi_sd = H.split_codec(flat, H.CSM_CODEC_PREFIX)
         mimi_cfg = MimiConfig.from_dict(raw.get("codec_config") or {})
         tokenizer = tokenizer if tokenizer is not None else TextTokenizer(model_name=local)
         return cls.from_state_dicts(csm_sd, mimi_sd, CsmConfig.from_dict(raw), mimi_cfg,

@@ -464,16 +464,16 @@ def csm_params_from_flat(sd: SD, cfg) -> Dict[str, Any]:
             "depth": depth, "heads": sd["depth_decoder.codebooks_head.weight"]}
 
 
-def split_csm_state_dict(sd: SD) -> Tuple[SD, SD]:
-    """A CsmForConditionalGeneration state dict -> (the CSM tensors, the
-    Mimi codec's under MimiModel's names)."""
-    n = len(CSM_CODEC_PREFIX)
-    return ({k: v for k, v in sd.items() if not k.startswith(CSM_CODEC_PREFIX)},
-            {k[n:]: v for k, v in sd.items() if k.startswith(CSM_CODEC_PREFIX)})
+def split_codec(sd: SD, prefix: str) -> Tuple[SD, SD]:
+    """A state dict holding a Mimi codec under `prefix` -> (the other
+    tensors, the codec's under MimiModel's names)."""
+    n = len(prefix)
+    return ({k: v for k, v in sd.items() if not k.startswith(prefix)},
+            {k[n:]: v for k, v in sd.items() if k.startswith(prefix)})
 
 
-def load_csm_snapshot(local: str) -> Tuple[Dict, SD]:
-    """A transformers CSM snapshot directory -> (its config.json, the flat
+def load_snapshot(local: str) -> Tuple[Dict, SD]:
+    """A transformers snapshot directory -> (its config.json, the flat
     state dict of model.safetensors or of the shards its
     model.safetensors.index.json lists)."""
     with open(os.path.join(local, "config.json")) as f:
@@ -488,3 +488,43 @@ def load_csm_snapshot(local: str) -> Tuple[Dict, SD]:
     for name in files:
         flat.update(load_flat_safetensors(os.path.join(local, name)))
     return cfg, flat
+
+
+# --------------------------------------------------------------------------
+# Moshi (transformers' MoshiForConditionalGeneration names)
+# --------------------------------------------------------------------------
+
+MOSHI_CODEC_PREFIX = "audio_encoder."
+
+
+def _moshi_layer(sd: SD, p: str) -> Dict[str, Any]:
+    """One decoder layer: `q_proj.linear.weight` etc. ([out, in], or [Q, out,
+    in] stacks in the depformer), q/k/v stacked on the out axis."""
+    attn = [sd[f"{p}.self_attn.{x}_proj.linear.weight"] for x in ("q", "k", "v")]
+    return {"ln1": sd[f"{p}.input_layernorm.weight"],
+            "ln2": sd[f"{p}.post_attention_layernorm.weight"],
+            "qkv": np.concatenate(attn, axis=-2), "o": sd[f"{p}.self_attn.o_proj.linear.weight"],
+            "gate_up": sd[f"{p}.mlp.fc1.weight"], "down": sd[f"{p}.mlp.fc2.weight"]}
+
+
+def moshi_params_from_flat(sd: SD, cfg) -> Dict[str, Any]:
+    """transformers' Moshi names (the codec's `audio_encoder.*` aside) -> the
+    tree of `models.moshi` (a missing tensor raises KeyError naming it).
+    Their q and k rows are already in the rotate-half layout RoPE takes
+    here."""
+    q = cfg.num_codebooks
+    t, d = "decoder.model", "depth_decoder"
+    return {
+        "text_embed": sd[f"{t}.embed_tokens.weight"],
+        "audio_embed": np.stack([sd[f"embed_tokens.{i}.weight"] for i in range(2 * q)]),
+        "temporal": {"layers": [_moshi_layer(sd, f"{t}.layers.{i}")
+                                for i in range(cfg.temporal.num_hidden_layers)],
+                     "norm": sd[f"{t}.norm.weight"]},
+        "lm_head": sd["decoder.lm_head.weight"],
+        "depth": {"layers": [_moshi_layer(sd, f"{d}.layers.{i}")
+                             for i in range(cfg.depth.num_hidden_layers)]},
+        "depth_text_embed": sd[f"{d}.text_embed_tokens.weight"],
+        "depth_audio_embed": np.stack([sd[f"{d}.embed_tokens.{i}.weight"] for i in range(q - 1)]),
+        "depth_proj": sd[f"{d}.input_projections.weight"],
+        "heads": sd[f"{d}.lm_heads.weight"],
+    }

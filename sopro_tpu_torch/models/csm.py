@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -128,6 +128,10 @@ class Rope:
         t = x.shape[0]
         return rotary(x, self.cos[pos: pos + t, None], self.sin[pos: pos + t, None])
 
+    def at(self, x: torch.Tensor, where: torch.Tensor) -> torch.Tensor:
+        """x [1, heads, hd] at the position held on the device in where [1]."""
+        return rotary(x, self.cos[where][:, None], self.sin[where][:, None])
+
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int) -> torch.Tensor:
     """q [T, H, hd] at positions pos..pos+T-1 over the cache's keys and
@@ -150,29 +154,64 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int) -> torc
     return out.transpose(0, 1).reshape(t, h * hd)
 
 
-def decoder(p: Dict[str, Any], cfg: TransformerConfig, rope: Rope, x: torch.Tensor,
-            cache: KVCache) -> torch.Tensor:
+def _attend_at(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """q [1, H, hd] over the keys and values [KVH, n, hd] of the cache's
+    first n positions, `bias` [1, n] added to the scores (-inf past the
+    query's position) -> [1, H * hd]. Batched products and a softmax: with
+    SDPA's float32 kernel in their place Moshi's temporal step took 12.29
+    ms at 512 keys (11.07 with these) and 20.59 ms at 3,000 (12.17) on an
+    H100."""
+    _, h, hd = q.shape
+    kvh = k.shape[0]
+    s = torch.baddbmm(bias, q.view(kvh, h // kvh, hd), k.transpose(1, 2), alpha=hd ** -0.5)
+    return torch.bmm(torch.softmax(s, -1), v).reshape(1, h * hd)
+
+
+def decoder(p: Dict[str, Any], cfg: TransformerConfig, rope: Optional[Rope], x: torch.Tensor,
+            cache: KVCache, weight_set: Optional[int] = None,
+            at: Optional[Tuple[torch.Tensor, int]] = None) -> torch.Tensor:
     """The decoder layers and the final norm over x [T, hidden] at the
     cache's next T positions; writes their keys and values and advances
-    the cache."""
+    the cache. `rope` None: no positional rotation. `weight_set` k: each
+    layer's matrices are stacks [sets, out, in] and this pass takes set k
+    (the norms are shared). A tree with no "norm" ends without one.
+    `at` (where, n): x is one position, at the position held on the device
+    in where [1], attending to the cache's first n positions up to it; the
+    cache's `filled` is neither read nor advanced, so that one CUDA graph
+    serves every position below n."""
     pos, t = cache.filled, x.shape[0]
-    if pos + t > cache.length:
+    if at is None and pos + t > cache.length:
         raise ValueError(f"{pos + t} positions past the cache's {cache.length}")
     h_, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     qk_w, eps = (h_ + kvh) * hd, cfg.rms_norm_eps
+    w = (lambda a: a) if weight_set is None else (lambda a: a[weight_set])
+    if at is not None:
+        where, n = at
+        ar = torch.arange(n, device=x.device)
+        bias = torch.zeros((1, n), dtype=x.dtype, device=x.device).masked_fill_(ar > where, float("-inf"))
     for i, lp in enumerate(p["layers"]):
         h = F.rms_norm(x, (x.shape[-1],), lp["ln1"], eps)
-        qkv = h @ lp["qkv"].t()
-        qk = rope(qkv[:, :qk_w].view(t, h_ + kvh, hd), pos)
-        cache.k[i, :, pos: pos + t] = qk[:, h_:].transpose(0, 1)
-        cache.v[i, :, pos: pos + t] = qkv[:, qk_w:].view(t, kvh, hd).transpose(0, 1)
-        a = _attend(qk[:, :h_], cache.k[i, :, : pos + t], cache.v[i, :, : pos + t], pos)
-        x = torch.addmm(x, a, lp["o"].t())
-        gu = F.rms_norm(x, (x.shape[-1],), lp["ln2"], eps) @ lp["gate_up"].t()
+        qkv = h @ w(lp["qkv"]).t()
+        qk = qkv[:, :qk_w].view(t, h_ + kvh, hd)
+        if at is not None:
+            if rope is not None:
+                qk = rope.at(qk, where)
+            cache.k[i].index_copy_(1, where, qk[:, h_:].transpose(0, 1))
+            cache.v[i].index_copy_(1, where, qkv[:, qk_w:].view(1, kvh, hd).transpose(0, 1))
+            a = _attend_at(qk[:, :h_], cache.k[i, :, :n], cache.v[i, :, :n], bias)
+        else:
+            if rope is not None:
+                qk = rope(qk, pos)
+            cache.k[i, :, pos: pos + t] = qk[:, h_:].transpose(0, 1)
+            cache.v[i, :, pos: pos + t] = qkv[:, qk_w:].view(t, kvh, hd).transpose(0, 1)
+            a = _attend(qk[:, :h_], cache.k[i, :, : pos + t], cache.v[i, :, : pos + t], pos)
+        x = torch.addmm(x, a, w(lp["o"]).t())
+        gu = F.rms_norm(x, (x.shape[-1],), lp["ln2"], eps) @ w(lp["gate_up"]).t()
         f = gu.shape[-1] // 2
-        x = torch.addmm(x, F.silu(gu[:, :f]) * gu[:, f:], lp["down"].t())
-    cache.filled = pos + t
-    return F.rms_norm(x, (x.shape[-1],), p["norm"], eps)
+        x = torch.addmm(x, F.silu(gu[:, :f]) * gu[:, f:], w(lp["down"]).t())
+    if at is None:
+        cache.filled = pos + t
+    return x if p.get("norm") is None else F.rms_norm(x, (x.shape[-1],), p["norm"], eps)
 
 
 class CsmModel(ParamModule):

@@ -111,6 +111,12 @@ def span(name: str):
     return _Recording(name)
 
 
+def profiler_running() -> bool:
+    """Whether a `torch.profiler` runs in any thread: set before its start
+    and cleared only once its stop has torn CUPTI down."""
+    return bool(_autograd_profiler._is_profiler_enabled)
+
+
 def spans() -> List[Span]:
     """A copy of the recorded spans, oldest first (closing order)."""
     return list(_STORE)
